@@ -43,12 +43,19 @@ def scorer_init(cfg: ScorerConfig, generator: torch.Generator) -> dict:
     }
 
 
+def scorer_hidden(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """x: [N, d] -> the first layer's activations relu(x @ w1 + b1)
+    [R, N, H], summed in fp32 and returned in x's dtype. The query path
+    feeds them to the fused output layer + top-m (kernels/irli_topk)."""
+    w1 = params["w1"]
+    h = torch.matmul(x.to(w1.dtype), w1).float()                 # [R, N, H]
+    return torch.relu(h + params["b1"][:, None, :].float()).to(x.dtype)
+
+
 def scorer_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
     """x: [N, d] -> logits [R, N, B] fp32. One batched GEMM pair over all
     reps."""
-    w1 = params["w1"]
-    h = torch.matmul(x.to(w1.dtype), w1).float()                 # [R, N, H]
-    h = torch.relu(h + params["b1"][:, None, :].float()).to(x.dtype)
+    h = scorer_hidden(params, x)
     w2 = params["w2"]
     out = torch.bmm(h.to(w2.dtype), w2).float()                   # [R, N, B]
     return out + params["b2"][:, None, :].float()

@@ -3,17 +3,21 @@ inverted-index members -> per-candidate frequency across the m·R probed
 buckets -> threshold filter -> true-distance re-rank.
 Port of ``repro/core/query.py``.
 
-Two frequency/rerank backends behind :class:`QueryPipeline`:
+Three frequency/rerank backends behind :class:`QueryPipeline`:
 
 dense  — frequency via a scatter-add into a [Q, L] count table and a full
          [Q, L] similarity matrix for the rerank. Memory O(Q·L).
-compact— FrequentOnes top-C per query (``frequency_topC``, the freq_topc
-         kernel on the card), then a gathered rerank over just those C
-         rows; with an int8/bf16 store the two-stage rerank (the
-         quant_rerank kernel, then an exact fp32 refine). No [Q, L] table.
-
-The reference's third backend, ``mode="mega"`` (the whole compact path as
-one fused launch), comes with the next slice of the port: here it raises.
+compact— the scorer's output layer and top-m as one call (the irli_topk
+         kernel on the card: no [R, Q, B] logits), then FrequentOnes top-C
+         per query (``frequency_topC``, the freq_topc kernel on the card)
+         and a gathered rerank over just those C rows; with an int8/bf16
+         store the two-stage rerank (the quant_rerank kernel, then an exact
+         fp32 refine). No [Q, L] table.
+mega   — the compact path as ONE launch of the fused mega_query kernel on
+         the card (kernels/mega_query); on the CPU, and on the card where
+         the kernel cannot serve the request (delta/tombstone state, shapes
+         past its shared memory), the compact sequence, with the same
+         results.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.network import scorer_logits
+from repro_torch.core.network import scorer_hidden
 from repro_torch.core.topk import topk_stable
 from repro_torch.store.quantized import QuantizedStore
 
@@ -39,6 +43,7 @@ def gather_members(members: torch.Tensor, bucket_idx: torch.Tensor,
     """
     R, Q, m = bucket_idx.shape
     rep = torch.arange(R, device=members.device)[:, None, None]
+    bucket_idx = bucket_idx.long()
     cands = members[rep, bucket_idx]                         # [R, Q, m, ML]
     if delta_members is not None:
         cands = torch.cat([cands, delta_members[rep, bucket_idx]], dim=-1)
@@ -54,10 +59,46 @@ def probe_keep_mask(logits: torch.Tensor, top_vals: torch.Tensor,
     softmax mass of the probes before it is still short of ``probe_mass``.
     logits [R, Q, B], top_vals [R, Q, m] (descending) -> bool [R, Q, m];
     probe 0 is always kept."""
-    lse = torch.logsumexp(logits, dim=-1, keepdim=True)        # [R, Q, 1]
-    p = torch.exp(top_vals - lse)                              # [R, Q, m]
+    return probe_keep_from_lse(top_vals, torch.logsumexp(logits, dim=-1),
+                               probe_mass)
+
+
+def probe_keep_from_lse(top_vals: torch.Tensor, lse: torch.Tensor,
+                        probe_mass: float) -> torch.Tensor:
+    """:func:`probe_keep_mask` from the rows' log-sum-exp [R, Q] instead of
+    the logits — what the fused scorer top-m (kernels/irli_topk) returns, so
+    the [R, Q, B] logits need not exist."""
+    p = torch.exp(top_vals - lse[..., None])                   # [R, Q, m]
     mass_before = torch.cumsum(p, dim=-1) - p
     return mass_before < probe_mass
+
+
+def scorer_top_m(params: dict, queries: torch.Tensor, m: int, *,
+                 lse: bool = False):
+    """The probe: the scorer's top-m buckets per rep -> (their logits
+    [R, Q, m] f32 descending, bucket ids [R, Q, m] int32) and, with
+    ``lse``, the rows' log-sum-exp [R, Q]. The first layer is a plain
+    matmul; the output layer and the top-m are one call of the
+    kernels/irli_topk dispatch site (the kernel on the card, which never
+    allocates the [R, Q, B] logits)."""
+    from repro_torch.kernels.irli_topk.ops import scorer_topk
+    w2 = params["w2"]
+    h = scorer_hidden(params, queries).to(w2.dtype)
+    return scorer_topk(h, w2, params["b2"], m=m, lse=lse)
+
+
+def predicted_probe_counts(params: dict, queries: torch.Tensor, m: int,
+                           probe_mass: float) -> torch.Tensor:
+    """Effective probes per (rep, query) under the adaptive-m policy:
+    [R, Q] int32 in [1, m] — the keep mask serving applies, summed."""
+    vals, _, lse = scorer_top_m(params, queries, m, lse=True)
+    keep = probe_keep_from_lse(vals, lse, probe_mass)
+    return keep.sum(dim=-1, dtype=torch.int32)
+
+
+def probe_buckets(params: dict, queries: torch.Tensor, m: int):
+    """Just the probe: top-m bucket ids [R, Q, m] int32 per query."""
+    return scorer_top_m(params, queries, m)[1]
 
 
 def mask_tombstones(cands: torch.Tensor,
@@ -156,14 +197,25 @@ DENSE_TABLE_BUDGET_BYTES = 64 << 20   # default cap on the [Q, L] fp32 tables
 
 def select_mode(L: int, q_batch: int = 512,
                 budget_bytes: int = DENSE_TABLE_BUDGET_BYTES,
-                store_dtype: str = "fp32") -> str:
+                store_dtype: str = "fp32", *, m: int | None = None,
+                topC: int | None = None, refine_k: int | None = None,
+                k: int | None = None) -> str:
     """Pick the frequency/rerank backend from the per-shard corpus size:
     "dense" while its two [q_batch, L] fp32 tables fit the budget and the
-    store is fp32, else "compact". Unlike the reference, this never
-    resolves "mega": the fused backend comes with the next slice."""
+    store is fp32. Otherwise, when the caller passes the probe/rerank knobs
+    (``m``, ``topC``, ``refine_k``, ``k``), "mega" whenever the fused
+    kernel's footprint fits the card (kernels/mega_query/ops.mega_fits),
+    else "compact"; without the knobs, "compact" (the legacy rule of
+    ``QueryPipeline.make``)."""
     dense_fits = (store_dtype == "fp32"
                   and 2 * q_batch * L * 4 <= budget_bytes)
-    return "dense" if dense_fits else "compact"
+    if dense_fits:
+        return "dense"
+    if None not in (m, topC, refine_k, k):
+        from repro_torch.kernels.mega_query.ops import mega_fits
+        if mega_fits(m, topC, refine_k, k):
+            return "mega"
+    return "compact"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,7 +223,8 @@ class QueryPipeline:
     """One query-serving configuration: probe width, frequency threshold,
     rerank depth, the frequency/rerank backend (``mode``) and the vector
     tier (``store_dtype``). See the reference's QueryPipeline for the
-    knobs; ``mode="mega"`` raises NotImplementedError in :meth:`search`.
+    knobs; ``mode="mega"`` serves the compact path as one fused launch
+    (kernels/mega_query/ops.mega_search) with the same results.
     """
     m: int = 5
     tau: int = 1
@@ -187,7 +240,8 @@ class QueryPipeline:
     def __post_init__(self):
         if self.mode not in ("dense", "compact", "mega"):
             raise ValueError(f"unknown pipeline mode {self.mode!r} "
-                             "(use 'dense' or 'compact')")
+                             "(use 'dense', 'compact', 'mega', or "
+                             "make(mode='auto'))")
         if self.store_dtype not in ("fp32", "int8", "bf16"):
             raise ValueError(f"unknown store_dtype {self.store_dtype!r} "
                              "(use 'fp32', 'int8', or 'bf16')")
@@ -199,21 +253,35 @@ class QueryPipeline:
                 "mode='dense' requires store_dtype='fp32' — the dense "
                 "rerank would decode the whole [L, D] store back to fp32")
 
+    @classmethod
+    def make(cls, L: int, *, mode: str = "auto", q_batch: int = 512,
+             budget_bytes: int = DENSE_TABLE_BUDGET_BYTES, **kw):
+        """Build a pipeline, resolving mode="auto" from L and the memory
+        budget by the legacy rule (:func:`select_mode` without the knobs:
+        dense or compact, never mega)."""
+        if mode == "auto":
+            mode = select_mode(L, q_batch, budget_bytes,
+                               kw.get("store_dtype", "fp32"))
+        return cls(mode=mode, **kw)
+
     # -------------------------------------------------------------- stages --
-    def top_m(self, logits: torch.Tensor):
-        """Top-m buckets per rep from raw logits [R, Q, B] -> (bucket ids
-        [R, Q, m], probe keep mask [R, Q, m] or None)."""
-        vals, bidx = topk_stable(logits, self.m)
-        keep = (probe_keep_mask(logits, vals, self.probe_mass)
-                if self.adaptive_m and self.probe_mass < 1.0 else None)
-        return bidx, keep
+    def top_m(self, params, queries):
+        """Top-m buckets per rep -> (bucket ids [R, Q, m] int32, probe keep
+        mask [R, Q, m] or None), through :func:`scorer_top_m`: on the card
+        the [R, Q, B] logits are never allocated, and the keep mask comes
+        from the kernel's log-sum-exp."""
+        adaptive = self.adaptive_m and self.probe_mass < 1.0
+        out = scorer_top_m(params, queries, self.m, lse=adaptive)
+        keep = (probe_keep_from_lse(out[0], out[2], self.probe_mass)
+                if adaptive else None)
+        return out[1], keep
 
     def candidates(self, params, members, queries, delta_members=None,
                    tombstone=None):
         """Probe + gather: top-m buckets per rep -> flat candidate ids
         [Q, R·m·(ML[+DL])] (pad -1), with delta union, tombstone masking
         and (``adaptive_m``) per-query probe truncation."""
-        bidx, keep = self.top_m(scorer_logits(params, queries))
+        bidx, keep = self.top_m(params, queries)
         cands = gather_members(members, bidx, delta_members, probe_keep=keep)
         if tombstone is not None:
             cands = mask_tombstones(cands, tombstone)
@@ -241,10 +309,9 @@ class QueryPipeline:
         a QuantizedStore over the same rows."""
         store = self.resolve_store(base)
         if self.mode == "mega":
-            raise NotImplementedError(
-                "mode='mega' (the fused single-launch query kernel) comes "
-                "with the next slice of the port, together with irli_topk; "
-                "use mode='compact'")
+            from repro_torch.kernels.mega_query.ops import mega_search
+            return mega_search(self, params, members, base, queries,
+                               delta_members, tombstone)
         cands = self.candidates(params, members, queries, delta_members,
                                 tombstone)
         rows = store.codes if store is not None else base

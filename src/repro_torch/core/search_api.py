@@ -72,13 +72,16 @@ class SearchParams:
         return dataclasses.replace(self, **kw)
 
     def resolve(self, n_labels: int, q_batch: int = 512) -> "SearchParams":
-        """Materialize ``mode="auto"`` by ``query.select_mode``: dense while
-        the [q_batch, n_labels] tables fit the budget and the store is fp32,
-        else compact (this slice never resolves "mega")."""
+        """Materialize ``mode="auto"`` by ``query.select_mode`` with this
+        request's knobs: dense while the [q_batch, n_labels] tables fit the
+        budget and the store is fp32; otherwise the fused "mega" when its
+        (m, topC, refine_k, k) footprint fits the card
+        (kernels/mega_query/ops.mega_fits); compact as the fallback."""
         if self.mode != "auto":
             return self
         return self.replace(mode=Q.select_mode(
-            n_labels, q_batch, store_dtype=self.store_dtype))
+            n_labels, q_batch, store_dtype=self.store_dtype, m=self.m,
+            topC=self.topC, refine_k=self.refine_k, k=self.k))
 
     def pipeline(self) -> Q.QueryPipeline:
         """The QueryPipeline realizing these params. Resolve first."""

@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels and the one device rule every wrapper follows.
 
 Each kernel lives in ``kernels/<name>/``: ``<name>.cu`` (CUDA C++ for
-``sm_90a`` behind a plain C interface, built by ``_build.py``), ``ref.py``
-(the plain PyTorch version of the same function) and ``ops.py`` (the
-wrapper, the ONE dispatch site).
+``sm_90a`` behind a plain C interface, built by ``_build.py``) with, where
+another kernel shares its device routines, ``<name>.cuh``; ``ref.py`` (the
+plain PyTorch version of the same function) and ``ops.py`` (the wrapper,
+the ONE dispatch site).
 
 The device rule (:func:`on_card`): a tensor on the CPU takes the plain
 version; a CUDA tensor launches the kernel or raises. There is no fallback
@@ -18,7 +19,8 @@ from __future__ import annotations
 import torch
 
 #: launches per kernel
-LAUNCHES: dict[str, int] = {"freq_topc": 0, "quant_rerank": 0}
+LAUNCHES: dict[str, int] = {"irli_topk": 0, "freq_topc": 0,
+                             "quant_rerank": 0, "mega_query": 0}
 
 
 def reset_launches() -> None:

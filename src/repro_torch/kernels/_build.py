@@ -3,9 +3,12 @@
 Each ``kernels/<name>/<name>.cu`` is compiled on its own by ``nvcc`` into
 ``build/kernels/lib<name>-<hash>.so`` at the repository root (``.gitignore``
 lists ``build/``), at first use, and loaded with ``ctypes``. The file name
-carries a hash of the source and the flags, so an edited source is rebuilt
-and a built one is reused. The sources have a plain C interface and include
-no PyTorch header, so one build takes seconds.
+carries a hash of the flags, the source and every header it includes with
+``#include "..."`` (followed through headers, relative to the including
+file: kernels share device code through ``.cuh`` headers), so an edited
+source or header is rebuilt and a built one is reused. The sources have a
+plain C interface and include no PyTorch header, so one build takes
+seconds.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine with no ``nvcc``.
@@ -15,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -41,11 +45,28 @@ def _source(name: str) -> Path:
     return KERNELS_DIR / name / f"{name}.cu"
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """The kernel's ``.cu`` and every file it includes with quotes, each
+    once, resolved relative to the file that includes it."""
+    todo, seen = [_source(name)], []
+    while todo:
+        path = todo.pop().resolve()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = _source(name)
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(*names: str) -> dict[str, Path]:

@@ -13,7 +13,9 @@
 // 32768-wide row each, so the shared-memory traffic and the __syncthreads
 // between passes bound it, not device memory.
 //
-// Design: one CTA of up to 1024 threads per query row.
+// Design: one CTA of up to 1024 threads per query row. The sort, the run
+// count and the key decode are device routines of freq_topc.cuh, which the
+// fused query kernel (mega_query.cu) shares.
 //   1. The row is padded to n (a power of two, n <= 32768) with INT32_MAX
 //      in place of every pad (-1), and sorted ascending in shared memory.
 //      A 32768-wide row is 128 KB: it fits one of the 227 KB a block may
@@ -35,43 +37,13 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 
+#include "freq_topc.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxWidth = 32768;
 constexpr int kMaxPerThread = kMaxWidth / kMaxThreads;   // 32
-
-// In-place bitonic sort of a[0:n] in shared memory (n a power of two).
-// Every thread takes compare-exchange pairs; one barrier per pass.
-template <bool kDescending>
-__device__ void bitonic_sort(int* a, int n) {
-  const int half = n >> 1;
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = threadIdx.x; t < half; t += blockDim.x) {
-        const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
-        const int p = i + j;
-        const bool up = ((i & k) == 0) != kDescending;
-        const int x = a[i], y = a[p];
-        if ((x > y) == up) {
-          a[i] = y;
-          a[p] = x;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// First index in [lo, n) whose value exceeds v (a ascending).
-__device__ int upper_bound(const int* a, int lo, int n, int v) {
-  int hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] <= v) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
 
 // 1024 threads leave 64 registers a thread: the bound makes ptxas keep to
 // it (the key array may spill to local memory, which L1 caches).
@@ -89,20 +61,15 @@ __global__ void __launch_bounds__(kMaxThreads)
     a[i] = v < 0 ? INT_MAX : v;
   }
   __syncthreads();
-  bitonic_sort<false>(a, n);
+  irli::bitonic_sort<false>(a, n);
 
   int keys[kMaxPerThread];
 #pragma unroll
   for (int r = 0; r < kMaxPerThread; ++r) {
     const int i = threadIdx.x + r * blockDim.x;
     if (i < n) {
-      const int v = a[i];
-      srt[i] = v;
-      int cnt = 0;
-      if (v != INT_MAX && (i == 0 || a[i - 1] != v)) {
-        cnt = upper_bound(a, i + 1, n, v) - i;
-      }
-      keys[r] = cnt * n + (n - 1 - i);
+      srt[i] = a[i];
+      keys[r] = irli::run_key(a, i, n);
     }
   }
   __syncthreads();
@@ -112,16 +79,11 @@ __global__ void __launch_bounds__(kMaxThreads)
     if (i < n) a[i] = keys[r];
   }
   __syncthreads();
-  bitonic_sort<true>(a, n);
+  irli::bitonic_sort<true>(a, n);
 
   for (int j = threadIdx.x; j < C; j += blockDim.x) {
-    int id = -1;
-    int cnt = 0;
-    if (j < n) {
-      const int key = a[j];
-      cnt = key / n;
-      if (cnt > 0) id = srt[n - 1 - key % n];
-    }
+    int id, cnt;
+    irli::decode_slot(a, srt, j, n, &id, &cnt);
     out_ids[row * C + j] = id;
     out_cnt[row * C + j] = static_cast<float>(cnt);
   }

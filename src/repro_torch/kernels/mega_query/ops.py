@@ -1,0 +1,283 @@
+"""The ONE dispatch site of ``mode="mega"`` (core/query.QueryPipeline.search
+routes every such call here) and the fused kernel's H100 footprint model.
+
+``mega_search`` picks, from shapes and state alone, before any launch:
+
+  * on the CPU: the plain version (ref.py, the compact op sequence);
+  * on the card, when the kernel can serve the request (no delta/tombstone
+    state, fp32 scorer, the footprint fits): ONE launch of the fused kernel
+    (mega_query.cu) and no other kernel;
+  * on the card otherwise: the compact pipeline, which launches its own
+    kernels (irli_topk, freq_topc, quant_rerank), with the same results.
+
+The footprint model (``mega_smem_bytes``) is the kernel's shared memory per
+block, the larger of its two layouts: the two 256-thread tile workers'
+scorer tiles (the GEMM slices, the [128, 129] logit tile and the running
+top-m lists), and the per-query stage (the sort row of n = next power of two
+>= R·m·ML candidates, the top-C slots, the packed-key arrays, the query). It
+replaces the reference's TPU VMEM model (kernel_vmem_bytes against 0.75 x
+16 MB): what the H100 limits is one block's 232,448 bytes of shared memory,
+and the freq_topc sort width (n <= 32768).
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import torch
+
+from repro_torch.kernels import LAUNCHES, check_launch, on_card
+from repro_torch.kernels.freq_topc.ops import MAX_WIDTH, sort_width
+from repro_torch.kernels.irli_topk.ops import MAX_M
+from repro_torch.kernels.mega_query.ref import mega_search_ref
+from repro_torch.store.quantized import QuantizedStore
+from repro_torch.store.rerank import resolve_refine_k
+
+#: Serving geometry for SHAPE-FREE eligibility (select_mode runs before the
+#: index exists), the reference's DEFAULT_GEOM: d=128 query dim, H=1024
+#: hidden, B=4096 buckets, R=2 reps, max_load=64, D=128 payload dim, int8
+#: block 32 (tq and tb are TPU tile sizes the H100 model does not read).
+DEFAULT_GEOM = dict(tq=8, d=128, H=1024, B=4096, R=2, ML=64, D=128,
+                    block=32, tb=512)
+#: dynamic shared memory one block may use on the H100 (sm_90)
+SMEM_BYTES = 232_448
+#: store kinds of the kernel
+_KINDS = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
+#: the scorer tile's shared memory, irli_topk.cuh: GEMM slices (2 x 8 x 132
+#: + 2 x 8 x 128 floats), the logit tile (128 x 129), two [128] lse halves;
+#: then 256 threads' lists of m (value, index) pairs
+_TILE_FIXED_BYTES = (2 * 8 * 132 + 2 * 8 * 128 + 128 * 129 + 2 * 128) * 4
+_WORKERS = 2
+
+
+def _pow2(c: int) -> int:
+    p = 1
+    while p < c:
+        p *= 2
+    return p
+
+
+def _align16(nbytes: int) -> int:
+    return (nbytes + 15) // 16 * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The kernel's widths for one request: W candidate slots, the sort
+    width n, C = min(topC, W) FrequentOnes slots, k' coarse survivors and
+    the final k_eff = min(k, C) real columns; Cp, Kp the packed-key sort
+    widths."""
+    W: int
+    n: int
+    C: int
+    Cp: int
+    kp: int
+    Kp: int
+    k_eff: int
+
+
+def plan(R: int, ML: int, m: int, topC: int, refine_k: int, k: int) -> Plan:
+    W = R * m * ML
+    C = min(topC, W)
+    kp = min(resolve_refine_k(refine_k, k, topC), C)
+    return Plan(W=W, n=sort_width(W), C=C, Cp=_pow2(C), kp=kp,
+                Kp=_pow2(kp), k_eff=min(k, C))
+
+
+def smem_bytes(p: Plan, *, R: int, m: int, D: int) -> int:
+    """The launch's dynamic shared memory (mega_query.cu smem_needed)."""
+    per_query = (_align16(max(4 * p.n, 8 * p.Cp, 8 * p.Kp))
+                 + 3 * _align16(4 * p.C) + _align16(4 * D)
+                 + 2 * _align16(4 * R * m) + 2 * _align16(4 * p.kp) + 16)
+    tiles = _WORKERS * (_TILE_FIXED_BYTES + 256 * m * 8)
+    return max(per_query, tiles)
+
+
+def mega_smem_bytes(m: int, topC: int, refine_k: int, k: int, *,
+                    geom: dict | None = None) -> int:
+    """The fused kernel's shared memory per block for a (m, topC, k', k)
+    knob combo over ``geom`` (DEFAULT_GEOM when None)."""
+    g = dict(DEFAULT_GEOM, **(geom or {}))
+    p = plan(g["R"], g["ML"], m, topC, refine_k, k)
+    return smem_bytes(p, R=g["R"], m=m, D=g["D"])
+
+
+def mega_fits(m: int, topC: int, refine_k: int, k: int, *,
+              geom: dict | None = None) -> bool:
+    """True iff the fused kernel can serve these knobs on the H100: the
+    candidate row fits the freq_topc sort (R·m·ML <= MAX_WIDTH), m fits the
+    scorer tile's lists and the buckets, and the shared memory fits one
+    block. The auto-mode gate (core/query.select_mode)."""
+    g = dict(DEFAULT_GEOM, **(geom or {}))
+    if g["R"] * m * g["ML"] > MAX_WIDTH or not 1 <= m <= min(MAX_M, g["B"]):
+        return False
+    return mega_smem_bytes(m, topC, refine_k, k, geom=geom) <= SMEM_BYTES
+
+
+# ------------------------------------------------------------ the kernel --
+@functools.cache
+def _lib():
+    """The kernel's C entries, built and loaded at first use."""
+    from repro_torch.kernels import _build
+    lib = _build.load("mega_query")
+    lib.mega_query_grid.argtypes = [ctypes.c_int, ctypes.c_int,
+                                    ctypes.POINTER(ctypes.c_int)]
+    lib.mega_query_grid.restype = ctypes.c_int
+    lib.mega_query_launch.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.mega_query_launch.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _grid(device_index: int, kind: int, smem: int) -> int:
+    """Blocks of the cooperative launch: as many as fit the card at once."""
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _lib().mega_query_grid(kind, smem, ctypes.byref(grid))
+    check_launch("mega_query (occupancy)", err)
+    return grid.value
+
+
+def _check(name, t, dtype, ndim):
+    if t.dtype != dtype or t.ndim != ndim:
+        raise ValueError(f"mega_query: {name} must be {ndim}-d {dtype}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+
+
+def mega_query(params: dict, members, rows, scales, exact, queries, *,
+               m: int, tau: int, topC: int, k: int, refine_k: int = 0,
+               metric: str = "angular", adaptive_m: bool = False,
+               probe_mass: float = 1.0):
+    """Launch the fused kernel: scorer params (w1 [R, d, H], b1 [R, H], w2
+    [R, H, B], b2 [R, B] f32), members [R, B, ML] int32, rows [L, d] f32 |
+    int8 | bf16 (+ scales [L, d/block] f32 for int8, exact [L, d] f32 or
+    None), queries [Q, d] f32, all on the card -> (ids [Q, k] int32,
+    scores [Q, k] f32, n_candidates [Q] int32). Allocates outputs and
+    scratch with torch.empty: the launch is the only kernel it runs."""
+    w1, b1, w2, b2 = (params[n] for n in ("w1", "b1", "w2", "b2"))
+    if not on_card(w1, b1, w2, b2, members, rows, scales, exact, queries):
+        raise ValueError("mega_query launches on CUDA tensors only")
+    for name, t, nd in (("w1", w1, 3), ("b1", b1, 2), ("w2", w2, 3),
+                        ("b2", b2, 2), ("queries", queries, 2)):
+        _check(name, t, torch.float32, nd)
+    _check("members", members, torch.int32, 3)
+    if rows.dtype not in _KINDS or rows.ndim != 2:
+        raise ValueError(f"mega_query: rows must be [L, D] of "
+                         f"{list(_KINDS)}, got {rows.dtype} "
+                         f"{tuple(rows.shape)}")
+    R, d, H = w1.shape
+    B = w2.shape[2]
+    ML = members.shape[2]
+    L, D = rows.shape
+    Q = queries.shape[0]
+    if (tuple(b1.shape) != (R, H) or tuple(w2.shape) != (R, H, B)
+            or tuple(b2.shape) != (R, B) or tuple(members.shape[:2]) != (R, B)
+            or queries.shape[1] != d or D != d):
+        raise ValueError("mega_query: scorer, members, rows and queries "
+                         "shapes disagree")
+    kind = _KINDS[rows.dtype]
+    n_blocks = block = 1
+    if (scales is not None) != (kind == 1):
+        raise ValueError("mega_query: int8 rows need scales; others take "
+                         "none")
+    if scales is not None:
+        _check("scales", scales, torch.float32, 2)
+        n_blocks = scales.shape[1]
+        block = D // n_blocks
+        if tuple(scales.shape) != (L, n_blocks) or n_blocks * block != D:
+            raise ValueError(f"mega_query: scales {tuple(scales.shape)} do "
+                             f"not block rows [{L}, {D}]")
+    if exact is not None:
+        _check("exact", exact, torch.float32, 2)
+        if tuple(exact.shape) != (L, D):
+            raise ValueError("mega_query: exact tier shape != rows shape")
+    geom = dict(R=R, B=B, ML=ML, d=d, D=D)
+    if not mega_fits(m, topC, refine_k, k, geom=geom):
+        raise ValueError(
+            f"mega_query: m={m}, topC={topC}, refine_k={refine_k}, k={k} at "
+            f"{geom} do not fit the kernel (mega_fits); use mode='compact'")
+    p = plan(R, ML, m, topC, refine_k, k)
+    smem = smem_bytes(p, R=R, m=m, D=D)
+    adaptive = adaptive_m and probe_mass < 1.0
+    dev = queries.device
+    ids = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    scores = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    n_cand = torch.empty((Q,), dtype=torch.int32, device=dev)
+    if Q == 0:
+        return ids, scores, n_cand
+    grid = _grid(dev.index, kind, smem)
+    f32 = dict(dtype=torch.float32, device=dev)
+    scratch = {
+        "hid": torch.empty((R, Q, H), **f32),
+        "part_v": torch.empty((R, Q, m), **f32),
+        "part_i": torch.empty((R, Q, m), dtype=torch.int32, device=dev),
+        "part_lse": torch.empty((R, Q), **f32) if adaptive else None,
+        "srt": torch.empty((grid, p.n), dtype=torch.int32, device=dev),
+        "kscr": torch.empty((grid, p.n), dtype=torch.int32, device=dev),
+    }
+    ins = [t.contiguous() for t in (queries, w1, b1, w2, b2, members, rows)]
+    ins += [None if t is None else t.contiguous() for t in (scales, exact)]
+    ptrs = [None if t is None else t.data_ptr() for t in ins + [
+        scratch["hid"], scratch["part_v"], scratch["part_i"],
+        scratch["part_lse"], scratch["srt"], scratch["kscr"], ids, scores,
+        n_cand]]
+    ints = [Q, D, R, H, B, ML, n_blocks, block, m, p.n, p.C, p.Cp, p.kp,
+            p.Kp, k, p.k_eff, int(metric == "l2"), int(adaptive)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _lib().mega_query_launch(
+            (ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(ints))(*ints), float(tau),
+            float(probe_mass), kind, grid, smem, stream)
+    check_launch("mega_query", err)
+    LAUNCHES["mega_query"] += 1
+    return ids, scores, n_cand
+
+
+def _kernel_eligible(pipe, params, members, base, queries, delta_members,
+                     tombstone) -> bool:
+    """Whether the fused kernel serves this request, decided from state,
+    dtypes and shapes alone (never from a failed launch)."""
+    if delta_members is not None or tombstone is not None:
+        return False                      # streaming state: compact union
+    if any(params[n].dtype != torch.float32 for n in ("w1", "b1", "w2",
+                                                       "b2")):
+        return False
+    if queries.dtype != torch.float32 or members.dtype != torch.int32:
+        return False
+    rows = base.codes if isinstance(base, QuantizedStore) else base
+    if rows.dtype not in _KINDS or rows.shape[1] != queries.shape[1]:
+        return False
+    R, B, ML = members.shape
+    d = queries.shape[1]
+    return mega_fits(pipe.m, pipe.topC, pipe.refine_k, pipe.k,
+                     geom=dict(R=R, B=B, ML=ML, d=d, D=d))
+
+
+def mega_search(pipe, params, members, base, queries, delta_members=None,
+                tombstone=None):
+    """mode="mega" (called by QueryPipeline.search) -> (ids [Q, k] int32,
+    scores [Q, k] f32, n_candidates [Q] int32), the compact path's result.
+    ``base`` is a raw fp32 [L, d] tensor or a QuantizedStore."""
+    store = base if isinstance(base, QuantizedStore) else None
+    rows = store.codes if store is not None else base
+    if not on_card(queries, members, rows):
+        return mega_search_ref(
+            params, members, base, queries, delta_members, tombstone,
+            m=pipe.m, tau=pipe.tau, topC=pipe.topC, k=pipe.k,
+            refine_k=pipe.refine_k, metric=pipe.metric,
+            adaptive_m=pipe.adaptive_m, probe_mass=pipe.probe_mass)
+    if not _kernel_eligible(pipe, params, members, base, queries,
+                            delta_members, tombstone):
+        return dataclasses.replace(pipe, mode="compact").search(
+            params, members, base, queries, delta_members, tombstone)
+    return mega_query(
+        params, members, rows, None if store is None else store.scales,
+        None if store is None else store.exact, queries, m=pipe.m,
+        tau=pipe.tau, topC=pipe.topC, k=pipe.k, refine_k=pipe.refine_k,
+        metric=pipe.metric, adaptive_m=pipe.adaptive_m,
+        probe_mass=pipe.probe_mass)

@@ -28,53 +28,19 @@
 // int64 key, order(score)·2^32 + (2^32-1-position), and a bitonic sort of
 // the C keys in shared memory (padded to a power of two) puts the top-k'
 // first. Vectorised row loads and a wider tile of queries per CTA are left
-// for a later change.
+// for a later change. The scoring and the packed-key sort are device
+// routines of quant_rerank.cuh, which the fused query kernel (mega_query.cu)
+// shares.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <climits>
+#include "quant_rerank.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr long long kLow = 0xffffffffLL;
-
-__device__ __forceinline__ float widen(int8_t c) {
-  return static_cast<float>(c);
-}
-__device__ __forceinline__ float widen(__nv_bfloat16 c) {
-  return __bfloat162float(c);
-}
-
-// A float's bits as a signed integer in the floats' total order (-0 below
-// +0, as jax.lax.top_k sorts): the same map as core/topk.float_order_key.
-__device__ __forceinline__ long long order_key(float s) {
-  const int b = __float_as_int(s);
-  return static_cast<long long>(b < 0 ? (b ^ 0x7fffffff) : b);
-}
-
-// In-place descending bitonic sort of unique keys a[0:n], n a power of two.
-__device__ void bitonic_sort_desc(long long* a, int n) {
-  const int half = n >> 1;
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = threadIdx.x; t < half; t += blockDim.x) {
-        const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
-        const int p = i + j;
-        const bool up = (i & k) != 0;      // descending overall
-        const long long x = a[i], y = a[p];
-        if ((x > y) == up) {
-          a[i] = y;
-          a[p] = x;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
 
 template <typename T>
 __global__ void quant_rerank_kernel(
@@ -88,47 +54,15 @@ __global__ void quant_rerank_kernel(
   float* score = reinterpret_cast<float*>(keys + Cp);     // [C]
   float* q = score + C;                                   // [D]
   const long long row = blockIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
 
   for (int d = threadIdx.x; d < D; d += blockDim.x) q[d] = queries[row * D + d];
   __syncthreads();
-
-  for (int c = warp; c < C; c += kWarps) {
-    const int id = cid[row * C + c];
-    float s = -INFINITY;
-    if (id >= 0 && cnt[row * C + c] >= tau) {     // uniform across the warp
-      const T* crow = codes + static_cast<long long>(id) * D;
-      const float* srow =
-          scales ? scales + static_cast<long long>(id) * n_blocks : nullptr;
-      float acc = 0.0f;
-      for (int d = lane; d < D; d += 32) {
-        float v = widen(crow[d]);
-        if (srow) v *= srow[d / block];
-        if (l2) {
-          const float diff = q[d] - v;
-          acc += diff * diff;
-        } else {
-          acc += q[d] * v;
-        }
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-      s = l2 ? -acc : acc;
-    }
-    if (lane == 0) score[c] = s;
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < Cp; i += blockDim.x) {
-    keys[i] = i < C ? order_key(score[i]) * (kLow + 1) + (kLow - i)
-                    : LLONG_MIN;                  // pads rank below -inf
-  }
-  __syncthreads();
-  bitonic_sort_desc(keys, Cp);
+  irli::score_slots(q, codes, scales, n_blocks, block, D, cid + row * C,
+                    cnt + row * C, tau, C, l2, score);
+  irli::sort_score_keys(score, C, Cp, keys);
 
   for (int j = threadIdx.x; j < kp; j += blockDim.x) {
-    const int pos = static_cast<int>(kLow - (keys[j] & kLow));
+    const int pos = irli::key_pos(keys[j]);
     const float s = score[pos];
     out_scores[row * kp + j] = s;
     out_ids[row * kp + j] = isfinite(s) ? cid[row * C + pos] : -1;
@@ -140,8 +74,7 @@ int launch(const float* queries, const void* codes, const float* scales,
            int n_blocks, int block, const int* cid, const float* cnt, int Q,
            int C, int D, float tau, int kp, int l2, int* out_ids,
            float* out_scores, cudaStream_t stream) {
-  int Cp = 1;
-  while (Cp < C) Cp <<= 1;
+  const int Cp = irli::pow2_at_least(C);
   const size_t smem = static_cast<size_t>(Cp) * sizeof(long long) +
                       static_cast<size_t>(C + D) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(

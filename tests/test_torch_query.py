@@ -23,6 +23,7 @@ from repro.store.quantized import encode as jencode  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import query as TQ  # noqa: E402
 from repro_torch.core.search_api import SearchParams  # noqa: E402
+from repro_torch.kernels.mega_query.ref import mega_search_ref  # noqa: E402
 
 D, B, R, M_PROBE, K_TOP = 16, 16, 2, 4, 5
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -68,11 +69,11 @@ def _assert_same(got, ref):
 
 
 CASES = [(mode, metric, dt, adaptive)
-         for mode in ("compact", "dense")
+         for mode in ("compact", "dense", "mega")
          for metric in ("angular", "l2")
          for dt in ("fp32", "int8", "bf16")
          for adaptive in (False, True)
-         if mode == "compact" or dt == "fp32"]
+         if mode != "dense" or dt == "fp32"]
 
 
 @pytest.mark.parametrize("mode,metric,store_dtype,adaptive", CASES)
@@ -93,6 +94,31 @@ def test_index_search_matches_reference(mode, metric, store_dtype, adaptive):
     assert got.mode == ref.mode == mode
     _assert_same((got.ids, got.scores, got.n_candidates),
                  (ref.ids, ref.scores, ref.n_candidates))
+    if mode == "mega":                  # the plain version, called directly
+        plain = mega_search_ref(
+            tidx.params, tidx.index.members,
+            tstore if tstore is not None else torch.from_numpy(base),
+            torch.from_numpy(queries), m=M_PROBE, tau=1, topC=64, k=K_TOP,
+            refine_k=kw["refine_k"], metric=metric, adaptive_m=adaptive,
+            probe_mass=kw["probe_mass"])
+        for a, b in zip((got.ids, got.scores, got.n_candidates), plain):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("metric", ["angular", "l2"])
+def test_mega_dequant_refine_matches_reference(metric):
+    """An int8 store without an exact tier: the refine re-scores the k'
+    survivors on dequantized codes."""
+    jidx, base, queries = _fixture(seed=4)
+    jstore = jencode(jnp.asarray(base), dtype="int8", block=8)
+    tidx, tstore = _port(jidx, jstore)
+    assert tstore.exact is None
+    kw = dict(m=M_PROBE, tau=1, k=K_TOP, topC=64, metric=metric,
+              mode="mega", store_dtype="int8", refine_k=16)
+    ref = jidx.search(jnp.asarray(queries), jstore, JParams(**kw))
+    got = tidx.search(queries, tstore, SearchParams(**kw))
+    _assert_same((got.ids, got.scores, got.n_candidates),
+                 (ref.ids, ref.scores, ref.n_candidates))
 
 
 @pytest.mark.parametrize("tau", [1, 2])
@@ -109,7 +135,7 @@ def test_auto_mode_and_tau_match_reference(tau):
                  (ref.ids, ref.scores, ref.n_candidates))
 
 
-@pytest.mark.parametrize("mode", ["compact", "dense"])
+@pytest.mark.parametrize("mode", ["compact", "dense", "mega"])
 def test_delta_and_tombstone_match_reference(mode):
     """The streaming state through QueryPipeline.search: delta segments are
     unioned into the gather and tombstoned ids never survive."""
@@ -134,11 +160,87 @@ def test_delta_and_tombstone_match_reference(mode):
     assert not np.isin(got[0].numpy(), np.flatnonzero(tomb)).any()
 
 
-def test_mega_mode_raises():
-    jidx, base, queries = _fixture()
+def test_auto_resolves_mega_like_reference():
+    """SearchParams(mode="auto") over a quantized store resolves "mega" in
+    both packages (the paper's serve request) and serves the same
+    results."""
+    jidx, base, queries = _fixture(seed=5)
+    jstore = jencode(jnp.asarray(base), dtype="int8", block=8)
+    tidx, tstore = _port(jidx, jstore)
+    kw = dict(m=M_PROBE, tau=2, k=K_TOP, topC=64, store_dtype="int8")
+    ref = jidx.search(jnp.asarray(queries), jstore, JParams(**kw))
+    got = tidx.search(queries, tstore, SearchParams(**kw))
+    assert got.mode == ref.mode == "mega"
+    _assert_same((got.ids, got.scores, got.n_candidates),
+                 (ref.ids, ref.scores, ref.n_candidates))
+
+
+# the combos tests/test_mega_query.py pins, and the deep1b cell's knobs
+RESOLVE_CASES = [
+    dict(L=100_000_000, knobs=dict(m=5, topC=1024, refine_k=0, k=10)),
+    dict(L=100_000_000, knobs=dict(m=512, topC=32768, refine_k=0, k=10)),
+    dict(L=100_000_000, knobs=dict(m=4, topC=256, refine_k=64, k=10)),
+    dict(L=1_000, knobs=dict(m=5, topC=1024, refine_k=0, k=10)),
+    dict(L=1_000, knobs=None),
+    dict(L=100_000_000, knobs=None),
+    dict(L=2_000_000, knobs=dict(m=5, topC=1024, refine_k=0, k=10),
+         store_dtype="int8"),
+]
+
+
+@pytest.mark.parametrize("case", RESOLVE_CASES,
+                         ids=lambda c: f"{c['L']}-{c['knobs']}")
+def test_select_mode_and_resolve_match_reference(case):
+    """select_mode with and without the knobs, and SearchParams.resolve,
+    give the reference's mode."""
+    from repro.core.search_api import SearchParams as JP
+    L, knobs = case["L"], case["knobs"]
+    dt = case.get("store_dtype", "fp32")
+    got = TQ.select_mode(L, store_dtype=dt, **(knobs or {}))
+    assert got == JQ.select_mode(L, store_dtype=dt, **(knobs or {}))
+    if knobs is not None:
+        sp = dict(knobs, store_dtype=dt)
+        assert (SearchParams(**sp).resolve(L).mode
+                == JP(**sp).resolve(L).mode)
+        assert TQ.QueryPipeline.make(L, **sp).mode == JQ.QueryPipeline.make(
+            L, **sp).mode
+
+
+def test_mega_fits_the_card():
+    """The H100 footprint model: the deep1b cell fits (n = 32768 sort row,
+    two 94 KB scorer tiles), rows past the freq_topc sort width do not, nor
+    does a footprint past one block's shared memory."""
+    from repro.kernels.mega_query.ops import mega_fits as jfits
+    from repro_torch.kernels.mega_query import ops as mops
+    cell = dict(R=32, B=20000, ML=200, d=96, D=96)
+    assert mops.mega_fits(5, 1024, 0, 10, geom=cell)
+    assert mops.mega_smem_bytes(5, 1024, 0, 10, geom=cell) == 2 * (
+        83712 + 256 * 5 * 8)
+    p = mops.plan(32, 200, 5, 1024, 0, 10)
+    assert (p.W, p.n, p.C, p.kp, p.k_eff) == (32000, 32768, 1024, 40, 10)
+    assert not mops.mega_fits(6, 1024, 0, 10, geom=cell)     # W = 38400
+    assert not mops.mega_fits(5, 1024, 0, 10, geom=dict(cell, ML=205))
+    for args, geom in (((512, 32768, 0, 10), None),
+                       ((128, 32768, 32768, 10), dict(ML=128)),
+                       ((4, 256, 64, 10), dict(ML=128)),
+                       ((5, 1024, 0, 10), None)):
+        assert mops.mega_fits(*args, geom=geom) == jfits(*args, geom=geom)
+    assert not mops.mega_fits(65, 64, 0, 10, geom=dict(R=1, ML=1))
+
+
+def test_probe_counts_and_buckets_match_reference():
+    jidx, _, queries = _fixture(seed=6)
     tidx, _ = _port(jidx)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tidx.search(queries, base, SearchParams(mode="mega", k=K_TOP))
+    jq, tq = jnp.asarray(queries), torch.from_numpy(queries)
+    for pm in (0.5, 0.9, 1.0):
+        got = TQ.predicted_probe_counts(tidx.params, tq, M_PROBE, pm)
+        ref = JQ.predicted_probe_counts(jidx.params, jq, M_PROBE, pm)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    got = TQ.probe_buckets(tidx.params, tq, M_PROBE)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(JQ.probe_buckets(jidx.params, jq, M_PROBE)))
 
 
 def test_entry_points_raise_without_a_card():
