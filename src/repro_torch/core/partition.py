@@ -34,6 +34,33 @@ def loads(assign: torch.Tensor, B: int) -> torch.Tensor:
     return out.scatter_add_(1, assign.long(), torch.ones_like(assign))
 
 
+def load_std(assign: torch.Tensor, B: int) -> torch.Tensor:
+    """Std-dev of bucket load (the paper's Table-3 metric), per rep, then
+    the mean over reps -> 0-d f32."""
+    ld = loads(assign, B).float()
+    return torch.mean(torch.std(ld, dim=1, correction=0))
+
+
+def bucket_targets(assign: torch.Tensor, label_ids: torch.Tensor,
+                   label_mask: torch.Tensor, B: int) -> torch.Tensor:
+    """Multi-hot bucket targets for training (paper §3.2).
+
+    assign [R, L]; label_ids [N, k] true labels per train point (padded);
+    label_mask [N, k], 1 for real labels -> [R, N, B] f32, y[r, n, b] = 1
+    iff some real label of n lies in bucket b. A scatter-max into the
+    zeros: two labels of one row in one bucket, one of them masked, give 1
+    whatever order the writes land in, and no [R, N, k, B] one-hot exists.
+    """
+    R = assign.shape[0]
+    N, k = label_ids.shape
+    buckets = assign[:, label_ids.long()].long()                # [R, N, k]
+    vals = label_mask.to(torch.float32)[None].expand(R, N, k)
+    targets = torch.zeros((R, N, B), dtype=torch.float32,
+                          device=assign.device)
+    return targets.scatter_reduce_(2, buckets, vals, reduce="amax",
+                                   include_self=True)
+
+
 @dataclasses.dataclass(frozen=True)
 class InvertedIndex:
     """Padded CSR-ish inverted index. members[r, b, j] = label id or -1."""

@@ -20,7 +20,8 @@ import torch
 
 #: launches per kernel
 LAUNCHES: dict[str, int] = {"irli_topk": 0, "freq_topc": 0,
-                             "quant_rerank": 0, "mega_query": 0}
+                             "quant_rerank": 0, "mega_query": 0,
+                             "bce_logits": 0, "kchoice": 0}
 
 
 def reset_launches() -> None:

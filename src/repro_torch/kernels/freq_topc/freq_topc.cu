@@ -34,6 +34,15 @@
 //      the scratch row.
 // Faster sorts (warp-level stages in registers, fewer block barriers) are
 // left for a later change.
+//
+// Rows wider than 32768 (the paper's per-node shard gathers C0 ~ 268k) take
+// freq_topc_wide_kernel: the same steps, one CTA of 1024 threads a row, with
+// both sorts in global scratch the wrapper allocates (the ids [Q, n] int32,
+// the keys [Q, n] int64: cnt·n passes int32 once n > 32768). __syncthreads
+// orders a block's global-memory accesses as it orders its shared ones, and
+// a row's scratch (1.5 MB at n = 131072) stays in the L2 cache while the
+// block works on it. Keeping the passes with a small stride in shared
+// memory is left for a later change.
 #include <cuda_runtime.h>
 #include <limits.h>
 
@@ -89,7 +98,55 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+__global__ void __launch_bounds__(kMaxThreads)
+    freq_topc_wide_kernel(const int* __restrict__ cands, int C0, int n, int C,
+                          int* sorted, long long* keys,
+                          int* __restrict__ out_ids,
+                          float* __restrict__ out_cnt) {
+  const long long row = blockIdx.x;
+  const int* src = cands + row * C0;
+  int* a = sorted + row * n;
+  long long* k = keys + row * n;
+
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int v = i < C0 ? src[i] : -1;
+    a[i] = v < 0 ? INT_MAX : v;
+  }
+  __syncthreads();
+  irli::bitonic_sort<false>(a, n);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    k[i] = irli::run_key<long long>(a, i, n);
+  }
+  __syncthreads();
+  irli::bitonic_sort<true>(k, n);
+
+  for (int j = threadIdx.x; j < C; j += blockDim.x) {
+    int id, cnt;
+    irli::decode_slot(k, a, j, n, &id, &cnt);
+    out_ids[row * C + j] = id;
+    out_cnt[row * C + j] = static_cast<float>(cnt);
+  }
+}
+
 }  // namespace
+
+// Rows wider than 32768: n a power of two with 32768 < n <= 2^30 and
+// C0 <= n; sorted [Q, n] int32 and keys [Q, n] int64 scratch; the rest as
+// freq_topc_launch.
+extern "C" int freq_topc_wide_launch(const int* cands, int Q, int C0, int n,
+                                     int C, int* sorted, long long* keys,
+                                     int* out_ids, float* out_cnt,
+                                     void* stream) {
+  if (n <= kMaxWidth || n > (1 << 30) || (n & (n - 1)) != 0 || C0 > n ||
+      C < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (Q == 0) return 0;
+  freq_topc_wide_kernel<<<Q, kMaxThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      cands, C0, n, C, sorted, keys, out_ids, out_cnt);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // cands [Q, C0] int32 (pad -1); n: a power of two with C0 <= n <= 32768;
 // sorted: [Q, n] int32 scratch; out_ids [Q, C] int32, out_cnt [Q, C] f32.

@@ -47,27 +47,30 @@ __device__ __forceinline__ int upper_bound(const int* a, int lo, int n,
 // INT_MAX: cnt·n + (n-1-i), where cnt is the run length if i starts a run
 // of a real id and 0 otherwise — the TPU kernel's key. Keys are unique,
 // the largest count first and the smaller position (= the smaller id) first
-// on a tie; count <= n <= 32768 keeps them in int32.
-__device__ __forceinline__ int run_key(const int* a, int i, int n) {
+// on a tie. Key int holds them while n <= 32768 (count <= n); wider rows
+// take long long keys.
+template <typename Key = int>
+__device__ __forceinline__ Key run_key(const int* a, int i, int n) {
   const int v = a[i];
   int cnt = 0;
   if (v != INT_MAX && (i == 0 || a[i - 1] != v)) {
     cnt = upper_bound(a, i + 1, n, v) - i;
   }
-  return cnt * n + (n - 1 - i);
+  return static_cast<Key>(cnt) * n + (n - 1 - i);
 }
 
 // Slot j of the top-C, decoded from the descending-sorted keys and the
 // ascending-sorted ids: (id, count), or (-1, 0) past the distinct ids.
-__device__ __forceinline__ void decode_slot(const int* keys, const int* srt,
+template <typename Key>
+__device__ __forceinline__ void decode_slot(const Key* keys, const int* srt,
                                             int j, int n, int* id,
                                             int* cnt) {
   *id = -1;
   *cnt = 0;
   if (j < n) {
-    const int key = keys[j];
-    *cnt = key / n;
-    if (*cnt > 0) *id = srt[n - 1 - key % n];
+    const Key key = keys[j];
+    *cnt = static_cast<int>(key / n);
+    if (*cnt > 0) *id = srt[n - 1 - static_cast<int>(key % n)];
   }
 }
 

@@ -195,7 +195,10 @@ __device__ void scorer_topk_tile(const T* h, const T* w2, const T* b2,
   }
   int count = 0;
   int thr = INT_MIN;
-  float mx = -INFINITY, se = 0.0f;
+  // the row's running max and sum of exp(logit - max), Kahan-compensated
+  // (sc): a thread adds ~B/2 terms one by one, and a plain fp32 sum of that
+  // many terms drifts by up to 1e-4 relative once the logits are trained
+  float mx = -INFINITY, se = 0.0f, sc = 0.0f;
   float acc[8][8];
 
   for (int col0 = 0; col0 < N; col0 += kBN) {
@@ -217,10 +220,17 @@ __device__ void scorer_topk_tile(const T* h, const T* w2, const T* b2,
         float tmx = -INFINITY;
         for (int c = 0; c < n_here; ++c) tmx = fmaxf(tmx, crow[c]);
         const float nmx = fmaxf(mx, tmx);
-        float s = mx == -INFINITY ? 0.0f : se * expf(mx - nmx);
-        for (int c = 0; c < n_here; ++c) s += expf(crow[c] - nmx);
+        const float f = mx == -INFINITY ? 0.0f : expf(mx - nmx);
+        float s = se * f, comp = sc * f;
+        for (int c = 0; c < n_here; ++c) {
+          const float y = expf(crow[c] - nmx) - comp;
+          const float t = s + y;
+          comp = (t - s) - y;
+          s = t;
+        }
         mx = nmx;
         se = s;
+        sc = comp;
       }
       for (int c = 0; c < n_here; ++c) {
         const float v = crow[c];
@@ -242,6 +252,7 @@ __device__ void scorer_topk_tile(const T* h, const T* w2, const T* b2,
     tile_sync(bar);
   }
 
+  se -= sc;
   if (c_lo != 0) {
     xmx[srow] = mx;
     xse[srow] = se;

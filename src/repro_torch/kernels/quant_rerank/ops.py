@@ -19,12 +19,29 @@ SMEM_BYTES = 227 * 1024
 
 
 def smem_bytes(C: int, D: int) -> int:
-    """The kernel's shared memory for C candidate slots at width D: the
-    int64 sort keys padded to a power of two, the f32 scores, the query."""
+    """The kernel's shared memory for a pass of C candidate slots at width
+    D: the int64 sort keys padded to a power of two, the f32 scores, the
+    query."""
     Cp = 1
     while Cp < C:
         Cp *= 2
     return Cp * 8 + (C + D) * 4
+
+
+def pass_slots(C: int, D: int) -> int:
+    """Slots the kernel takes a pass: all C (padded to a power of two) where
+    their keys, scores and query fit one block's shared memory, else the
+    largest power of two that fits; the passes then merge into a running
+    top-k' in scratch."""
+    P = 1
+    while P < C:
+        P *= 2
+    while P > 32 and smem_bytes(min(P, C), D) > SMEM_BYTES:
+        P //= 2
+    if smem_bytes(min(P, C), D) > SMEM_BYTES:
+        raise ValueError(f"quant_rerank: width D={D} leaves no room for a "
+                         f"pass of slots in {SMEM_BYTES} B of shared memory")
+    return P
 
 
 @functools.cache
@@ -35,9 +52,9 @@ def _launcher():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -54,7 +71,9 @@ def quant_rerank(queries, codes, scales, cand_ids, cand_counts, *, tau: int,
     scales [L, D/block] f32 (None for bf16), cand_ids [Q, C] int32 (pad -1,
     every id < L), cand_counts [Q, C] f32 -> (ids [Q, k'] int32 with -1
     where no survivor, coarse scores [Q, k'] f32, -inf there),
-    k' = min(k, C)."""
+    k' = min(k, C). The slots run in passes of ``pass_slots(C, D)``: one
+    pass while their sort keys fit one block's shared memory (C <= 16384
+    at D <= 8960), else passes merged into a running top-k' in scratch."""
     if not on_card(queries, codes, scales, cand_ids, cand_counts):
         raise ValueError("quant_rerank launches on CUDA tensors only")
     if metric not in _METRICS:
@@ -76,11 +95,7 @@ def quant_rerank(queries, codes, scales, cand_ids, cand_counts, *, tau: int,
         _check("scales", scales, torch.float32, (L, n_blocks))
         if n_blocks * block != D:
             raise ValueError(f"{n_blocks} scale blocks do not divide D={D}")
-    if smem_bytes(C, D) > SMEM_BYTES:
-        raise ValueError(
-            f"quant_rerank: topC={C} candidate slots at D={D} need "
-            f"{smem_bytes(C, D)} B of shared memory, over the {SMEM_BYTES} B "
-            f"one block may use; topC <= 16384 fits at D <= 8960")
+    P = pass_slots(C, D)
     kp = min(k, C)
     dev = cand_ids.device
     ids = torch.empty((Q, kp), dtype=torch.int32, device=dev)
@@ -93,13 +108,16 @@ def quant_rerank(queries, codes, scales, cand_ids, cand_counts, *, tau: int,
     if scales is not None:
         scales = scales.contiguous()
         scales_ptr = scales.data_ptr()
+    run = (torch.empty((Q, 2, kp), dtype=torch.int64, device=dev)
+           if P < C else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _launcher()(
             queries.data_ptr(), codes.data_ptr(), _CODE_DTYPES[codes.dtype],
             scales_ptr, n_blocks, block, cand_ids.data_ptr(),
-            cand_counts.data_ptr(), Q, C, D, float(tau), kp,
-            _METRICS[metric], ids.data_ptr(), vals.data_ptr(), stream)
+            cand_counts.data_ptr(), Q, C, P, D, float(tau), kp,
+            _METRICS[metric], None if run is None else run.data_ptr(),
+            ids.data_ptr(), vals.data_ptr(), stream)
     check_launch("quant_rerank", err)
     LAUNCHES["quant_rerank"] += 1
     return ids, vals

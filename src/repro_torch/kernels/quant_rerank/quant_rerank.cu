@@ -31,6 +31,17 @@
 // for a later change. The scoring and the packed-key sort are device
 // routines of quant_rerank.cuh, which the fused query kernel (mega_query.cu)
 // shares.
+//
+// The kernel takes the slots in passes of P (a power of two): P covers all C
+// slots wherever their keys fit one block's shared memory (topC <= 16384 at
+// D <= 8960), so the usual call is one pass whose sorted keys give the top-k'
+// directly. Wider rows take several passes; each pass's best k' merges into a
+// running top-k' that lives in global scratch ([Q, 2, k'] int64,
+// double-buffered, so k' itself has no shared-memory limit): each key's slot
+// in the merged list is its index in its own list plus the count of larger
+// keys in the other (a binary search; the keys are unique, as they carry the
+// position). The score comes back out of the key (its high half is the
+// score's total-order bits), exactly.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -42,48 +53,103 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// The float a key's high half encodes (the inverse of irli::order_key).
+__device__ __forceinline__ float key_score(long long key) {
+  const int k = static_cast<int>(key >> 32);
+  return __int_as_float(k < 0 ? (k ^ 0x7fffffff) : k);
+}
+
+// The count of a[0:n] (descending) above v.
+__device__ __forceinline__ int count_above(const long long* a, int n,
+                                           long long v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] > v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
 template <typename T>
 __global__ void quant_rerank_kernel(
     const float* __restrict__ queries, const T* __restrict__ codes,
     const float* __restrict__ scales, int n_blocks, int block,
-    const int* __restrict__ cid, const float* __restrict__ cnt, int C, int Cp,
-    int D, float tau, int kp, int l2, int* __restrict__ out_ids,
-    float* __restrict__ out_scores) {
+    const int* __restrict__ cid, const float* __restrict__ cnt, int C, int P,
+    int D, float tau, int kp, int l2, long long* run,
+    int* __restrict__ out_ids, float* __restrict__ out_scores) {
   extern __shared__ __align__(16) unsigned char smem[];
-  long long* keys = reinterpret_cast<long long*>(smem);   // [Cp]
-  float* score = reinterpret_cast<float*>(keys + Cp);     // [C]
-  float* q = score + C;                                   // [D]
+  const int S = min(P, C);                                // slots a pass
+  long long* keys = reinterpret_cast<long long*>(smem);   // [P]
+  float* score = reinterpret_cast<float*>(keys + P);      // [S]
+  float* q = score + S;                                   // [D]
   const long long row = blockIdx.x;
+  const int n_pass = (C + P - 1) / P;
 
   for (int d = threadIdx.x; d < D; d += blockDim.x) q[d] = queries[row * D + d];
   __syncthreads();
-  irli::score_slots(q, codes, scales, n_blocks, block, D, cid + row * C,
-                    cnt + row * C, tau, C, l2, score);
-  irli::sort_score_keys(score, C, Cp, keys);
-
+  for (int p = 0; p < n_pass; ++p) {
+    const int p0 = p * P;
+    const int n = min(P, C - p0);
+    irli::score_slots(q, codes, scales, n_blocks, block, D, cid + row * C + p0,
+                      cnt + row * C + p0, tau, n, l2, score);
+    __syncthreads();
+    for (int i = threadIdx.x; i < P; i += blockDim.x) {
+      keys[i] = i < n ? irli::order_key(score[i]) * (irli::kLow + 1) +
+                            (irli::kLow - (p0 + i))
+                      : LLONG_MIN;
+    }
+    __syncthreads();
+    irli::bitonic_sort<true>(keys, P);
+    if (n_pass == 1) break;                 // keys[0:kp] is the top-k'
+    long long* mine = run + row * 2 * kp;   // this row's [2, kp] buffers
+    const long long* in = mine + ((p + 1) & 1) * kp;
+    long long* out = mine + (p & 1) * kp;
+    const int nb = min(P, kp);
+    for (int j = threadIdx.x; j < kp; j += blockDim.x) {
+      out[j] = (p == 0 && j < nb) ? keys[j] : LLONG_MIN;
+    }
+    __syncthreads();
+    if (p > 0) {
+      for (int i = threadIdx.x; i < kp; i += blockDim.x) {
+        const long long a = in[i];
+        if (a == LLONG_MIN) continue;
+        const int rank = i + count_above(keys, nb, a);
+        if (rank < kp) out[rank] = a;
+      }
+      for (int j = threadIdx.x; j < nb; j += blockDim.x) {
+        const long long b = keys[j];
+        if (b == LLONG_MIN) continue;
+        const int rank = j + count_above(in, kp, b);
+        if (rank < kp) out[rank] = b;
+      }
+    }
+    __syncthreads();
+  }
+  const long long* best =
+      n_pass == 1 ? keys : run + row * 2 * kp + ((n_pass - 1) & 1) * kp;
   for (int j = threadIdx.x; j < kp; j += blockDim.x) {
-    const int pos = irli::key_pos(keys[j]);
-    const float s = score[pos];
+    const long long key = best[j];
+    const float s = key_score(key);
     out_scores[row * kp + j] = s;
-    out_ids[row * kp + j] = isfinite(s) ? cid[row * C + pos] : -1;
+    out_ids[row * kp + j] =
+        isfinite(s) ? cid[row * C + irli::key_pos(key)] : -1;
   }
 }
 
 template <typename T>
 int launch(const float* queries, const void* codes, const float* scales,
            int n_blocks, int block, const int* cid, const float* cnt, int Q,
-           int C, int D, float tau, int kp, int l2, int* out_ids,
-           float* out_scores, cudaStream_t stream) {
-  const int Cp = irli::pow2_at_least(C);
-  const size_t smem = static_cast<size_t>(Cp) * sizeof(long long) +
-                      static_cast<size_t>(C + D) * sizeof(float);
+           int C, int P, int D, float tau, int kp, int l2, long long* run,
+           int* out_ids, float* out_scores, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(P) * sizeof(long long) +
+                      static_cast<size_t>((P < C ? P : C) + D) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       quant_rerank_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   quant_rerank_kernel<T><<<Q, kThreads, smem, stream>>>(
       queries, static_cast<const T*>(codes), scales, n_blocks, block, cid, cnt,
-      C, Cp, D, tau, kp, l2, out_ids, out_scores);
+      C, P, D, tau, kp, l2, run, out_ids, out_scores);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -92,15 +158,19 @@ int launch(const float* queries, const void* codes, const float* scales,
 // queries [Q, D] f32; codes [L, D] int8 (code_dtype 0) or bf16 (1); scales
 // [L, n_blocks] f32 with D = n_blocks·block, or NULL for bf16; cid [Q, C]
 // int32 (pad -1, every id < L); cnt [Q, C] f32; 1 <= kp <= C; metric 0 =
-// angular, 1 = l2. out_ids / out_scores [Q, kp]. Returns cudaGetLastError()
-// after the launch (0 on success).
+// angular, 1 = l2. P: slots a pass, a power of two (P·8 + (min(P, C) + D)·4
+// bytes of shared memory); run: [Q, 2, kp] int64 scratch, read only when
+// P < C (NULL allowed otherwise). out_ids / out_scores [Q, kp]. Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int quant_rerank_launch(const float* queries, const void* codes,
                                    int code_dtype, const float* scales,
                                    int n_blocks, int block, const int* cid,
-                                   const float* cnt, int Q, int C, int D,
-                                   float tau, int kp, int metric, int* out_ids,
+                                   const float* cnt, int Q, int C, int P,
+                                   int D, float tau, int kp, int metric,
+                                   long long* run, int* out_ids,
                                    float* out_scores, void* stream) {
-  if (C < 1 || kp < 1 || kp > C || D < 1 || block < 1 ||
+  if (C < 1 || kp < 1 || kp > C || D < 1 || block < 1 || P < 1 ||
+      (P & (P - 1)) != 0 || (P < C && run == nullptr) ||
       (scales != nullptr && n_blocks * block != D)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -108,12 +178,13 @@ extern "C" int quant_rerank_launch(const float* queries, const void* codes,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (code_dtype == 0) {
     return launch<int8_t>(queries, codes, scales, n_blocks, block, cid, cnt, Q,
-                          C, D, tau, kp, metric, out_ids, out_scores, s);
+                          C, P, D, tau, kp, metric, run, out_ids, out_scores,
+                          s);
   }
   if (code_dtype == 1) {
     return launch<__nv_bfloat16>(queries, codes, scales, n_blocks, block, cid,
-                                 cnt, Q, C, D, tau, kp, metric, out_ids,
-                                 out_scores, s);
+                                 cnt, Q, C, P, D, tau, kp, metric, run,
+                                 out_ids, out_scores, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

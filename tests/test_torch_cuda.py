@@ -78,13 +78,17 @@ def test_freq_topc_kernel_matches_plain_exactly(card, Q, C0, V, C):
 
 
 def test_freq_topc_raises_on_rows_wider_than_the_kernel(card):
-    """A row past MAX_WIDTH raises on the card: no plain version there."""
-    cands = torch.zeros((1, fops.MAX_WIDTH + 1), dtype=torch.int32,
-                        device=card)
-    reset_launches()
-    with pytest.raises(ValueError, match="wide-row"):
-        fops.frequent_topc(cands, C=8)
-    assert LAUNCHES["freq_topc"] == 0
+    """Rows past MAX_WIDTH launch the kernel's wide variant (sorts in global
+    scratch, int64 keys): 40,000- and 70,000-wide rows (padded to 65,536
+    and 131,072) equal freq_topc_ref bit for bit, one launch each."""
+    for C0, V, C in ((40_000, 30_000, 1024), (70_000, 500, 4096)):
+        cands = torch.from_numpy(_cands(3, C0, V)).to(card)
+        reset_launches()
+        ids, cnt = fops.frequent_topc(cands, C=C)
+        torch.cuda.synchronize()
+        assert LAUNCHES["freq_topc"] == 1
+        rids, rcnt = freq_topc_ref(cands, C=C)
+        assert torch.equal(ids, rids) and torch.equal(cnt, rcnt)
 
 
 @pytest.mark.parametrize("dtype", ["int8", "bf16"])
@@ -114,16 +118,30 @@ def test_quant_rerank_kernel_matches_plain(card, Q, L, D, C, k, blk, metric,
     assert flagged <= max(1, Q // 8)
 
 
-def test_quant_rerank_raises_past_shared_memory(card):
-    """topC = 16385 needs 32768 int64 sort keys, past one block's shared
-    memory: the wrapper raises before the launch."""
-    queries, cid, cnt, tstore = _quant_inputs(2, 100, 96, 16385, 32, "int8",
-                                              2)
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+@pytest.mark.parametrize("C,k", [(20_000, 40), (16_385, 40),
+                                 (40_000, 20_000)])
+def test_quant_rerank_raises_past_shared_memory(card, C, k, dtype):
+    """topC past one block's shared memory (16385 slots need 32768 sort
+    keys) runs in passes of 16384 slots merged into a running top-k' (k' up
+    to 20,000, in scratch). Held against the plain version by
+    ref.same_topk."""
+    queries, cid, cnt, tstore = _quant_inputs(4, 3000, 96, C, 32, dtype, 2)
     args = [torch.from_numpy(a).to(card) for a in (queries, cid, cnt)]
-    with pytest.raises(ValueError, match="topC=16385"):
-        qops.quant_coarse_topk(args[0], tstore.codes.to(card),
-                               tstore.scales.to(card), args[1], args[2],
-                               tau=1, k=40)
+    codes = tstore.codes.to(card)
+    scales = None if tstore.scales is None else tstore.scales.to(card)
+    reset_launches()
+    ids, vals = qops.quant_coarse_topk(args[0], codes, scales, args[1],
+                                       args[2], tau=1, k=k)
+    torch.cuda.synchronize()
+    assert LAUNCHES["quant_rerank"] == 1
+    assert qops.smem_bytes(C, 96) > qops.SMEM_BYTES
+    assert qops.pass_slots(C, 96) == 16384
+    rids, rvals = quant_rerank_ref(args[0], codes, scales, args[1], args[2],
+                                   tau=1, k=k)
+    _, wide = quant_rerank_ref(args[0], codes, scales, args[1], args[2],
+                               tau=1, k=k + 1)
+    assert same_topk(ids, rids, vals, rvals, wide) <= 1
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -149,6 +167,131 @@ def test_irli_topk_kernel_matches_plain(card, G, Q, H, B, m, dtype):
     assert bool(near(lse, ref_lse, 1e-5).all())
     v1, i1 = iops.scorer_topk(args[0][0], args[1][0], args[2][0], m=m)
     assert torch.equal(v1, vals[0]) and torch.equal(i1, idx[0])
+
+
+@pytest.mark.parametrize("m", [65, 128, 1000, 3000])
+def test_irli_topk_kernel_matches_plain_past_64(card, m):
+    """m > 64 runs the radix-select variant (one [128, B] slab of logits a
+    block): values and lse to 1e-5, ids equal outside near ties, m = B
+    included; G·Q spans several tiles a block."""
+    G, Q, H, B = 3, 300, 96, 3000
+    rng = np.random.default_rng(m)
+    args = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(card)
+            for s in ((G, Q, H), (G, H, B), (G, B))]
+    reset_launches()
+    vals, idx, lse = iops.scorer_topk(*args, m=m, lse=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["irli_topk"] == 1
+    wide_v, wide_i, ref_lse = irli_topk_ref(*args, m=min(m + 1, B), lse=True)
+    cut, _ = same_topm(vals, idx, wide_v, wide_i)
+    assert cut <= max(1, G * Q // 16)
+    assert bool(near(lse, ref_lse, 1e-5).all())
+    # without lse: the same values and ids
+    v2, i2 = iops.scorer_topk(*args, m=m)
+    assert torch.equal(v2, vals) and torch.equal(i2, idx)
+
+
+def test_irli_topk_wide_bf16_and_ragged(card):
+    rng = np.random.default_rng(5)
+    args = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        card, torch.bfloat16) for s in ((2, 130, 33), (2, 33, 777), (2, 777))]
+    vals, idx = iops.scorer_topk(*args, m=777)
+    wide_v, wide_i = irli_topk_ref(*args, m=777)
+    same_topm(vals, idx, wide_v, wide_i)
+
+
+@pytest.mark.parametrize("rows,B,weighted", [
+    (64, 512, False), (96, 1001, True), (4 * 128, 20000, True)])
+def test_bce_logits_kernel_matches_plain(card, rows, B, weighted):
+    """Loss to 1e-6 relative, gradient to 1e-6: the kernel sums in double
+    and computes σ with expf, the plain version in fp32 torch. Unit weights
+    and scale 1/N give the reference's fused_bce; the weighted form has
+    zero-weight rows (the tail batch's padding)."""
+    from repro_torch.kernels.bce_logits import ops as bops
+    from repro_torch.kernels.bce_logits.ref import weighted_bce_ref
+    rng = np.random.default_rng(rows + B)
+    x = torch.from_numpy(rng.normal(size=(rows, B)).astype(np.float32) * 4
+                         ).to(card)
+    y = torch.from_numpy((rng.random((rows, B)) > 0.9).astype(np.float32)
+                         ).to(card)
+    n = rows // 4
+    w = None
+    scale = 1.0 / rows
+    if weighted:
+        w = torch.from_numpy(rng.random(n).astype(np.float32)).to(card)
+        w[-3:] = 0.0
+        scale = 1.0 / (4 * max(float(w.sum()), 1.0))
+    reset_launches()
+    loss, grad = bops.weighted_bce(x, y, w, scale=scale)
+    torch.cuda.synchronize()
+    assert LAUNCHES["bce_logits"] == 1
+    rloss, rgrad = weighted_bce_ref(x, y, w, scale)
+    assert abs(float(loss) - float(rloss)) <= 1e-6 * abs(float(rloss))
+    torch.testing.assert_close(grad, rgrad, rtol=1e-6, atol=1e-6)
+    again, _ = bops.weighted_bce(x, y, w, scale=scale)
+    assert float(again) == float(loss)        # no atomics: run to run
+
+
+def test_sigmoid_bce_autograd_on_the_card(card):
+    """scorer_loss_parts(sigmoid_bce) through the kernel: loss and all four
+    parameter gradients equal the plain version's (CPU) to 1e-5."""
+    from repro_torch.core import network as TN
+    cfg = TN.ScorerConfig(d_in=16, d_hidden=64, n_buckets=300, n_reps=3,
+                          loss="sigmoid_bce")
+    rng = np.random.default_rng(0)
+    params = {k: rng.normal(size=s).astype(np.float32) * 0.3 for k, s in (
+        ("w1", (3, 16, 64)), ("b1", (3, 64)), ("w2", (3, 64, 300)),
+        ("b2", (3, 300)))}
+    x = rng.normal(size=(40, 16)).astype(np.float32)
+    y = (rng.random((3, 40, 300)) > 0.95).astype(np.float32)
+    w = np.ones(40, np.float32)
+    w[-5:] = 0
+    out = []
+    for dev in ("cpu", card):
+        p = {k: torch.tensor(v, device=dev, requires_grad=True)
+             for k, v in params.items()}
+        s, _ = TN.scorer_loss_parts(p, cfg, torch.tensor(x, device=dev),
+                                    torch.tensor(y, device=dev),
+                                    torch.tensor(w, device=dev), scale=0.01)
+        g = torch.autograd.grad(s, [p[k] for k in sorted(p)])
+        out.append([s.detach().cpu()] + [t.cpu() for t in g])
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("G,L,K,B,weighted", [
+    (3, 5000, 10, 700, False), (2, 3000, 40, 129, True),
+    (1, 16384, 10, 20000, False)])
+def test_kchoice_kernel_matches_plain_bit_for_bit(card, G, L, K, B,
+                                                  weighted):
+    """One launch for all reps, bit-identical to the plain loop: the same
+    float32 adds in the same order; large load0 exercises the tie rule."""
+    from repro_torch.kernels.kchoice import ops as kops
+    from repro_torch.kernels.kchoice.ref import kchoice_ref
+    rng = np.random.default_rng(L + K)
+    topk = np.stack([[rng.choice(B, K, replace=False) for _ in range(L)]
+                     for _ in range(G)]).astype(np.int32)
+    order = np.stack([rng.permutation(L) for _ in range(G)]).astype(np.int32)
+    load0 = (rng.integers(0, 3, (G, B)) + 2.0 ** 23).astype(np.float32)
+    w = rng.random(L).astype(np.float32) if weighted else None
+    t = lambda a: None if a is None else torch.from_numpy(a).to(card)
+    reset_launches()
+    got = kops.kchoice_assign(t(topk), t(order), t(load0), t(w), B=B)
+    torch.cuda.synchronize()
+    assert LAUNCHES["kchoice"] == 1
+    want = kchoice_ref(t(topk), t(order), t(load0), t(w), B=B)
+    assert torch.equal(got, want)
+
+
+def test_kchoice_step_cycles_are_latencies(card):
+    """The latencies behind kchoice's bound: a shared-memory
+    read-add-write and one shuffle-and-min level, each a few to a few
+    hundred SM clocks; launching the probe counts no kchoice launch."""
+    from repro_torch.kernels.kchoice import ops as kops
+    reset_launches()
+    rmw, level = kops.step_cycles(card)
+    assert 4 <= rmw <= 500 and 4 <= level <= 500, (rmw, level)
+    assert LAUNCHES["kchoice"] == 0
 
 
 def _mega_inputs(card, dtype, *, exact, Q=70, L=3000, D=32, R=3, B=48,

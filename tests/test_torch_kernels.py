@@ -11,6 +11,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.core.query import sorted_frequency_topC  # noqa: E402
+from repro.core import network as JN  # noqa: E402
+from repro.kernels.bce_logits.bce_logits import bce_logits as j_bce  # noqa: E402,E501
+from repro.kernels.bce_logits.ref import bce_logits_ref as j_bce_ref  # noqa: E402,E501
 from repro.kernels.freq_topc.ref import freq_topc_ref as j_freq  # noqa: E402
 from repro.kernels.irli_topk.irli_topk import irli_topk as j_irli  # noqa: E402
 from repro.kernels.irli_topk.ref import irli_topk_ref as j_irli_ref  # noqa: E402,E501
@@ -18,6 +21,11 @@ from repro.kernels.quant_rerank.ops import _coarse_chunked  # noqa: E402
 from repro.kernels.quant_rerank.ref import quant_rerank_ref as j_quant  # noqa: E402,E501
 from repro.store.quantized import encode as jencode  # noqa: E402
 from repro_torch.kernels import LAUNCHES, on_card, reset_launches  # noqa: E402
+from repro_torch.kernels.bce_logits import ops as bops  # noqa: E402
+from repro_torch.kernels.bce_logits.ref import (  # noqa: E402
+    bce_logits_ref, weighted_bce_ref)
+from repro_torch.kernels.kchoice import ops as kops  # noqa: E402
+from repro_torch.kernels.kchoice.ref import kchoice_ref  # noqa: E402
 from repro_torch.kernels.freq_topc import ops as fops  # noqa: E402
 from repro_torch.kernels.freq_topc.ref import freq_topc_ref  # noqa: E402
 from repro_torch.kernels.irli_topk import ops as iops  # noqa: E402
@@ -136,13 +144,24 @@ def test_quant_rerank_dispatch_on_cpu_takes_the_plain_version():
 
 
 def test_quant_rerank_shared_memory_limit():
-    """The kernel sorts all C slots' keys in one block's shared memory:
-    topC 16384 fits up to D = 8960, one slot more does not."""
+    """A pass sorts its slots' keys in one block's shared memory: topC 16384
+    fits up to D = 8960, one slot more does not. ``pass_slots`` takes all C
+    slots in one pass where they fit, else the largest power of two that
+    does (the passes then merge in scratch)."""
     assert qops.smem_bytes(1024, 96) == 1024 * 8 + (1024 + 96) * 4
     assert qops.smem_bytes(777, 96) == 1024 * 8 + (777 + 96) * 4
     assert qops.smem_bytes(16384, 8960) <= qops.SMEM_BYTES
     assert qops.smem_bytes(16384, 8961) > qops.SMEM_BYTES
     assert qops.smem_bytes(16385, 1) > qops.SMEM_BYTES
+    assert qops.pass_slots(1024, 96) == 1024
+    assert qops.pass_slots(777, 96) == 1024
+    assert qops.pass_slots(16384, 96) == 16384
+    assert qops.pass_slots(20000, 96) == qops.pass_slots(20000, 8960) == 16384
+    assert qops.pass_slots(16384, 8961) == 8192
+    assert qops.smem_bytes(qops.pass_slots(20000, 40000), 40000) <= \
+        qops.SMEM_BYTES
+    with pytest.raises(ValueError, match="no room"):
+        qops.pass_slots(1024, 60000)
 
 
 def test_same_topk_rule():
@@ -275,3 +294,118 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
         assert after[n] != before[n], n
     (tmp_path / "kernels" / "freq_topc" / "notes.txt").write_text("x")
     assert _build.library_path("freq_topc") == before["freq_topc"]
+
+
+# ------------------------------------------------------------- bce_logits --
+@pytest.mark.parametrize("N,B,tn,tb", [(128, 512, 64, 256),
+                                       (64, 1024, 32, 512)])
+def test_bce_logits_plain_matches_reference_and_pallas(N, B, tn, tb):
+    """The plain version against the reference's oracle and its Pallas
+    kernel in interpret mode (as tests/test_kernels.py runs it): loss to
+    1e-6 relative, gradient to 1e-6."""
+    lg = np.asarray(jax.random.normal(jax.random.PRNGKey(N + B), (N, B))) * 4
+    tg = (np.asarray(jax.random.uniform(jax.random.PRNGKey(7), (N, B)))
+          > 0.9).astype(np.float32)
+    loss, grad = bce_logits_ref(torch.from_numpy(lg), torch.from_numpy(tg))
+    reset_launches()
+    floss, fgrad = bops.fused_bce(torch.from_numpy(lg), torch.from_numpy(tg))
+    assert LAUNCHES["bce_logits"] == 0          # the CPU launches nothing
+    assert torch.equal(floss, loss) and torch.equal(fgrad, grad)
+    for ref in (j_bce_ref(jnp.asarray(lg), jnp.asarray(tg)),
+                j_bce(jnp.asarray(lg), jnp.asarray(tg), tn=tn, tb=tb,
+                      interpret=True)):
+        np.testing.assert_allclose(float(loss), float(ref[0]), rtol=1e-6)
+        np.testing.assert_allclose(grad.numpy(), np.asarray(ref[1]),
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_weighted_bce_matches_loss_parts_and_jax_grad():
+    """The fit's form — [R·N, B] rows, weight w[row mod N], scale 1/(R·Σw)
+    — against the reference's scorer_loss_parts(sigmoid_bce) / denom and
+    its jax.grad with respect to the logits."""
+    R, N, B = 3, 10, 64
+    rng = np.random.default_rng(0)
+    lg = rng.normal(size=(R, N, B)).astype(np.float32) * 3
+    tg = (rng.random((R, N, B)) > 0.85).astype(np.float32)
+    w = np.ones(N, np.float32)
+    w[-3:] = 0.0
+    denom = R * max(float(w.sum()), 1.0)
+
+    def ref_loss(logits):
+        per = (jnp.maximum(logits, 0) - logits * tg
+               + jnp.log1p(jnp.exp(-jnp.abs(logits))))
+        return jnp.sum(jnp.sum(per, -1) * w[None]) / denom
+
+    jl, jg = jax.value_and_grad(ref_loss)(jnp.asarray(lg))
+    loss, grad = bops.weighted_bce(torch.from_numpy(lg.reshape(R * N, B)),
+                                   torch.from_numpy(tg.reshape(R * N, B)),
+                                   torch.from_numpy(w), scale=1.0 / denom)
+    np.testing.assert_allclose(float(loss), float(jl), rtol=1e-6)
+    np.testing.assert_allclose(grad.numpy().reshape(R, N, B), np.asarray(jg),
+                               rtol=1e-6, atol=1e-7)
+    assert not grad.reshape(R, N, B)[:, -3:].any()      # padding rows
+    # the same through the reference's scorer loss, params fixed at random
+    scfg = JN.ScorerConfig(d_in=4, d_hidden=8, n_buckets=B, n_reps=R,
+                           loss="sigmoid_bce")
+    params = JN.scorer_init(jax.random.PRNGKey(1), scfg)
+    x = rng.normal(size=(N, 4)).astype(np.float32)
+    s, _ = JN.scorer_loss_parts(params, scfg, jnp.asarray(x),
+                                jnp.asarray(tg), jnp.asarray(w))
+    logits = np.asarray(JN.scorer_logits(params, jnp.asarray(x)))
+    loss2, _ = weighted_bce_ref(torch.from_numpy(logits.reshape(R * N, B)),
+                                torch.from_numpy(tg.reshape(R * N, B)),
+                                torch.from_numpy(w), 1.0 / denom)
+    np.testing.assert_allclose(float(loss2), float(s) / denom, rtol=1e-6)
+
+
+def test_bce_logits_weights_must_tile_the_rows():
+    x = torch.zeros(6, 4)
+    with pytest.raises(ValueError, match="multiple"):
+        weighted_bce_ref(x, x, torch.ones(4))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        bops.bce_logits(x, x, scale=1.0)
+
+
+# ---------------------------------------------------------------- kchoice --
+def test_kchoice_dispatch_on_cpu_takes_the_plain_version():
+    """The CPU takes the plain loop and launches nothing; the kernel's
+    entry refuses CPU tensors and its shared-memory model bounds B."""
+    rng = np.random.default_rng(0)
+    G, L, K, B = 2, 60, 3, 9
+    topk = torch.from_numpy(np.stack([[rng.choice(B, K, replace=False)
+                                       for _ in range(L)]
+                                      for _ in range(G)]).astype(np.int32))
+    order = torch.from_numpy(np.stack([rng.permutation(L)
+                                       for _ in range(G)]).astype(np.int32))
+    reset_launches()
+    got = kops.kchoice_assign(topk, order, B=B)
+    assert LAUNCHES["kchoice"] == 0
+    assert torch.equal(got, kchoice_ref(topk, order, B=B))
+    assert got.dtype == torch.int32 and got.shape == (G, L)
+    # a per-rep load0 row and one row for every rep
+    l0 = torch.arange(B, dtype=torch.float32)
+    assert torch.equal(kops.kchoice_assign(topk, order, l0, B=B),
+                       kops.kchoice_assign(topk, order, l0.expand(G, B),
+                                           B=B))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        kops.kchoice(topk, order, B=B)
+    assert kops.smem_bytes(20000, 10) <= kops.SMEM_BYTES
+    assert kops.smem_bytes(60000, 10) > kops.SMEM_BYTES
+
+
+def test_irli_topk_plain_serves_any_m():
+    """m past the kernel's 64-entry lists: the plain version (and so the
+    CPU dispatch) answers every 1 <= m <= B, as the reference's
+    scorer_topk does."""
+    rng = np.random.default_rng(3)
+    h, w2, b2 = (rng.normal(size=s).astype(np.float32)
+                 for s in ((2, 9, 16), (2, 16, 200), (2, 200)))
+    for m in (65, 128, 200):
+        v, i = iops.scorer_topk(*(torch.from_numpy(a) for a in (h, w2, b2)),
+                                m=m)
+        for g in range(2):
+            rv, ri = j_irli_ref(jnp.asarray(h[g]), jnp.asarray(w2[g]),
+                                jnp.asarray(b2[g]), m=m)
+            np.testing.assert_allclose(v[g].numpy(), np.asarray(rv),
+                                       rtol=1e-5, atol=1e-5)
+            np.testing.assert_array_equal(i[g].numpy(), np.asarray(ri))
