@@ -5,9 +5,9 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-It builds the six hand-written kernels from the repository's .cu sources
+It builds the seven hand-written kernels from the repository's .cu sources
 (one nvcc each, in parallel), holds each against its plain PyTorch version
-on the card, and drives the port's two paths at the irli-deep1b widths:
+on the card, and drives the port's three paths at the irli-deep1b widths:
 
   * search (Alg. 2) through ``IRLIIndex.search``: the compact path
     (``mode="compact"``, int8 store: irli_topk, freq_topc and quant_rerank,
@@ -15,6 +15,21 @@ on the card, and drives the port's two paths at the irli-deep1b widths:
     ``"mega"`` here: one launch of mega_query and no other kernel, by the
     counters and a torch.profiler trace), then the other store kinds, l2,
     adaptive m and an exact tier at Q = 64;
+  * the stream cell (``stream_cell``): ``MutableIRLIIndex`` over the search
+    cell's index (capacity 2·L = 4,000,000, delta_len 208, int8 store): 16
+    insert batches of 4096 seeded vectors (one irli_topk and one kchoice
+    launch each), 100,000 deletes (90,000 base ids, 10,000 inserted), a
+    search (``mode="auto"`` -> "mega", which the delta and tombstone state
+    send to the compact kernels), ``compact()``, the search again (bit-equal
+    to the first), and ``exact_oracle(k=10)`` (one distance_topk launch, no
+    [Q, L] table: its peak memory above its inputs must stay under 85 MB);
+    the search is held against the plain search on the same snapshot, the
+    oracle against the plain oracle, no deleted id may come back, and at
+    least 99% of 1024 sampled live inserted vectors must return their own id
+    at rank 0. distance_topk is also held against its plain version at
+    Q = 64 with l2, in a dense search over the fit cell's index (L =
+    131,072) and on one chunk of ``neighbours`` (k = 100). The checkpoint of
+    the 4 GB state is not written on the card (the CPU tests round-trip it);
   * the fit (Alg. 1) through ``IRLIIndex.fit``, ANN mode, sigmoid_bce: per
     train step one bce_logits launch, per affinity label chunk one
     irli_topk launch, per round one kchoice launch; its round 1 again with
@@ -23,7 +38,8 @@ on the card, and drives the port's two paths at the irli-deep1b widths:
     (the paper's loss: no bce_logits); recall@10 of the fitted index
     against exact search, above the hash partition's.
 
-Each path's counters are set to 0 just before it runs and read just after.
+Each path's counters are set to 0 just before it runs and read just after;
+the kernels line gives each kernel's launches by path.
 Every search is held against the same search with the plain versions
 (kernels/mega_query/ref.mega_search_ref), on the card: ids equal outside
 the rows with a near tie (|a - b| <= 1e-5 + 1e-5·|b|) at the m, k' or k cut,
@@ -44,11 +60,15 @@ recall, at L labels and N training queries, and prints them as JSON.
 
 Widths (configs/irli_deep1b.py): D=96, B=20000, R=32, H=1024. Search, the
 serve_query cell: int8 block 32, m=5, tau=2, k=10, topC=1024, refine_k auto
-(40); reduced in scale to one card: L = 2,000,000 corpus rows (of 2^27), so
-that max_load = 2·L/B = 200 and the gathered width C0 = R·m·max_load =
+(40); reduced in scale to one card: L = 2,000,000 corpus rows (of 2^27),
+so that max_load = 2·L/B = 200 and the gathered width C0 = R·m·max_load =
 32,000 sorts in one block's shared memory (freq_topc's MAX_WIDTH 32,768);
-Q = 1024 queries per call
-(of 4096); data, queries and weights random, from a seed. The fit: K =
+Q = 1024 queries per call (of 4096); data, queries and weights random,
+from a seed. The stream cell: the same index and queries, K = 10 placement
+choices, the reference's default capacity 2·L and delta_len 208
+(default_delta_len); its streaming search gathers C0 = R·m·(200 + 208) =
+65,280 ids a query (freq_topc's wide variant); its 65,536 inserts and
+100,000 deletes are 3.3% and 5% of the corpus. The fit: K =
 FIT_K = 10, 100 exact-neighbour labels a point (K_NEIGH), lr 1e-3, ANN mode
 (Def. 2); reduced in scale: L = N = 131,072 labels and training points (of
 2^27; each base vector a training query labelled with its 100 exact
@@ -83,7 +103,10 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 FP32_FLOPS = 67e12                 # H100 SXM fp32 outside the tensor cores
 TOL = 1e-5                         # |a - b| <= TOL + TOL·|b| for fp32 values
 KERNELS = ("irli_topk", "freq_topc", "quant_rerank", "mega_query",
-           "bce_logits", "kchoice")
+           "bce_logits", "kchoice", "distance_topk")
+# the stream cell
+N_INSERT, INSERT_BATCH, N_DEL_BASE, N_DEL_NEW = 65_536, 4096, 90_000, 10_000
+DELTA_LEN = 208                    # default_delta_len(2·L, L, B)
 # the fit cell
 FIT_L = 131_072
 FIT_K, K_NEIGH, FIT_BATCH, FIT_ROUNDS, FIT_CHUNK = 10, 100, 4096, 2, 65_536
@@ -147,8 +170,8 @@ def bce_grad_err(gk, gp, wt, scale, rows=8192) -> float:
 
 
 def neighbours(torch, dev, base, q, k):
-    """Exact top-k ids of q in base on the card (core/query.exact_topk),
-    1024 queries at a time."""
+    """Exact top-k ids of q in base on the card (core/query.exact_topk: one
+    distance_topk launch), 1024 queries at a time."""
     from repro_torch.core.query import exact_topk
     tomb = torch.zeros(base.shape[0], dtype=torch.bool, device=dev)
     return torch.cat([exact_topk(q[s:s + 1024], base, tomb, k=k)
@@ -260,7 +283,7 @@ def fit_run(torch, dev, n_labels: int, n_train: int) -> dict:
                              f"the hash partition's {r_hash}")
     return dict(idx=idx, eng=eng, cfg=cfg, base=base, train=train,
                 labels=labels, rows=rows, round0=round0, launches=launches,
-                recall=(r_hash, r_fit))
+                recall=(r_hash, r_fit), queries=fq)
 
 
 @contextlib.contextmanager
@@ -336,6 +359,59 @@ def plain_round_check(torch, dev, run: dict) -> float:
     return same
 
 
+def dense_check(torch, dev, idx, base, q) -> float:
+    """Dense mode over the fitted index (fp32 corpus, L = FIT_L): one
+    irli_topk and one distance_topk launch, no other kernel, held against
+    the plain dense search (stable top-m of the logits, the [Q, L] count
+    table, distance_topk_ref): ids and n_candidates equal outside the rows
+    with a near tie at the m or k cut, scores to TOL. -> (max |err|, the
+    search's launches)."""
+    from repro_torch.core.network import scorer_logits
+    from repro_torch.core.query import (candidate_frequencies_dense,
+                                        gather_members)
+    from repro_torch.core.search_api import SearchParams
+    from repro_torch.core.topk import topk_stable
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.distance_topk.ref import distance_topk_ref
+    from repro_torch.kernels.irli_topk.ref import near
+    dense = SearchParams(m=M, tau=TAU, k=K, mode="dense")
+    torch.cuda.synchronize()
+    reset_launches()
+    res = idx.search(q, base, dense)
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in LAUNCHES.items() if c}
+    if launches != {"irli_topk": 1, "distance_topk": 1} or res.mode != \
+            "dense":
+        raise AssertionError(f"the dense search launched {launches}")
+    logits = scorer_logits(idx.params, q)
+    vals, bidx = topk_stable(logits, M + 1)
+    del logits
+    mcut = near(vals[..., M - 1], vals[..., M], TOL).any(dim=0)
+    cands = gather_members(idx.index.members, bidx[..., :M])
+    mask = candidate_frequencies_dense(cands, base.shape[0]) >= TAU
+    pv, pi = distance_topk_ref(q, base, mask, k=K + 1)
+    pi = torch.where(torch.isfinite(pv), pi, torch.full_like(pi, -1))
+    kcut = torch.isfinite(pv[:, K]) & near(pv[:, K - 1], pv[:, K], TOL)
+    ok = ~(mcut | kcut)
+    nc = mask.sum(dim=1, dtype=torch.int32)
+    fin = torch.isfinite(pv[:, :K])
+    close = torch.where(fin, near(res.scores, pv[:, :K], TOL),
+                        res.scores == pv[:, :K]).all(dim=1)
+    same = (res.ids == pi[:, :K]).all(dim=1) & close & (res.n_candidates
+                                                          == nc)
+    if bool((ok & ~same).any()):
+        raise AssertionError(f"dense search: {int((ok & ~same).sum())} rows "
+                             f"differ from the plain dense search")
+    err = float((res.scores - pv[:, :K])[ok[:, None] & fin].abs().max())
+    ms = time_ms(torch, lambda: idx.search(q, base, dense), n=5)
+    log(f"dense search (mode='dense', fp32, L={base.shape[0]}, Q={len(q)}; "
+        f"launches {launches}): ids and n_candidates equal to the plain "
+        f"dense search ({int((~ok).sum())} near-tie rows exempt), max |err| "
+        f"{err:.3g}; survivors/query mean {float(nc.float().mean()):.1f}; "
+        f"{ms:.4f} ms")
+    return err, launches
+
+
 def fit_cell(torch, dev, check_irli) -> dict:
     """The fit cell: IRLIIndex.fit at the irli-deep1b widths (sigmoid_bce,
     ANN mode, fit_run), its kernels against their plain versions at the
@@ -354,6 +430,7 @@ def fit_cell(torch, dev, check_irli) -> dict:
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.bce_logits import ops as bops
     from repro_torch.kernels.bce_logits.ref import weighted_bce_ref
+    from repro_torch.kernels.distance_topk import ops as dops
     from repro_torch.kernels.kchoice import ops as kops
     from repro_torch.kernels.kchoice.ref import kchoice_ref
     from repro_torch.optim.optimizers import apply_clip, global_norm_sq
@@ -363,6 +440,22 @@ def fit_cell(torch, dev, check_irli) -> dict:
     base, train, labels = run["base"], run["train"], run["labels"]
     rows, launches = run["rows"], run["launches"]
     build_ms = time_ms(torch, idx.build_index, n=5)
+    dist_err, dense_launches = dense_check(torch, dev, idx, base,
+                                           run.pop("queries"))
+    q1 = train[:1024]
+    every = torch.ones((1, FIT_L), dtype=torch.bool, device=dev)
+    vals, ids = dops.distance_topk(q1, base, every.expand(1024, -1),
+                                   k=K_NEIGH)
+    if not torch.equal(neighbours(torch, dev, base, q1, K_NEIGH), ids):
+        raise AssertionError("neighbours differs from its distance_topk "
+                             "launch")
+    dist_err = max(dist_err, dist_check(
+        torch, "neighbours' chunk", vals, ids, q1, base, every, K_NEIGH))
+    nb_ms = time_ms(torch, lambda: neighbours(torch, dev, base, q1, K_NEIGH),
+                    n=3, warmup=1)
+    log(f"neighbours (exact_topk, k={K_NEIGH}) of one chunk of 1024 "
+        f"training queries over {FIT_L} rows: {nb_ms:.4f} ms")
+    del vals, ids
 
     # ---- one train step: bce_logits against the plain loss, and fp64 ----
     params, keys = idx.params, sorted(idx.params)
@@ -598,7 +691,223 @@ def fit_cell(torch, dev, check_irli) -> dict:
             "times": {"bce_logits": (bce_ms, bce_plain, bce_lib),
                       "kchoice": (k_ms, k_plain, None)},
             "bounds": {"bce_logits": bce_bound, "kchoice": k_bound},
-            "irli_err": irli_err}
+            "irli_err": irli_err, "dist_err": dist_err,
+            "dense_launches": dense_launches}
+
+
+def dist_check(torch, name, vals, ids, q, base, mask, k, metric="dot"):
+    """distance_topk's output against its plain version on the same inputs:
+    ids by irli_topk.ref.same_topm (the plain top-(k+1) gives the rows with
+    a near tie at the k cut), finite values to TOL. -> max |err|."""
+    from repro_torch.kernels.distance_topk.ref import distance_topk_ref
+    from repro_torch.kernels.irli_topk.ref import same_topm
+    rv, ri = distance_topk_ref(q, base, mask, k=min(k + 1, base.shape[0]),
+                               metric=metric)
+    fin = torch.isfinite(rv[:, :k])
+    if not torch.equal(torch.isfinite(vals), fin):
+        raise AssertionError(f"distance_topk {name}: other finite slots "
+                             f"than the plain version")
+    zero = lambda v: torch.where(torch.isfinite(v), v, torch.zeros_like(v))
+    ids = torch.where(torch.isfinite(vals), ids, torch.full_like(ids, -1))
+    ri = torch.where(torch.isfinite(rv), ri, torch.full_like(ri, -1))
+    cut, order = same_topm(zero(vals), ids, zero(rv), ri, TOL)
+    err = float((zero(vals) - zero(rv[:, :k])).abs().max())
+    log(f"distance_topk {name} q {tuple(q.shape)} base {tuple(base.shape)} "
+        f"k={k} {metric}: max |err| {err:.3g}; {cut} of {len(q)} rows "
+        f"exempt (near tie at the k cut), {order} in another order among "
+        f"near values")
+    return err
+
+
+def stream_cell(torch, dev, idx, corpus, queries, plain_search, agree):
+    """The stream cell: MutableIRLIIndex over the serve cell's index (L =
+    2,000,000, capacity 2·L, delta_len 208, int8 store) at the irli-deep1b
+    widths. Its path, counters from 0: 16 insert batches of 4096 (one
+    irli_topk and one kchoice launch each), 100,000 deletes, a search
+    (mode="auto" -> "mega", served by the compact kernels: the snapshot
+    carries delta and tombstone state), compaction, the search again, the
+    exact oracle (one distance_topk launch). Then the checks against the
+    plain versions, the invariants and the times. Returns the launches,
+    records, times and bounds."""
+    import dataclasses
+
+    from repro_torch.core.search_api import PipelineCache, SearchParams
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.distance_topk import ops as dops
+    from repro_torch.kernels.distance_topk.ref import distance_topk_ref
+    from repro_torch.stream import MutableIRLIIndex
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    new = torch.randn((N_INSERT, D), generator=gen, device=dev)
+    new /= new.norm(dim=1, keepdim=True)
+    dead = torch.cat([
+        torch.randperm(L, generator=gen, device=dev)[:N_DEL_BASE],
+        L + torch.randperm(N_INSERT, generator=gen, device=dev)[:N_DEL_NEW]])
+    midx = MutableIRLIIndex(idx, corpus, store_dtype="int8")
+    torch.cuda.synchronize()
+    s0 = midx.snapshot
+    if midx.capacity != 2 * L or s0.delta.members.shape[2] != DELTA_LEN:
+        raise AssertionError(f"stream cell: capacity {midx.capacity}, "
+                             f"delta_len {s0.delta.members.shape[2]}")
+    log(f"stream setup: {time.perf_counter() - t0:.2f} s; capacity "
+        f"{midx.capacity}, delta [R, B, DL] {tuple(s0.delta.members.shape)}"
+        f", members {tuple(s0.members.shape)}, int8 store "
+        f"{s0.store.nbytes() / 1e6:.0f} MB over {s0.vecs.shape[0]} rows")
+    del s0
+    sp = SearchParams(m=M, tau=TAU, k=K, store_dtype="int8")
+    cache = PipelineCache()
+
+    # ---- the stream path, counters from 0 ----
+    torch.cuda.synchronize()
+    reset_launches()
+    batch_s, per_batch, ids = [], [], []
+    for s in range(0, N_INSERT, INSERT_BATCH):
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        ids.append(midx.insert(new[s:s + INSERT_BATCH]))
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+        per_batch.append({n: c - before[n] for n, c in LAUNCHES.items()
+                          if c != before[n]})
+    t0 = time.perf_counter()
+    n_dead = midx.delete(dead)
+    torch.cuda.synchronize()
+    delete_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pre = midx.search(queries, sp, cache=cache)
+    torch.cuda.synchronize()
+    first_search_s = time.perf_counter() - t0
+    snap = midx.snapshot
+    t0 = time.perf_counter()
+    midx.compact()
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    post = midx.search(queries, sp, cache=cache)
+    oracle = midx.exact_oracle(K)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    o_ids = oracle(queries)
+    oracle_s = time.perf_counter() - t0
+    o_peak = torch.cuda.max_memory_allocated() - mem0
+    launches = {n: c for n, c in LAUNCHES.items() if c}
+
+    n_batches = N_INSERT // INSERT_BATCH
+    want = {"irli_topk": n_batches + 2, "kchoice": n_batches,
+            "freq_topc": 2, "quant_rerank": 2, "distance_topk": 1}
+    log(f"stream path launches {launches} (expected {want}); per insert "
+        f"batch {per_batch[0]} (all {len(per_batch)} alike: "
+        f"{all(b == per_batch[0] for b in per_batch)})")
+    if launches != want or any(b != {"irli_topk": 1, "kchoice": 1}
+                               for b in per_batch):
+        raise AssertionError(f"the stream path launched {launches}, "
+                             f"batches {per_batch}")
+    new_ids = torch.cat(ids)
+    if not torch.equal(new_ids.cpu(), torch.arange(
+            L, L + N_INSERT, dtype=torch.int32)) or n_dead != len(dead):
+        raise AssertionError(f"stream cell: inserted ids or deletes "
+                             f"({n_dead}) off")
+    if pre.mode != "mega" or post.mode != "mega":
+        raise AssertionError(f"auto resolved {pre.mode!r}, {post.mode!r}")
+
+    # ---- the checks ----
+    base = dataclasses.replace(snap.store, exact=snap.vecs)
+    plain, exempt, mcut = plain_search(
+        sp, base, queries,
+        (snap.params, snap.members, snap.delta.members, snap.tombstone))
+    serr = agree("stream search (delta + tombstone state, compact kernels)",
+                 (pre.ids, pre.scores, pre.n_candidates), plain, exempt,
+                 mcut)
+    del plain, base, snap
+    same = (torch.equal(pre.ids, post.ids)
+            and torch.equal(pre.scores, post.scores)
+            and torch.equal(pre.n_candidates, post.n_candidates))
+    log(f"compaction: the search after it equals the search before it bit "
+        f"for bit: {same}")
+    if not same:
+        raise AssertionError("compaction changed the search's results")
+    s = midx.snapshot
+    n = s.n_total
+    vecs, live = s.vecs[:n], ~s.tombstone[None, :n]
+    liveq = live.expand(Q, n)
+    o_ids = torch.from_numpy(o_ids).to(dev)
+    for name, got in (("search", pre.ids), ("oracle", o_ids)):
+        if bool(torch.isin(got.long(), dead).any()):
+            raise AssertionError(f"the stream {name} returned a deleted id")
+    vals, kids = dops.distance_topk(queries, vecs, liveq, k=K)
+    if not torch.equal(kids, o_ids):
+        raise AssertionError("the oracle's ids differ from its kernel's")
+    derr = dist_check(torch, "exact oracle (stride-0 live mask)", vals, kids,
+                      queries, vecs, live, K)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    distance_topk_ref(queries, vecs, live, k=K)
+    torch.cuda.synchronize()
+    p_peak = torch.cuda.max_memory_allocated() - mem0
+    table = Q * n * 4
+    log(f"exact oracle (Q={Q}, {n} rows, {n - n_dead} live, k={K}): peak "
+        f"device memory above its inputs {o_peak / 1e6:.2f} MB (kernel), "
+        f"{p_peak / 1e9:.3f} GB (plain; its [Q, L] fp32 table alone is "
+        f"{table / 1e9:.2f} GB)")
+    if not o_peak < 85e6:
+        raise AssertionError(f"the oracle peaked at {o_peak} B")
+    hit = ((pre.ids[:, :, None] == o_ids[:, None, :])
+           & (o_ids[:, None, :] >= 0)).any(-1).sum()
+    rec = float(hit) / float((o_ids >= 0).sum())
+    qs = queries[:Q_SMALL].contiguous()
+    v2, i2 = dops.distance_topk(qs, vecs, live.expand(Q_SMALL, n), k=K,
+                                metric="l2")
+    derr = max(derr, dist_check(torch, f"l2 at Q={Q_SMALL}", v2, i2, qs,
+                                vecs, live, K, "l2"))
+    alive = new_ids.to(dev)[~s.tombstone[new_ids.to(dev).long()]]
+    sel = alive[torch.randperm(len(alive), generator=gen,
+                               device=dev)[:Q]].long()
+    own = midx.search(new[sel - L], sp, cache=cache)
+    self_rate = float((own.ids[:, 0].long() == sel).float().mean())
+    log(f"stream search recall@{K} against the exact oracle: {rec:.4f}; "
+        f"{self_rate:.4f} of {Q} sampled live inserted vectors return "
+        f"their own id at rank 0")
+    if not self_rate >= 0.99:
+        raise AssertionError(f"only {self_rate} of the inserted vectors "
+                             f"find themselves")
+
+    # ---- the times ----
+    search_ms = time_ms(torch, lambda: midx.search(queries, sp, cache=cache),
+                        n=5, warmup=1)
+    oracle_ms = time_ms(torch, lambda: oracle(queries), n=5, warmup=1)
+    dist_ms = time_ms(torch, lambda: dops.distance_topk(queries, vecs, liveq,
+                                                        k=K), n=10)
+    dist_plain = time_ms(torch, lambda: distance_topk_ref(
+        queries, vecs, live, k=K), n=3, warmup=1)
+
+    def library():
+        sim = torch.matmul(queries, vecs.T)
+        sim.masked_fill_(~live, -torch.inf)
+        return torch.topk(sim, K, dim=1)
+
+    dist_lib = time_ms(torch, library, n=3, warmup=1)
+    dist_bound = bound(2 * Q * n * D,
+                       n * D * 4 + Q * D * 4 + n + Q * K * 8)
+    log(f"stream stages: insert batch of {INSERT_BATCH} median "
+        f"{statistics.median(batch_s) * 1e3:.2f} ms (first "
+        f"{batch_s[0] * 1e3:.2f} ms, all {sum(batch_s):.3f} s), delete of "
+        f"{len(dead)} {delete_s * 1e3:.2f} ms, first search "
+        f"{first_search_s * 1e3:.2f} ms, compaction {compact_s * 1e3:.2f} "
+        f"ms, search {search_ms:.4f} ms, exact oracle {oracle_ms:.4f} ms "
+        f"(first call {oracle_s * 1e3:.2f} ms)")
+    log(f"distance_topk at the oracle (Q={Q}, L={n}, d={D}, k={K}): "
+        f"{2 * Q * n * D / 1e12:.4f} TFLOP, {n * D * 4 / 1e9:.3f} GB -> "
+        f"bound {dist_bound[0]:.4f} ms ({dist_bound[1]}); kernel "
+        f"{dist_ms:.4f} ms ({2 * Q * n * D / dist_ms / 1e9:.1f} TFLOP/s), "
+        f"plain {dist_plain:.4f} ms, library (torch.matmul + masked_fill_ "
+        f"+ torch.topk) {dist_lib:.4f} ms")
+    del midx, s, vecs, live, liveq, new, pre, post, own
+    torch.cuda.empty_cache()
+    return {"launches": launches, "search_err": serr, "dist_err": derr,
+            "times": (dist_ms, dist_plain, dist_lib), "bound": dist_bound}
 
 
 def main() -> int:
@@ -624,8 +933,8 @@ def main() -> int:
         return 0
     from repro_torch.core.index import IRLIConfig, IRLIIndex
     from repro_torch.core.network import scorer_hidden, scorer_logits
-    from repro_torch.core.query import (gather_members, probe_keep_mask,
-                                        rerank_gathered)
+    from repro_torch.core.query import (gather_members, mask_tombstones,
+                                        probe_keep_mask, rerank_gathered)
     from repro_torch.core.search_api import SearchParams
     from repro_torch.core.topk import topk_stable
     from repro_torch.kernels import LAUNCHES, _build, reset_launches
@@ -643,6 +952,7 @@ def main() -> int:
     from repro_torch.store.rerank import refine_stage, resolve_refine_k
 
     # ---------------------------------------------------- 1. environment --
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -804,24 +1114,29 @@ def main() -> int:
     record["irli_topk"] = {"max_abs_err": ierr}
 
     # --------------------------------------- plain search with its cut ties --
-    def plain_search(p, base, q):
+    def plain_search(p, base, q, state=None):
         """The search with the plain versions (mega_search_ref), and the
         rows whose result may rightly differ: a near tie at the m cut of
         any rep (the kernels' logits are summed in another order), at the
         k' cut of the coarse scores, or at the k cut of the final scores.
+        ``state`` = (scorer params, members, delta members, tombstone) of a
+        streaming snapshot; else the serve cell's index.
         -> ((ids, scores, n_cand), exempt [Q] bool, m-cut exempt [Q])."""
+        prm, mem, delta, tomb = state or (params, members, None, None)
         res = mega_search_ref(
-            params, members, base, q, m=p.m, tau=p.tau, topC=p.topC, k=p.k,
-            refine_k=p.refine_k, metric=p.metric, adaptive_m=p.adaptive_m,
-            probe_mass=p.probe_mass)
-        logits = scorer_logits(params, q)
+            prm, mem, base, q, delta, tomb, m=p.m, tau=p.tau, topC=p.topC,
+            k=p.k, refine_k=p.refine_k, metric=p.metric,
+            adaptive_m=p.adaptive_m, probe_mass=p.probe_mass)
+        logits = scorer_logits(prm, q)
         vals, bidx = topk_stable(logits, p.m + 1)
         mcut = near(vals[..., p.m - 1], vals[..., p.m], TOL).any(dim=0)
         adaptive = p.adaptive_m and p.probe_mass < 1.0
         keep = (probe_keep_mask(logits, vals[..., :p.m], p.probe_mass)
                 if adaptive else None)
         del logits
-        cands = gather_members(members, bidx[..., :p.m], probe_keep=keep)
+        cands = gather_members(mem, bidx[..., :p.m], delta, probe_keep=keep)
+        if tomb is not None:
+            cands = mask_tombstones(cands, tomb)
         pcid, pcnt = freq_topc_ref(cands, C=p.topC)
         store = base if isinstance(base, QuantizedStore) else None
         if store is not None and store.dtype != "fp32":
@@ -1130,18 +1445,32 @@ def main() -> int:
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
-    # ------------------------------------------------------- 7. the fit --
-    search_irli = main_launches["irli_topk"]
-    del (idx, members, params, w2, b2, hidden, corpus, store8, store16,
-         exact8, cands, cid_m, cnt_m, cids_m, bidx, st)
+    # ---------------------------------------------------- 7. the stream --
+    del (store16, exact8, cands, cid_m, cnt_m, cids_m, bidx, st, hidden)
+    torch.cuda.empty_cache()
+    stream = stream_cell(torch, dev, idx, corpus, queries, plain_search,
+                         agree)
+    record["mega_query"]["max_abs_err"] = max(
+        record["mega_query"]["max_abs_err"], stream["search_err"])
+
+    # ------------------------------------------------------- 8. the fit --
+    del idx, members, params, w2, b2, corpus, store8
     torch.cuda.empty_cache()
     fit = fit_cell(torch, dev, check_irli)
-    main_launches.update(fit["launches"])
-    main_launches["irli_topk"] = search_irli + fit["launches"]["irli_topk"]
-    by_path = {"irli_topk": {"compact search": search_irli,
-                             "fit": fit["launches"]["irli_topk"]}}
+    # each kernel's launches on every path the script drives
+    by_path = {}
+    for path, counts in (("search", main_launches),
+                         ("stream", stream["launches"]),
+                         ("fit", fit["launches"]),
+                         ("dense search", fit["dense_launches"])):
+        for n, c in counts.items():
+            if c:
+                by_path.setdefault(n, {})[path] = c
+    main_launches = {n: sum(paths.values()) for n, paths in by_path.items()}
     record.update(fit["record"])
-    bounds.update(fit["bounds"])
+    record["distance_topk"] = {"max_abs_err": max(stream["dist_err"],
+                                                  fit["dist_err"])}
+    bounds.update(fit["bounds"], distance_topk=stream["bound"])
     ierr = max(record["irli_topk"]["max_abs_err"], fit["irli_err"])
     record["irli_topk"] = {"max_abs_err": ierr}
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
@@ -1153,6 +1482,7 @@ def main() -> int:
         "quant_rerank": (stage_ms["coarse (quant_rerank)"], plain_quant,
                          None),
         "mega_query": (stage_ms["mega_query"], plain_mega, None),
+        "distance_topk": stream["times"],
         **fit["times"],
     }
     replaces = {
@@ -1163,6 +1493,8 @@ def main() -> int:
         "bce_logits": "src/repro/kernels/bce_logits/bce_logits.py:31",
         # no TPU kernel: the reference's lax.scan over the labels
         "kchoice": "src/repro/core/repartition.py:93",
+        "distance_topk":
+            "src/repro/kernels/distance_topk/distance_topk.py:60",
     }
     kernels = [
         {"name": n, "route": "cuda",
@@ -1171,10 +1503,12 @@ def main() -> int:
          "max_abs_err": record[n]["max_abs_err"], "ms": times[n][0],
          "plain_ms": times[n][1], "bound_ms": bounds[n][0],
          "bound_by": bounds[n][1], "library_ms": times[n][2],
-         **({"launches_by_path": by_path[n]} if n in by_path else {})}
+         "launches_by_path": by_path[n]}
         for n in KERNELS]
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel did not run on its path: {kernels}")
+    log(f"chip_smoke: the whole run, build included, took "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -122,3 +122,27 @@ def _store(arrays: dict, dev: torch.device) -> QuantizedStore:
                                            torch.float32, dev))
     check_scales(store)
     return store
+
+
+def stream_state_from_reference(tree: dict, extra: dict, *,
+                                device: str | torch.device = "cuda"):
+    """A port ``StreamSnapshot`` from a reference MutableIRLIIndex's
+    ``state_dict()`` (numpy leaves, e.g. through ``jax.device_get``, or a
+    checkpoint's ``restore``) and its ``meta()``. bf16 codes come widened
+    to fp32, as the reference's ``store_to_arrays`` writes them."""
+    from repro_torch.stream.mutable_index import snapshot_from_arrays
+    return snapshot_from_arrays(tree, extra, resolve_device(device))
+
+
+def stream_state_to_reference(midx) -> tuple[dict, dict]:
+    """A port MutableIRLIIndex's state as numpy, in the reference's layout
+    -> (``state_dict()`` tree, ``meta()``): what the reference's
+    ``MutableIRLIIndex.load_state`` takes."""
+    s = midx.snapshot
+
+    def host(t):
+        if isinstance(t, dict):
+            return {k: host(v) for k, v in t.items()}
+        return t.detach().cpu().numpy()
+
+    return host(midx.state_dict(s)), midx.meta(s)

@@ -6,10 +6,11 @@ fit():    init partitions (2-universal hash) -> loop: train R scorers for
           power-of-K re-partition, until re-assignments stop or ``rounds``
           run out -> rebuild the inverted index. ANN mode (labels are the
           corpus vectors; Def. 2) and XML mode (label sets; Def. 1).
-search(): Alg. 2 (top-m multiprobe + frequency filter + rerank).
+search(): Alg. 2 (top-m multiprobe + frequency filter + rerank), through
+          the shared ``search_api.PipelineCache``.
 
-Not yet ported: the (data × rep) mesh fit (``mesh=``) and the metric
-registry (``registry=``).
+Not yet ported: the (data × rep) mesh fit (``mesh=``), the fit's metric
+registry (``registry=``) and ``install_artifact``.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import time
 import torch
 
 from repro_torch.core import partition as PT
+from repro_torch.core import query as Q
 from repro_torch.core import search_api as SA
 from repro_torch.core.network import ScorerConfig, scorer_init
 from repro_torch.fit.engine import FitData, FitEngine, make_fit_optimizer
@@ -150,17 +152,50 @@ class IRLIIndex:
         self.index = PT.build_inverted_index(self.assign, self.cfg.n_buckets,
                                              max_load)
 
-    def search(self, queries, base,
-               params: SA.SearchParams) -> SA.SearchResult:
+    # -------------------------------------------------------------- query --
+    def query(self, queries, m: int = 5, tau: int = 1):
+        """The dense candidate set -> (cand_mask [Q, L] bool, freq [Q, L]
+        f32, n_candidates [Q] int32), through ``query.query_index``."""
+        if self.index is None:
+            raise RuntimeError("fit() or build_index() first")
+        queries = torch.as_tensor(queries, dtype=torch.float32,
+                                  device=self.device)
+        return Q.query_index(self.params, self.index, queries, m=m, tau=tau,
+                             L=self.cfg.n_labels, loss_kind=self.cfg.loss)
+
+    def search(self, queries, base, params: SA.SearchParams | None = None,
+               *, cache: SA.PipelineCache | None = None, staged: bool = False,
+               m=None, tau=None, k=None, metric=None, mode=None, topC=None):
         """Candidate generation + true-distance re-rank over ``base``: the
         raw fp32 [L, d] corpus or a QuantizedStore over it (pass
-        ``SearchParams(store_dtype=...)`` to match). -> SearchResult with
-        ids [Q, k] int32 (-1 pad), scores [Q, k] f32, n_candidates [Q]
-        int32, epoch and the resolved mode."""
+        ``SearchParams(store_dtype=...)`` to match).
+
+        Typed path: ``search(queries, base, SearchParams(...))`` ->
+        SearchResult with ids [Q, k] int32 (-1 pad), scores [Q, k] f32,
+        n_candidates [Q] int32, epoch and the resolved mode. The pipeline
+        comes from ``cache`` (default: ``search_api.DEFAULT_CACHE``).
+        ``staged=True`` raises until ``search_staged`` is ported. The bare
+        ``m=/tau=/k=/metric=/mode=/topC=`` kwargs are a deprecated shim
+        returning the old ``(ids, n_candidates)`` tuple."""
         if self.index is None:
-            raise RuntimeError("build_index() first")
+            raise RuntimeError("fit() or build_index() first")
+        if params is None:
+            params = SA.params_from_legacy_kwargs(
+                "IRLIIndex.search", m=m, tau=tau, k=k, metric=metric,
+                mode=mode, topC=topC)
+            res = self._search_typed(queries, base, params, cache,
+                                     staged=staged)
+            return res.ids, res.n_candidates
         SA.check_params("IRLIIndex.search", params)
-        SA.check_store("IRLIIndex.search", params, base)
+        if any(v is not None for v in (m, tau, k, metric, mode, topC)):
+            raise TypeError("pass either SearchParams or legacy kwargs, "
+                            "not both")
+        return self._search_typed(queries, base, params, cache, staged=staged)
+
+    def _search_typed(self, queries, base, params: SA.SearchParams,
+                      cache: SA.PipelineCache | None, *,
+                      staged: bool = False) -> SA.SearchResult:
+        cache = cache if cache is not None else SA.DEFAULT_CACHE
         if isinstance(base, QuantizedStore):
             if base.device != self.device:
                 raise ValueError(f"store on {base.device}, index on "
@@ -170,12 +205,12 @@ class IRLIIndex:
                                    device=self.device)
         queries = torch.as_tensor(queries, dtype=torch.float32,
                                   device=self.device)
-        resolved = params.resolve(int(base.shape[0]), int(queries.shape[0]))
-        ids, scores, n_cand = resolved.pipeline().search(
-            self.params, self.index.members, base, queries)
-        return SA.SearchResult(ids=ids, scores=scores, n_candidates=n_cand,
-                               epoch=self.epoch, mode=resolved.mode)
+        return cache.search(params, self.params, self.index.members, base,
+                            queries, epoch=self.epoch, staged=staged)
 
-    def as_searcher(self, base) -> SA.Searcher:
-        """Bind this index to its corpus as a ``Searcher``."""
-        return SA.as_searcher(lambda q, p: self.search(q, base, p))
+    def as_searcher(self, base, cache: SA.PipelineCache | None = None
+                    ) -> SA.Searcher:
+        """Bind this index to its corpus as a ``Searcher`` (one-arg
+        ``search(queries, params)`` like every other backend)."""
+        return SA.as_searcher(
+            lambda q, p: self._search_typed(q, base, p, cache))

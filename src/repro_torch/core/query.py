@@ -5,8 +5,10 @@ Port of ``repro/core/query.py``.
 
 Three frequency/rerank backends behind :class:`QueryPipeline`:
 
-dense  — frequency via a scatter-add into a [Q, L] count table and a full
-         [Q, L] similarity matrix for the rerank. Memory O(Q·L).
+dense  — frequency via a scatter-add into a [Q, L] count table, then the
+         masked rerank over all L rows (``rerank_topk``: the distance_topk
+         kernel on the card, which never holds the [Q, L] similarities;
+         the plain version on the CPU, which does). Memory O(Q·L).
 compact— the scorer's output layer and top-m as one call (the irli_topk
          kernel on the card: no [R, Q, B] logits), then FrequentOnes top-C
          per query (``frequency_topC``, the freq_topc kernel on the card)
@@ -25,9 +27,19 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.network import scorer_hidden
+from repro_torch.core.network import scorer_hidden, scorer_probs
+from repro_torch.core.partition import InvertedIndex
 from repro_torch.core.topk import topk_stable
+from repro_torch.kernels.distance_topk.ops import rerank_topk
 from repro_torch.store.quantized import QuantizedStore
+
+
+def top_buckets(params: dict, queries: torch.Tensor, m: int,
+                loss_kind: str = "softmax_bce"):
+    """queries [Q, d] -> (probabilities [R, Q, m], bucket ids [R, Q, m]
+    int64): the stable top-m of ``scorer_probs``, as the reference's
+    ``jax.lax.top_k`` of the probabilities."""
+    return topk_stable(scorer_probs(params, queries, loss_kind), m)
 
 
 def gather_members(members: torch.Tensor, bucket_idx: torch.Tensor,
@@ -51,6 +63,12 @@ def gather_members(members: torch.Tensor, bucket_idx: torch.Tensor,
         cands = torch.where(probe_keep[..., None], cands,
                             torch.full_like(cands, -1))
     return cands.transpose(0, 1).reshape(Q, -1)
+
+
+def gather_candidates(index: InvertedIndex, bucket_idx: torch.Tensor,
+                      delta_members: torch.Tensor | None = None):
+    """bucket_idx [R, Q, m] -> candidate ids [Q, R·m·max_load] (pad -1)."""
+    return gather_members(index.members, bucket_idx, delta_members)
 
 
 def probe_keep_mask(logits: torch.Tensor, top_vals: torch.Tensor,
@@ -117,6 +135,11 @@ def candidate_frequencies_dense(cands: torch.Tensor, L: int) -> torch.Tensor:
     return freq.scatter_add_(1, cands.clamp_min(0).long(), valid.float())
 
 
+def frequency_filter(freq: torch.Tensor, tau: int) -> torch.Tensor:
+    """Keep candidates with count >= tau -> bool mask [Q, L]."""
+    return freq >= tau
+
+
 def sorted_frequency_topC(cands: torch.Tensor, C: int):
     """FrequentOnes by per-query sort + run-length count, in plain PyTorch:
     cands [Q, C0] (pad -1) -> (ids [Q, C] int32, counts [Q, C] f32)."""
@@ -136,8 +159,9 @@ def frequency_topC(cands: torch.Tensor, C: int):
 def pairwise_sim(queries, base, metric: str = "angular") -> torch.Tensor:
     """Similarity of every query against every base row: [Q, d]×[L, d] ->
     [Q, L] fp32 (dot product for angular, negative squared L2 by the
-    expansion |q|² - 2q·v + |v|² otherwise). Dense mode and the exact
-    oracle use it."""
+    expansion |q|² - 2q·v + |v|² otherwise). The plain version of the
+    distance_topk kernel (dense mode, ``rerank``, the exact oracle) uses it,
+    and the kernel keeps its l2 order."""
     base = base.to(torch.float32)
     if metric == "angular":
         return queries @ base.T
@@ -173,22 +197,79 @@ def rerank_gathered(queries, base, cand_ids, cand_counts, tau: int, k: int,
     return ids.to(torch.int32), scores
 
 
+def _kernel_metric(metric: str) -> str:
+    return "l2" if metric == "l2" else "dot"
+
+
 def rerank(queries, base, cand_mask, k: int, metric: str = "angular"):
     """True-distance re-rank of surviving candidates: queries [Q, d], base
-    [L, d], cand_mask [Q, L] -> top-k ids [Q, k] int32, -1 where fewer than
-    k candidates survived."""
-    sim = torch.where(cand_mask, pairwise_sim(queries, base, metric),
-                      torch.full(cand_mask.shape, -torch.inf,
-                                 device=cand_mask.device))
-    scores, idx = topk_stable(sim, k)
-    return torch.where(torch.isfinite(scores), idx,
-                       torch.full_like(idx, -1)).to(torch.int32)
+    [L, d], cand_mask broadcastable to [Q, L] -> top-k ids [Q, k] int32, -1
+    where fewer than k candidates survived. Through ``rerank_topk``: the
+    distance_topk kernel on the card, which never builds the [Q, L]
+    similarity table."""
+    return rerank_topk(queries, base, cand_mask, k=k,
+                       metric=_kernel_metric(metric))[1]
 
 
 def exact_topk(queries, base, tombstone, *, k: int, metric: str = "angular"):
-    """Full-probe exact top-k over the fp32 tier — the audit oracle. Builds
-    the whole [Q, L] similarity table; never on the serving path."""
-    return rerank(queries, base, ~tombstone[None, :], k, metric)
+    """Full-probe exact top-k over the fp32 tier — the audit oracle:
+    queries [Q, d], base [L, d], tombstone [L] bool -> ids [Q, k] int32 (-1
+    where fewer than k live rows exist). The live mask is one row seen by
+    every query (a stride-0 view): no [Q, L] array exists on the card."""
+    live = ~tombstone
+    return rerank(queries, base, live[None, :].expand(queries.shape[0], -1),
+                  k, metric)
+
+
+def query_members(params: dict, members: torch.Tensor, queries, *, m: int,
+                  tau: int, L: int, loss_kind: str = "softmax_bce",
+                  delta_members: torch.Tensor | None = None,
+                  tombstone: torch.Tensor | None = None):
+    """Full query path over raw member matrices -> (cand_mask [Q, L] bool,
+    freq [Q, L] f32, n_candidates [Q] int32). ``delta_members`` unions the
+    streaming delta segments into the gather, ``tombstone`` masks deleted
+    ids before counting. Bucket choice is the stable top-m of the
+    probabilities, as the reference's."""
+    _, bidx = top_buckets(params, queries, m, loss_kind)
+    cands = gather_members(members, bidx, delta_members)
+    if tombstone is not None:
+        cands = mask_tombstones(cands, tombstone)
+    freq = candidate_frequencies_dense(cands, L)
+    mask = frequency_filter(freq, tau)
+    return mask, freq, mask.sum(dim=1, dtype=torch.int32)
+
+
+def query_index(params: dict, index: InvertedIndex, queries, *, m: int,
+                tau: int, L: int, loss_kind: str = "softmax_bce",
+                delta_members: torch.Tensor | None = None,
+                tombstone: torch.Tensor | None = None):
+    """:func:`query_members` over an InvertedIndex's member matrix."""
+    return query_members(params, index.members, queries, m=m, tau=tau, L=L,
+                         loss_kind=loss_kind, delta_members=delta_members,
+                         tombstone=tombstone)
+
+
+def recall_at(cand_mask: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """recall k@k: the share of ground-truth ids present in the candidate
+    mask [Q, L]; gt [Q, k] entries < 0 are ignored -> 0-d f32."""
+    valid = gt >= 0
+    hits = torch.gather(cand_mask, 1, gt.clamp_min(0).long())
+    hits = hits.float() * valid.float()
+    return hits.sum() / valid.sum().clamp_min(1)
+
+
+def precision_at(scores_mask, freq, queries, label_vecs, gt_labels,
+                 ks=(1, 3, 5)) -> dict:
+    """XML P@k: the stable top-k surviving candidates by frequency against
+    the gold labels gt_labels [Q, n] -> {"P@k": 0-d f32}."""
+    out = {}
+    for k in ks:
+        _, top = topk_stable(torch.where(
+            scores_mask, freq, torch.full((), -torch.inf,
+                                          device=freq.device)), k)
+        hit = (top[..., None] == gt_labels[:, None, :]).any(-1)
+        out[f"P@{k}"] = hit.float().mean()
+    return out
 
 
 # ------------------------------------------------------------ pipeline ------
@@ -329,11 +410,6 @@ class QueryPipeline:
             return ids, scores, n_cand.to(torch.int32)
         freq = candidate_frequencies_dense(cands, rows.shape[0])
         mask = freq >= self.tau
-        sim = torch.where(mask, pairwise_sim(queries, rows, self.metric),
-                          torch.full(mask.shape, -torch.inf,
-                                     device=mask.device))
-        scores, ids = topk_stable(sim, self.k)
-        ids = torch.where(torch.isfinite(scores), ids,
-                          torch.full_like(ids, -1))
-        return (ids.to(torch.int32), scores,
-                mask.sum(dim=1).to(torch.int32))
+        scores, ids = rerank_topk(queries, rows, mask, k=self.k,
+                                  metric=_kernel_metric(self.metric))
+        return ids, scores, mask.sum(dim=1).to(torch.int32)

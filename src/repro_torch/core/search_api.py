@@ -1,11 +1,16 @@
-"""Typed search API: :class:`SearchParams` in, :class:`SearchResult` out.
-Port of ``repro/core/search_api.py`` (the reference's PipelineCache, its
-counters and the deprecated kwarg shims are not part of this slice).
+"""Typed search API: :class:`SearchParams` in, :class:`SearchResult` out,
+a :class:`Searcher` protocol, the :class:`PipelineCache` every serving
+surface shares and the deprecated kwarg shim. Port of
+``repro/core/search_api.py``.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
+import warnings
 from typing import Any, Protocol, runtime_checkable
+
+import torch
 
 from repro_torch.core import query as Q
 from repro_torch.store.quantized import QuantizedStore, check_scales
@@ -130,6 +135,146 @@ def as_searcher(fn) -> Searcher:
     return _FnSearcher(fn)
 
 
+# ------------------------------------------------------------------- cache --
+def _signature(x):
+    """What a JAX trace specialises on, for one argument: the shapes and
+    dtypes of its tensors, its structure, None where nothing was passed."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape), x.dtype
+    if isinstance(x, dict):
+        return tuple((k, _signature(v)) for k, v in sorted(x.items()))
+    if isinstance(x, QuantizedStore):
+        return ("store", x.dtype, x.block, _signature(x.codes),
+                _signature(x.scales), _signature(x.exact))
+    raise TypeError(f"unexpected search argument {type(x).__name__}")
+
+
+class _Entry:
+    """One cache entry: the resolved pipeline, and the argument signatures
+    it has run on. The first run of each signature counts as a compile —
+    where the reference's ``jax.jit`` traces (a new delta/tombstone
+    presence, a member matrix resized by compaction)."""
+
+    def __init__(self, cache: "PipelineCache", pipe: Q.QueryPipeline):
+        self._cache = cache
+        self.pipe = pipe
+        self._seen: set = set()
+
+    def __call__(self, scorer_params, members, base, queries,
+                 delta_members=None, tombstone=None):
+        sig = tuple(_signature(a) for a in (scorer_params, members, base,
+                                            queries, delta_members,
+                                            tombstone))
+        cache = self._cache
+        with cache._lock:
+            if sig not in self._seen:
+                self._seen.add(sig)
+                cache.compiles += 1
+                cache.registry.counter("cache_compiles_total").inc()
+        return self.pipe.search(scorer_params, members, base, queries,
+                                delta_members, tombstone)
+
+
+class PipelineCache:
+    """Pipeline cache keyed on ``(resolved SearchParams, n_labels,
+    q_bucket)``, the reference's key.
+
+    PyTorch runs eagerly, so an entry is the resolved pipeline itself (a
+    CUDA graph a key would stand in for ``jax.jit``; the stable top-k's
+    host sync rules out its capture today). Looking a key up again returns
+    the SAME entry. ``hits``/``misses`` count lookups; ``compiles`` counts
+    the first run of each (entry, argument signature), the reference's
+    trace count. Thread-safe. Lookups mirror into the
+    ``cache_{hits,misses,compiles}_total`` counters of ``registry`` (the
+    process-wide ``obs.DEFAULT_REGISTRY`` when None), and :meth:`search`
+    times the first run of every fresh entry, fenced, into the
+    ``cache_compile_seconds`` histogram.
+    """
+
+    def __init__(self, registry=None):
+        self._fns: dict = {}
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        self.compiles = 0
+        self._registry = registry
+
+    @property
+    def registry(self):
+        """The metrics registry this cache records into (resolved lazily,
+        so a cache built before obs configuration lands in the default)."""
+        from repro_torch import obs
+        return obs.get_registry(self._registry)
+
+    def __len__(self) -> int:
+        return len(self._fns)
+
+    def stats(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses,
+                "compiles": self.compiles, "entries": len(self._fns)}
+
+    def clear(self) -> None:
+        with self._lock:
+            self._fns.clear()
+
+    def _lookup(self, params: SearchParams, n_labels: int, q_bucket: int):
+        """:meth:`get` plus a freshness bit -> (entry, fresh)."""
+        if params.mode == "auto":
+            raise ValueError("PipelineCache keys need resolved params — "
+                             "call params.resolve(n_labels, q_batch) first")
+        key = (params, int(n_labels), int(q_bucket))
+        with self._lock:
+            fn = self._fns.get(key)
+            if fn is not None:
+                self.hits += 1
+                self.registry.counter("cache_hits_total").inc()
+                return fn, False
+            self.misses += 1
+            self.registry.counter("cache_misses_total").inc()
+            fn = _Entry(self, params.pipeline())
+            self._fns[key] = fn
+            return fn, True
+
+    def get(self, params: SearchParams, n_labels: int, q_bucket: int):
+        """The search fn for one resolved-params/corpus/batch key:
+        ``fn(scorer_params, members, base, queries, delta_members,
+        tombstone) -> (ids, scores, n_candidates)``."""
+        return self._lookup(params, n_labels, q_bucket)[0]
+
+    def search(self, params: SearchParams, scorer_params, members, base,
+               queries, delta_members=None, tombstone=None, *,
+               epoch: int = 0, staged: bool = False) -> SearchResult:
+        """Resolve params against this corpus/batch, fetch or build the
+        pipeline, run it, and wrap the typed result. ``base`` is the raw
+        [L, d] corpus or a QuantizedStore over it. ``staged=True`` (the
+        reference's per-stage debug mode) is not ported yet and raises."""
+        check_store("PipelineCache.search", params, base)
+        if staged:
+            raise NotImplementedError(
+                "staged=True (QueryPipeline.search_staged) is not ported "
+                "yet: ROADMAP module queue item 8")
+        resolved = params.resolve(int(base.shape[0]), int(queries.shape[0]))
+        fn, fresh = self._lookup(resolved, base.shape[0], queries.shape[0])
+        if fresh:
+            from repro_torch import obs
+            with obs.trace(self.registry, "cache_compile_seconds") as sp:
+                ids, scores, n_cand = sp.fence(
+                    fn(scorer_params, members, base, queries, delta_members,
+                       tombstone))
+        else:
+            ids, scores, n_cand = fn(scorer_params, members, base, queries,
+                                     delta_members, tombstone)
+        return SearchResult(ids=ids, scores=scores, n_candidates=n_cand,
+                            epoch=epoch, mode=resolved.mode)
+
+
+#: Process-wide default cache: surfaces that are not handed a private cache
+#: (a bare ``idx.search``) all share this one.
+DEFAULT_CACHE = PipelineCache()
+
+
 def check_store(surface: str, params: SearchParams, base) -> None:
     """Fail fast when the ``store_dtype`` knob and the base payload
     disagree."""
@@ -154,3 +299,25 @@ def check_params(surface: str, params) -> SearchParams:
             f"{surface} takes a SearchParams in its params slot, got "
             f"{type(params).__name__}")
     return params
+
+
+# ------------------------------------------------------------- deprecation --
+_LEGACY_DEFAULTS = {"m": 5, "tau": 1, "k": 10, "topC": 1024,
+                    "metric": "angular", "mode": "auto"}
+
+
+def params_from_legacy_kwargs(surface: str, *, stacklevel: int = 3,
+                              **kw) -> SearchParams:
+    """Build SearchParams from an old-style kwarg call and warn.
+
+    ``kw`` values of None mean "not passed" and take the shared defaults,
+    so the shim is the typed path with those params. ``stacklevel=3``
+    attributes the DeprecationWarning to the shim's caller."""
+    filled = {name: (default if kw.get(name) is None else kw[name])
+              for name, default in _LEGACY_DEFAULTS.items()}
+    warnings.warn(
+        f"{surface} with bare m=/tau=/k=/metric=/mode=/topC= kwargs is "
+        f"deprecated; pass SearchParams(m={filled['m']}, tau={filled['tau']},"
+        f" k={filled['k']}, ...) instead",
+        DeprecationWarning, stacklevel=stacklevel)
+    return SearchParams(**filled)

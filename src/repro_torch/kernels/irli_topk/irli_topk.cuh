@@ -1,5 +1,6 @@
 // Device routines of the fused scorer GEMM + running top-m, shared by
-// irli_topk.cu and the fused query kernel (mega_query.cu).
+// irli_topk.cu, the fused query kernel (mega_query.cu) and the masked
+// distance top-k (distance_topk.cu).
 //
 // A "tile worker" is a group of 256 threads (a whole block in irli_topk.cu,
 // half of one in mega_query.cu) that synchronises on its own named barrier,
@@ -10,7 +11,8 @@
 //                 double-buffered shared memory (the next slice's global
 //                 loads are in flight while the current one is multiplied),
 //                 each thread accumulating an 8x8 block of C in registers in
-//                 k order. Inputs are fp32 or bf16, widened on load.
+//                 k order. Inputs are fp32 or bf16, widened on load. B may
+//                 come as its transpose (the corpus rows of distance_topk.cu).
 //   scorer_topk_tile
 //                 logits = h @ w2 + b2 for 128 rows over every 128-wide
 //                 column tile of w2, with a running top-m and (optionally) a
@@ -77,7 +79,12 @@ __device__ __forceinline__ int tile_off(int i, int t16) {
   return (i < 4 ? 0 : 64) + t16 * 4 + (i & 3);
 }
 
-template <typename T>
+// One BK-deep slice of A [M, K] and of B [K, N] into registers, zero
+// outside the bounds. With kBT, B is given as its transpose Bt [N, K]
+// (row stride ldb), as distance_topk.cu's corpus rows: thread lt then reads
+// four consecutive depths of one column, so two threads cover one column's
+// 32-byte slice.
+template <typename T, bool kBT>
 __device__ __forceinline__ void load_slice(const T* A, long long lda,
                                            const T* B, long long ldb, int M,
                                            int N, int K, int row0, int col0,
@@ -89,32 +96,46 @@ __device__ __forceinline__ void load_slice(const T* A, long long lda,
     const int r = row0 + (lt >> 3) + 32 * c;
     ra[c] = (r < M && ak < K) ? widen(A[r * lda + ak]) : 0.0f;
   }
-  const int bk = k0 + (lt >> 5);
+  if constexpr (kBT) {
+    const int col = col0 + (lt >> 1);
+    const int bk = k0 + (lt & 1) * 4;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int col = col0 + (lt & 31) + 32 * c;
-    rb[c] = (bk < K && col < N) ? widen(B[bk * ldb + col]) : 0.0f;
+    for (int c = 0; c < 4; ++c) {
+      rb[c] = (col < N && bk + c < K) ? widen(B[col * ldb + bk + c]) : 0.0f;
+    }
+  } else {
+    const int bk = k0 + (lt >> 5);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = col0 + (lt & 31) + 32 * c;
+      rb[c] = (bk < K && col < N) ? widen(B[bk * ldb + col]) : 0.0f;
+    }
   }
 }
 
+template <bool kBT>
 __device__ __forceinline__ void store_slice(float* as, float* bs, int lt,
                                             const float (&ra)[4],
                                             const float (&rb)[4]) {
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     as[(lt & 7) * kAStride + (lt >> 3) + 32 * c] = ra[c];
-    bs[(lt >> 5) * kBN + (lt & 31) + 32 * c] = rb[c];
+    if constexpr (kBT) {
+      bs[((lt & 1) * 4 + c) * kBN + (lt >> 1)] = rb[c];
+    } else {
+      bs[(lt >> 5) * kBN + (lt & 31) + 32 * c] = rb[c];
+    }
   }
 }
 
 // acc[i][j] = Σ_k A[row0 + tile_off(i, ty), k] · B[k, col0 + tile_off(j,
 // tx)], k ascending, zero outside [M, N, K]. A [M, K] and B [K, N] are
-// row-major with leading dimensions lda, ldb. Every thread of the worker
-// calls it; it leaves As/Bs free (it ends on a barrier). The pointers carry
+// row-major with leading dimensions lda, ldb (with kBT, B is given as its
+// transpose [N, K], row stride ldb). Every thread of the worker calls it; it leaves As/Bs free (it ends on a barrier). The pointers carry
 // no __restrict__: in mega_query.cu, A is scratch that other blocks wrote
 // earlier in the same launch, which the non-coherent read-only path must
 // not serve.
-template <typename T>
+template <typename T, bool kBT = false>
 __device__ void gemm_tile(const T* A, long long lda, const T* B,
                           long long ldb, int M, int N, int K, int row0,
                           int col0, float* As, float* Bs, int bar,
@@ -128,14 +149,14 @@ __device__ void gemm_tile(const T* A, long long lda, const T* B,
   }
   const int nk = (K + kBK - 1) / kBK;
   float ra[4], rb[4];
-  load_slice(A, lda, B, ldb, M, N, K, row0, col0, 0, lt, ra, rb);
-  store_slice(As, Bs, lt, ra, rb);
+  load_slice<T, kBT>(A, lda, B, ldb, M, N, K, row0, col0, 0, lt, ra, rb);
+  store_slice<kBT>(As, Bs, lt, ra, rb);
   tile_sync(bar);
   for (int kt = 0; kt < nk; ++kt) {
     const int cur = kt & 1;
     if (kt + 1 < nk) {
-      load_slice(A, lda, B, ldb, M, N, K, row0, col0, (kt + 1) * kBK, lt,
-                 ra, rb);
+      load_slice<T, kBT>(A, lda, B, ldb, M, N, K, row0, col0,
+                         (kt + 1) * kBK, lt, ra, rb);
     }
     const float* as = As + cur * kBK * kAStride;
     const float* bs = Bs + cur * kBK * kBN;
@@ -158,8 +179,8 @@ __device__ void gemm_tile(const T* A, long long lda, const T* B,
       }
     }
     if (kt + 1 < nk) {
-      store_slice(As + (cur ^ 1) * kBK * kAStride,
-                  Bs + (cur ^ 1) * kBK * kBN, lt, ra, rb);
+      store_slice<kBT>(As + (cur ^ 1) * kBK * kAStride,
+                       Bs + (cur ^ 1) * kBK * kBN, lt, ra, rb);
     }
     tile_sync(bar);
   }

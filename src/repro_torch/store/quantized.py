@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 STORE_DTYPES = ("fp32", "int8", "bf16")
@@ -50,6 +51,28 @@ class QuantizedStore:
         if self.scales is not None:
             n += self.scales.numel() * self.scales.element_size()
         return int(n)
+
+    def append(self, ids, x) -> "QuantizedStore":
+        """Write rows ``x`` [n, D] at row indices ``ids`` [n], encoded with
+        THIS store's dtype and block, into copies of its tensors -> a new
+        store; the caller swaps it in (the streaming snapshot discipline:
+        readers of this store never see the write). A row's codes and
+        scales equal those of a full :func:`encode` of the same rows."""
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        ids = torch.as_tensor(ids, device=self.device).long()
+        enc = encode(x, self.dtype, self.block)
+
+        def put(dst, src):
+            if dst is None:
+                return None
+            out = dst.clone()
+            out[ids] = src
+            return out
+
+        return QuantizedStore(self.dtype, self.block,
+                              put(self.codes, enc.codes),
+                              put(self.scales, enc.scales),
+                              put(self.exact, x))
 
 
 def _check_dtype(dtype: str) -> None:
@@ -129,3 +152,46 @@ def refine_rows(store: QuantizedStore, ids) -> torch.Tensor:
     if store.exact is not None:
         return store.exact[ids]
     return dequant_rows(store, ids)
+
+
+# ------------------------------------------------------------ serialization --
+def store_to_arrays(store: QuantizedStore | None, prefix: str = "store_"
+                    ) -> dict:
+    """Flatten a store into npz-safe tensors: ``{prefix}codes`` (+
+    ``{prefix}scales`` for int8). bf16 codes are widened to fp32 — npz has
+    no bf16 — which is exact; :func:`store_from_arrays` re-casts. The exact
+    tier is not serialized: its owner keeps the fp32 rows as a leaf of its
+    own. The reference's layout, so either package restores the other's."""
+    if store is None:
+        return {}
+    out = {prefix + "codes": (store.codes if store.codes.dtype == torch.int8
+                              else store.codes.to(torch.float32))}
+    if store.scales is not None:
+        out[prefix + "scales"] = store.scales
+    return out
+
+
+def to_tensor(x, dtype: torch.dtype,
+              device: str | torch.device = "cpu") -> torch.Tensor:
+    """A numpy array (copied: a restored or JAX-exported array may be read
+    only) or a tensor -> a tensor of ``dtype`` on ``device``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.array(x))
+    return x.to(device=device, dtype=dtype)
+
+
+def store_from_arrays(arrays: dict, dtype: str, block: int,
+                      prefix: str = "store_",
+                      device: str | torch.device = "cpu"
+                      ) -> QuantizedStore | None:
+    """Inverse of :func:`store_to_arrays` (numpy or tensors) on ``device``
+    -> the store, or None when the arrays carry no ``{prefix}codes``."""
+    if prefix + "codes" not in arrays:
+        return None
+    _check_dtype(dtype)
+    codes = to_tensor(arrays[prefix + "codes"],
+                      {"fp32": torch.float32, "int8": torch.int8,
+                       "bf16": torch.bfloat16}[dtype], device)
+    scales = (to_tensor(arrays[prefix + "scales"], torch.float32, device)
+              if prefix + "scales" in arrays else None)
+    return QuantizedStore(dtype, int(block), codes, scales)

@@ -5,6 +5,8 @@ CPU mode. This file imports neither jax nor the JAX package, so it also runs
 where only the port is installed:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -374,3 +376,157 @@ def test_mega_query_raises_past_its_footprint(card):
     with pytest.raises(ValueError, match="mega_fits"):
         mops.mega_query(params, members, store.codes, store.scales,
                         store.exact, queries, m=40, tau=1, topC=64, k=10)
+
+
+# -------------------------------------------------------- distance_topk ----
+def _dist_card(card, Q, L, d, seed, shared):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(size=(Q, d)).astype(np.float32)).to(card)
+    base = torch.from_numpy(rng.normal(size=(L, d)).astype(np.float32))
+    base = base.to(card)
+    if shared:            # the oracle's stride-0 view of ~tombstone
+        live = torch.from_numpy(rng.uniform(size=L) > 0.3).to(card)
+        mask = live[None, :].expand(Q, L)
+    else:
+        mask = torch.from_numpy(rng.uniform(size=(Q, L)) > 0.5).to(card)
+    return q, base, mask
+
+
+def _dist_agree(vals, ids, q, base, mask, k, metric):
+    """Kernel vs plain: the plain top-(k+1) gives the near-tie rows
+    (ref.same_topm); -1 where the score is not finite, in both."""
+    from repro_torch.kernels.distance_topk.ref import distance_topk_ref
+    kk = min(k + 1, base.shape[0])
+    rv, ri = distance_topk_ref(q, base, mask, k=kk, metric=metric)
+    ri = torch.where(torch.isfinite(rv), ri, torch.full_like(ri, -1))
+    ids = torch.where(torch.isfinite(vals), ids, torch.full_like(ids, -1))
+    fin = torch.isfinite(rv[:, :k])
+    assert torch.equal(torch.isfinite(vals), fin)
+    rv = torch.where(torch.isfinite(rv), rv, torch.zeros_like(rv))
+    same_topm(torch.where(fin, vals, torch.zeros_like(vals)), ids, rv, ri)
+
+
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+@pytest.mark.parametrize("Q,L,d,k,shared", [
+    (1, 1, 8, 1, False),
+    (7, 1000, 96, 10, True),
+    (130, 5000, 96, 10, False),       # ragged query tiles
+    (20, 4000, 96, 31, False),        # the widest lists in shared memory
+    (20, 4000, 96, 32, True),         # k > 31: lists in device memory
+    (64, 70_000, 96, 100, True),      # many splits
+    (33, 3000, 40, 200, False),
+    (5, 300, 17, 300, True),          # k = L
+])
+def test_distance_topk_kernel_matches_plain(card, Q, L, d, k, shared,
+                                            metric):
+    from repro_torch.kernels.distance_topk import ops as dops
+    q, base, mask = _dist_card(card, Q, L, d, Q + L + k, shared)
+    reset_launches()
+    vals, ids = dops.distance_topk(q, base, mask, k=k, metric=metric)
+    torch.cuda.synchronize()
+    assert LAUNCHES["distance_topk"] == 1
+    assert vals.shape == ids.shape == (Q, k) and ids.dtype == torch.int32
+    _dist_agree(vals, ids, q, base, mask, k, metric)
+
+
+def test_distance_topk_ties_and_signed_zeros(card):
+    """Equal values go to the smaller column across every split, and -0.0
+    sorts below +0.0 (jax.lax.top_k's total order): a zero query's l2
+    similarity to a zero row is -0.0, its dot similarity to any row +0.0."""
+    from repro_torch.kernels.distance_topk import ops as dops
+    L, d = 50_000, 32
+    base = torch.ones((L, d), device=card)
+    zeros = torch.tensor([7, 19_000, 49_999], device=card)
+    base[zeros] = 0.0
+    q = torch.zeros((3, d), device=card)
+    q[1] = 1.0                             # all rows but the zeros tie at d
+    mask = torch.ones((1, L), dtype=torch.bool, device=card).expand(3, L)
+    assert dops.splits(3, L, 12, card) > 1
+    vals, ids = dops.distance_topk(q, base, mask, k=12, metric="dot")
+    assert torch.equal(ids[0].cpu(), torch.arange(12, dtype=torch.int32))
+    assert not torch.signbit(vals[0]).any()
+    assert torch.equal(ids[1].cpu(), torch.tensor(
+        [i for i in range(13) if i != 7], dtype=torch.int32))
+    vals, ids = dops.distance_topk(q, base, mask, k=4, metric="l2")
+    assert torch.equal(ids[0, :3], zeros.int())
+    assert torch.signbit(vals[0, :3]).all() and (vals[0, :3] == 0).all()
+    assert vals[0, 3] == -float(d)
+
+
+def test_exact_topk_and_dense_search_launch_the_kernel(card):
+    """core.query.exact_topk and dense mode's rerank each launch
+    distance_topk once and hold no [Q, L] fp32 table."""
+    from repro_torch.core.query import QueryPipeline, exact_topk
+    from repro_torch.kernels.distance_topk import ops as dops
+    params, members, base, queries = _mega_inputs(card, "fp32", exact=False)
+    tomb = torch.zeros(base.shape[0], dtype=torch.bool, device=card)
+    tomb[::3] = True
+    reset_launches()
+    ids = exact_topk(queries, base, tomb, k=10)
+    torch.cuda.synchronize()
+    assert LAUNCHES["distance_topk"] == 1
+    assert not bool(tomb[ids.clamp_min(0).long()].any())
+    vals, kids = dops.distance_topk(
+        queries, base, (~tomb)[None, :].expand(len(queries), -1), k=10)
+    assert torch.equal(torch.where(torch.isfinite(vals), kids, -1), ids)
+    _dist_agree(vals, kids, queries, base, (~tomb)[None, :], 10, "dot")
+    reset_launches()
+    pipe = QueryPipeline(mode="dense", m=4, tau=1, k=10)
+    ids, scores, nc = pipe.search(params, members, base, queries)
+    torch.cuda.synchronize()
+    assert {n for n, c in LAUNCHES.items() if c} == {"irli_topk",
+                                                      "distance_topk"}
+    assert ids.shape == (len(queries), 10) and bool((nc > 0).all())
+
+
+def test_streaming_sequence_on_the_card(card):
+    """A small MutableIRLIIndex on the card: each insert batch is one
+    irli_topk and one kchoice launch, the search equals the plain search,
+    compaction keeps it bit for bit, and the oracle is one distance_topk
+    launch equal to the plain oracle; no deleted id is returned."""
+    from repro_torch.core.index import IRLIConfig, IRLIIndex
+    from repro_torch.core.search_api import PipelineCache, SearchParams
+    from repro_torch.stream import MutableIRLIIndex
+    cfg = IRLIConfig(d=32, n_labels=4000, n_buckets=64, n_reps=4,
+                     d_hidden=64, K=6)
+    idx = IRLIIndex(cfg, device=card)
+    idx.build_index()
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(card)
+    base = t(rng.normal(size=(4000, 32)))
+    mi = MutableIRLIIndex(idx, base, store_dtype="int8")
+    new = t(rng.normal(size=(1000, 32)))
+    for s in range(0, 1000, 250):
+        reset_launches()
+        ids = mi.insert(new[s:s + 250])
+        torch.cuda.synchronize()
+        assert {n: c for n, c in LAUNCHES.items() if c} == {"irli_topk": 1,
+                                                             "kchoice": 1}
+        assert ids.device.type == "cuda"
+    dead = np.r_[np.arange(0, 4000, 9), 4000 + np.arange(0, 1000, 11)]
+    assert mi.delete(dead) == len(dead)
+    sp = SearchParams(m=4, tau=2, k=10, store_dtype="int8")
+    cache = PipelineCache()
+    pre = mi.search(new[:200], sp, cache=cache)
+    s = mi.snapshot
+    plain = mega_search_ref(
+        s.params, s.members, dataclasses.replace(s.store, exact=s.vecs),
+        new[:200],
+        s.delta.members, s.tombstone, m=4, tau=2, topC=1024, k=10)
+    agree = (pre.ids == plain[0]).all(dim=1)
+    assert int((~agree).sum()) <= 10
+    mi.compact()
+    post = mi.search(new[:200], sp, cache=cache)
+    assert torch.equal(pre.ids, post.ids)
+    assert torch.equal(pre.scores, post.scores)
+    dead_t = torch.from_numpy(dead).to(card)
+    assert not torch.isin(post.ids, dead_t).any()
+    reset_launches()
+    got = mi.exact_oracle(10)(new[:64])
+    assert LAUNCHES["distance_topk"] == 1
+    from repro_torch.kernels.distance_topk.ref import distance_topk_ref
+    n = mi.n_total
+    rv, ri = distance_topk_ref(new[:64], s.vecs[:n], ~s.tombstone[None, :n],
+                               k=10)
+    assert (got == ri.cpu().numpy()).all(axis=1).mean() >= 0.95
+    assert not np.isin(got, dead).any()

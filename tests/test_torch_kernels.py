@@ -409,3 +409,140 @@ def test_irli_topk_plain_serves_any_m():
             np.testing.assert_allclose(v[g].numpy(), np.asarray(rv),
                                        rtol=1e-5, atol=1e-5)
             np.testing.assert_array_equal(i[g].numpy(), np.asarray(ri))
+
+
+# -------------------------------------------------------- distance_topk ----
+from repro.kernels.distance_topk.distance_topk import (  # noqa: E402
+    distance_topk as j_dist)
+from repro.kernels.distance_topk.ops import rerank_topk as j_rerank  # noqa: E402,E501
+from repro.kernels.distance_topk.ref import (  # noqa: E402
+    distance_topk_ref as j_dist_ref)
+from repro_torch.kernels.distance_topk import ops as dops  # noqa: E402
+from repro_torch.kernels.distance_topk.ref import distance_topk_ref  # noqa: E402,E501
+
+
+def _dist_inputs(Q, L, d, seed):
+    """Queries, corpus and a float mask from a seed. The corpus repeats a
+    row (exact ties, broken toward the smaller id) and holds two zero rows;
+    query 0 is zero, so its dot similarities are all +0.0 (one long tie)
+    and its l2 similarity to a zero row is -0.0 (-((0 - 0) + 0))."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(Q, d)).astype(np.float32)
+    q[0] = 0.0
+    base = rng.normal(size=(L, d)).astype(np.float32)
+    base[L // 2: L // 2 + 4] = base[1]            # duplicate rows
+    base[3] = base[L - 2] = 0.0                   # zero rows
+    mask = (rng.uniform(size=(Q, L)) < 0.6).astype(np.float32)
+    mask[:, 1] = mask[:, L // 2] = 1.0            # the tied rows survive
+    return q, base, mask
+
+
+def _same_dist(vals, ids, rvals, rids):
+    vals, ids = np.asarray(vals), np.asarray(ids)
+    rvals, rids = np.asarray(rvals), np.asarray(rids)
+    fin = np.isfinite(rvals)
+    np.testing.assert_array_equal(np.isfinite(vals), fin)
+    np.testing.assert_allclose(vals[fin], rvals[fin], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(ids[fin], rids[fin])
+
+
+DIST_CASES = [(8, 64, 16, 5), (13, 300, 24, 10),    # ragged Q and L
+              (5, 97, 8, 40), (3, 130, 96, 100)]
+
+
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+@pytest.mark.parametrize("Q,L,d,k", DIST_CASES)
+def test_distance_topk_plain_matches_reference(Q, L, d, k, metric):
+    """distance_topk_ref against the JAX oracle, and rerank_topk (the CPU
+    dispatch) against the JAX rerank_topk: scores to 1e-5, ids equal, and
+    the ±0.0 similarities keep their sign."""
+    q, base, mask = _dist_inputs(Q, L, d, Q * L)
+    v, i = distance_topk_ref(torch.from_numpy(q), torch.from_numpy(base),
+                             torch.from_numpy(mask), k=k, metric=metric)
+    rv, ri = j_dist_ref(jnp.asarray(q), jnp.asarray(base), jnp.asarray(mask),
+                        k=k, metric=metric)
+    assert v.dtype == torch.float32 and i.dtype == torch.int32
+    _same_dist(v, i, rv, ri)
+    zero = np.asarray(rv) == 0
+    np.testing.assert_array_equal(np.signbit(v.numpy()[zero]),
+                                  np.signbit(np.asarray(rv)[zero]))
+    reset_launches()
+    sv, si = dops.rerank_topk(torch.from_numpy(q), torch.from_numpy(base),
+                              torch.from_numpy(mask), k=k, metric=metric)
+    assert LAUNCHES["distance_topk"] == 0
+    jv, ji = j_rerank(jnp.asarray(q), jnp.asarray(base), jnp.asarray(mask),
+                      k=k, metric=metric)
+    np.testing.assert_array_equal(si.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(sv.numpy(), np.asarray(jv), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+@pytest.mark.parametrize("Q,L,d,k,tq,tl", [(32, 512, 16, 8, 16, 128),
+                                           (64, 1024, 32, 10, 32, 256)])
+def test_distance_topk_plain_matches_pallas_interpret(Q, L, d, k, tq, tl,
+                                                      metric):
+    """The port's plain version against the Pallas kernel in interpret mode
+    (as tests/test_kernels.py runs it), at shapes its tiles divide. The
+    kernel's l2 is 2·q·b - |q|² - |b|², another order than pairwise_sim's:
+    values within 1e-5 + 1e-5·|v|, ids equal."""
+    q, base, mask = _dist_inputs(Q, L, d, Q + L)
+    v, i = distance_topk_ref(torch.from_numpy(q), torch.from_numpy(base),
+                             torch.from_numpy(mask), k=k, metric=metric)
+    pv, pi = j_dist(jnp.asarray(q), jnp.asarray(base), jnp.asarray(mask),
+                    k=k, tq=tq, tl=tl, metric=metric, interpret=True)
+    _same_dist(v, i, pv, pi)
+
+
+def test_rerank_topk_pads_past_the_survivors():
+    """k above the survivors: -1 ids and -inf scores in the slots past
+    them, as the reference's rerank_topk; a row with no survivor is all
+    padding."""
+    q, base, mask = _dist_inputs(6, 50, 8, 7)
+    mask[:] = 0.0
+    mask[0, [4, 9, 33]] = 1.0
+    mask[1, 17] = 2.0
+    mask[2, 5] = -1.0                     # not > 0: dropped, as in JAX
+    v, i = dops.rerank_topk(torch.from_numpy(q), torch.from_numpy(base),
+                            torch.from_numpy(mask), k=5)
+    jv, ji = j_rerank(jnp.asarray(q), jnp.asarray(base), jnp.asarray(mask),
+                      k=5)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+    assert sorted(i[0, :3].tolist()) == [4, 9, 33]
+    assert (i[0, 3:] == -1).all() and torch.isinf(v[0, 3:]).all()
+    assert i[1, 0] == 17 and (i[1, 1:] == -1).all()
+    assert (i[2:] == -1).all()
+
+
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_rerank_topk_takes_a_stride0_tombstone_mask(metric):
+    """The exact oracle's mask: one live row seen by every query, a stride-0
+    view of ~tombstone. It gives what the full [Q, L] mask gives, and
+    mask_rows keeps it one row."""
+    q, base, _ = _dist_inputs(9, 200, 16, 3)
+    tomb = np.zeros(200, bool)
+    tomb[np.random.default_rng(0).choice(200, 60, replace=False)] = True
+    live = torch.from_numpy(~tomb)[None, :].expand(9, -1)
+    assert live.stride(0) == 0
+    v, i = dops.rerank_topk(torch.from_numpy(q), torch.from_numpy(base),
+                            live, k=10, metric=metric)
+    jv, ji = j_rerank(jnp.asarray(q), jnp.asarray(base),
+                      jnp.asarray(~tomb[None, :]), k=10, metric=metric)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=1e-5,
+                               atol=1e-5)
+    assert not np.isin(i.numpy(), np.flatnonzero(tomb)).any()
+    rows, ld = dops.mask_rows(live, 9, 200)
+    assert rows.shape == (1, 200) and ld == 0 and rows.dtype == torch.uint8
+    full, ld = dops.mask_rows(live.contiguous().float(), 9, 200)
+    assert full.shape == (9, 200) and ld == 200
+    with pytest.raises(ValueError, match="broadcast"):
+        dops.mask_rows(live[:, :10], 9, 200)
+
+
+def test_distance_topk_kernel_refuses_cpu_tensors():
+    q, base, mask = _dist_inputs(4, 32, 8, 1)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        dops.distance_topk(torch.from_numpy(q), torch.from_numpy(base),
+                           torch.from_numpy(mask), k=3)

@@ -275,4 +275,145 @@ def test_port_imports_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert "repro_torch.core.query" in mods and len(mods) >= 15
+    assert "repro_torch.core.query" in mods and len(mods) >= 53
+
+
+# ------------------------------------------- rerank, oracle, dense helpers --
+@pytest.mark.parametrize("metric", ["angular", "l2"])
+def test_rerank_and_exact_topk_match_reference(metric):
+    """rerank (a [Q, L] candidate mask) and exact_topk (a tombstone, the
+    audit oracle), now through rerank_topk, give the reference's ids."""
+    jidx, base, queries = _fixture(seed=8)
+    rng = np.random.default_rng(8)
+    L = base.shape[0]
+    mask = rng.uniform(size=(len(queries), L)) < 0.02     # few survivors
+    mask[0] = False                                       # none at all
+    tomb = np.zeros(L, bool)
+    tomb[rng.choice(L, 150, replace=False)] = True
+    tq, tb = torch.from_numpy(queries), torch.from_numpy(base)
+    jq, jb = jnp.asarray(queries), jnp.asarray(base)
+    got = TQ.rerank(tq, tb, torch.from_numpy(mask), 12, metric)
+    ref = JQ.rerank(jq, jb, jnp.asarray(mask), 12, metric)
+    assert got.dtype == torch.int32 and (got[0] == -1).all()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    got = TQ.exact_topk(tq, tb, torch.from_numpy(tomb), k=10, metric=metric)
+    ref = JQ.exact_topk(jq, jb, jnp.asarray(tomb), k=10, metric=metric)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert not np.isin(got.numpy(), np.flatnonzero(tomb)).any()
+
+
+def test_query_members_recall_and_precision_match_reference():
+    """top_buckets, gather_candidates, frequency_filter, query_index (with
+    delta segments and tombstones), IRLIIndex.query, recall_at and
+    precision_at against the reference's."""
+    jidx, base, queries = _fixture(seed=9)
+    tidx, _ = _port(jidx)
+    L = base.shape[0]
+    rng = np.random.default_rng(9)
+    delta = np.full((R, B, 2), -1, np.int32)
+    delta[:, :, 0] = rng.integers(0, L, (R, B))
+    tomb = np.zeros(L, bool)
+    tomb[rng.choice(L, 40, replace=False)] = True
+    jq, tq = jnp.asarray(queries), torch.from_numpy(queries)
+    for loss in ("softmax_bce", "sigmoid_bce"):
+        js, ji = JQ.top_buckets(jidx.params, jq, M_PROBE, loss)
+        ts, ti = TQ.top_buckets(tidx.params, tq, M_PROBE, loss)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5,
+                                   atol=1e-6)
+    got = TQ.gather_candidates(tidx.index, ti)
+    ref = JQ.gather_candidates(jidx.index, ji)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    ref = JQ.query_index(jidx.params, jidx.index, jq, m=M_PROBE, tau=2, L=L,
+                         delta_members=jnp.asarray(delta),
+                         tombstone=jnp.asarray(tomb))
+    got = TQ.query_index(tidx.params, tidx.index, tq, m=M_PROBE, tau=2, L=L,
+                         delta_members=torch.from_numpy(delta),
+                         tombstone=torch.from_numpy(tomb))
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert got[2].dtype == torch.int32
+    np.testing.assert_array_equal(
+        TQ.frequency_filter(got[1], 3).numpy(),
+        np.asarray(JQ.frequency_filter(jnp.asarray(got[1].numpy()), 3)))
+    for a, b in zip(tidx.query(queries, m=M_PROBE, tau=1),
+                    jidx.query(jq, m=M_PROBE, tau=1)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    mask, freq, _ = got
+    gt = rng.integers(-1, L, (len(queries), 10)).astype(np.int32)
+    assert float(TQ.recall_at(mask, torch.from_numpy(gt))) == pytest.approx(
+        float(JQ.recall_at(jnp.asarray(mask.numpy()), jnp.asarray(gt))))
+    labels = rng.integers(0, L, (len(queries), 3)).astype(np.int32)
+    labels[:, 0] = np.asarray(ref[1]).argmax(1)           # some hits
+    tp = TQ.precision_at(mask, freq, tq, None, torch.from_numpy(labels))
+    jp = JQ.precision_at(jnp.asarray(mask.numpy()),
+                         jnp.asarray(freq.numpy()), jq, None,
+                         jnp.asarray(labels))
+    assert sorted(tp) == sorted(jp) == ["P@1", "P@3", "P@5"]
+    for key in jp:
+        assert float(tp[key]) == pytest.approx(float(jp[key]))
+    assert float(tp["P@1"]) > 0
+
+
+# ------------------------------------------------------------------ cache --
+def test_pipeline_cache_matches_reference():
+    """The same searches through both packages' PipelineCache: the same
+    hits, misses, compiles and entries, the same object per key, unresolved
+    params refused, and the cache_* counters mirrored into the registry."""
+    from repro.core.search_api import PipelineCache as JCache
+    from repro.obs import MetricRegistry as JRegistry
+    from repro_torch.core.search_api import PipelineCache
+    from repro_torch.obs import MetricRegistry
+    jidx, base, queries = _fixture(seed=10)
+    tidx, _ = _port(jidx)
+    jreg, treg = JRegistry(), MetricRegistry()
+    jc, tc = JCache(registry=jreg), PipelineCache(registry=treg)
+    L = base.shape[0]
+    sweep = [dict(m=M_PROBE, tau=1, k=K_TOP), dict(m=M_PROBE, tau=2, k=K_TOP),
+             dict(m=M_PROBE, tau=1, k=K_TOP, mode="compact", topC=64)]
+    for kw in sweep + sweep[::-1] + [sweep[0]]:
+        for q in (queries, queries[:3]):
+            jr = jidx.search(jnp.asarray(q), jnp.asarray(base),
+                             JParams(**kw), cache=jc)
+            tr = tidx.search(q, base, SearchParams(**kw), cache=tc)
+            _assert_same((tr.ids, tr.scores, tr.n_candidates),
+                         (jr.ids, jr.scores, jr.n_candidates))
+    assert tc.stats() == jc.stats()
+    assert tc.stats() == {"hits": 8, "misses": 6, "compiles": 6,
+                          "entries": 6}
+    js, ts = jreg.snapshot(), treg.snapshot()
+    for name in ("cache_hits_total", "cache_misses_total",
+                 "cache_compiles_total"):
+        assert ts[name]["value"] == js[name]["value"]
+    assert ts["cache_compile_seconds"]["count"] == 6
+    p = SearchParams(m=M_PROBE).resolve(L, 8)
+    assert tc.get(p, L, 8) is tc.get(p, L, 8)
+    with pytest.raises(ValueError, match="resolved params"):
+        tc.get(SearchParams(), L, 8)
+    tc.clear()
+    assert len(tc) == 0
+    searcher = tidx.as_searcher(base, cache=tc)
+    res = searcher.search(queries, SearchParams(m=M_PROBE, k=K_TOP))
+    assert tc.stats()["misses"] == 8 and res.ids.shape == (len(queries),
+                                                            K_TOP)
+
+
+def test_index_search_legacy_kwargs_and_default_cache():
+    from repro_torch.core.search_api import DEFAULT_CACHE
+    jidx, base, queries = _fixture(seed=11)
+    tidx, _ = _port(jidx)
+    before = DEFAULT_CACHE.stats()
+    with pytest.warns(DeprecationWarning, match="SearchParams"):
+        ids, n_cand = tidx.search(queries, base, m=M_PROBE, tau=1, k=K_TOP)
+    with pytest.warns(DeprecationWarning):
+        jids, jn = jidx.search(jnp.asarray(queries), jnp.asarray(base),
+                               m=M_PROBE, tau=1, k=K_TOP)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+    np.testing.assert_array_equal(n_cand.numpy(), np.asarray(jn))
+    after = DEFAULT_CACHE.stats()
+    assert after["hits"] + after["misses"] == (before["hits"]
+                                               + before["misses"] + 1)
+    with pytest.raises(TypeError, match="either SearchParams"):
+        tidx.search(queries, base, SearchParams(), k=3)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tidx.search(queries, base, SearchParams(), staged=True)
