@@ -5,9 +5,10 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-It builds the seven hand-written kernels from the repository's .cu sources
+It builds the eight hand-written kernels from the repository's .cu sources
 (one nvcc each, in parallel), holds each against its plain PyTorch version
-on the card, and drives the port's three paths at the irli-deep1b widths:
+on the card, and drives the port's three index paths at the irli-deep1b
+widths and the LM prefill at gemma-7b's:
 
   * search (Alg. 2) through ``IRLIIndex.search``: the compact path
     (``mode="compact"``, int8 store: irli_topk, freq_topc and quant_rerank,
@@ -36,7 +37,27 @@ on the card, and drives the port's three paths at the irli-deep1b widths:
     the plain versions in place of the three kernels (no launch), held
     against the kernel fit's round 1; then one round of a softmax_bce fit
     (the paper's loss: no bce_logits); recall@10 of the fitted index
-    against exact search, above the hash partition's.
+    against exact search, above the hash partition's;
+  * the LM prefill cell (``lm_cell``): ``launch/steps.build_lm_prefill``
+    over gemma-7b at full width and full depth (28 layers, d 3072, 16
+    heads x 256, d_ff 24576, vocab 256,000, bf16, random weights from
+    ``lm_init`` seeded SEED on the card) at [4, 2048] and [1, 32768]: one
+    flash_attention launch a layer and no other kernel; flash_attention
+    against its plain version on layer 0's real q, k and v (bf16, and fp32
+    at [4, 2048]; bf16 rtol/atol 3e-2, fp32 2e-4, the reference test's),
+    its error against the fp32-probability attention at most 1.25x the
+    plain version's; each prefill against the same prefill with the plain
+    attention (``plain_attention``: the last hidden state's relative L2
+    error <= PREFILL_TOL = 5e-2, and against the prefill with fp32
+    probabilities at most 1.25x the plain prefill's; next tokens equal
+    except rows whose plain top-2 gap is under 2e-2·|top|, counted); the
+    attention call's peak memory above its inputs and output under 64 MB;
+    prefill times, the device time of one traced prefill by launching op
+    (``prefill_split``: the attention's share) and the prefill's FLOP
+    bound; the kernel's time beside its bound and
+    scaled_dot_product_attention's. Then qwen3-4b at full width,
+    4 of its 36 layers, at [4, 2048] (GQA, 32 heads over 8, head_dim 128),
+    held the same way.
 
 Each path's counters are set to 0 just before it runs and read just after;
 the kernels line gives each kernel's launches by path.
@@ -79,7 +100,11 @@ sizes from SEED. The softmax_bce fit: one round over N = L = 16,384 at
 batch 1024 (its autograd keeps several [R, batch, B] tensors). More labels
 a bucket do not lift the fit's recall on this data: at L = 2,000,000 and
 N = 131,072 (``--fit-recall 2000000 131072``) the partition collapses
-alike, so the cell keeps L/B = 6.55 and its time (PERF.md).
+alike, so the cell keeps L/B = 6.55 and its time (PERF.md). The LM cell:
+the reference's ``prefill_32k`` cell (configs/lm_common.py: batch 32 x
+32,768 over a pod) cut to one card as two request shapes, [1, 32768] (the
+cell's prompt length, batch 1) and [4, 2048] (a few short requests);
+tokens random from SEED; qwen3-4b's depth cut to 4 layers.
 """
 from __future__ import annotations
 
@@ -101,9 +126,10 @@ BLOCK = 32
 M, TAU, K, TOPC = 5, 2, 10, 1024
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 FP32_FLOPS = 67e12                 # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989.4e12              # H100 SXM bf16 dense, tensor cores
 TOL = 1e-5                         # |a - b| <= TOL + TOL·|b| for fp32 values
 KERNELS = ("irli_topk", "freq_topc", "quant_rerank", "mega_query",
-           "bce_logits", "kchoice", "distance_topk")
+           "bce_logits", "kchoice", "distance_topk", "flash_attention")
 # the stream cell
 N_INSERT, INSERT_BATCH, N_DEL_BASE, N_DEL_NEW = 65_536, 4096, 90_000, 10_000
 DELTA_LEN = 208                    # default_delta_len(2·L, L, B)
@@ -111,6 +137,13 @@ DELTA_LEN = 208                    # default_delta_len(2·L, L, B)
 FIT_L = 131_072
 FIT_K, K_NEIGH, FIT_BATCH, FIT_ROUNDS, FIT_CHUNK = 10, 100, 4096, 2, 65_536
 SOFT_L, SOFT_BATCH = 16_384, 1024
+# the LM cell: [batch, prompt length] of each gemma-7b prefill
+LM_SHAPES = ((4, 2048), (1, 32768))
+QWEN_LAYERS = 4
+# the last hidden state's relative L2 error of a prefill against the same
+# prefill with the plain attention: two bf16 attentions that round P apart
+# differ by 2.4e-2 to 2.5e-2 after gemma-7b's 28 random layers (PERF.md)
+PREFILL_TOL = 5e-2
 
 
 def log(*args):
@@ -693,6 +726,330 @@ def fit_cell(torch, dev, check_irli) -> dict:
             "bounds": {"bce_logits": bce_bound, "kchoice": k_bound},
             "irli_err": irli_err, "dist_err": dist_err,
             "dense_launches": dense_launches}
+
+
+def exact_attention(q, k, v):
+    """The plain version on fp32 copies of bf16 q, k, v, cast back: the
+    probabilities stay fp32 (no bf16 rounding of P), the yardstick that
+    both the kernel's and the plain version's bf16 rounding are measured
+    against."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    return flash_attention_ref(q.float(), k.float(), v.float(),
+                               q_chunk=1024).to(q.dtype)
+
+
+@contextlib.contextmanager
+def plain_attention(exact: bool = False):
+    """attend_train's causal attention through the plain version (ref.py,
+    in query chunks of 1024: no launch) instead of the kernel, or with
+    ``exact`` through :func:`exact_attention`; only for the comparison of
+    a whole prefill."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import attention as A
+    kernel = A.causal_attention
+    A.causal_attention = exact_attention if exact else (
+        lambda q, k, v: flash_attention_ref(q, k, v, q_chunk=1024))
+    try:
+        yield
+    finally:
+        A.causal_attention = kernel
+
+
+@contextlib.contextmanager
+def first_layer_qkv(store: list):
+    """Keep the q, k, v of attend_train's first causal_attention call (one
+    layer's real inputs) in ``store``; the call itself is unchanged."""
+    from repro_torch.models import attention as A
+    kernel = A.causal_attention
+
+    def keep(q, k, v):
+        if not store:
+            store.extend((q, k, v))
+        return kernel(q, k, v)
+    A.causal_attention = keep
+    try:
+        yield
+    finally:
+        A.causal_attention = kernel
+
+
+def flash_bound(torch, q, k, v):
+    """flash_attention's least time at these inputs: the causal pairs'
+    operations at the bf16 (or fp32) peak against q, k, v and o once at the
+    memory rate -> (ms, bound_by, flops)."""
+    B, H, S, D = q.shape
+    flops = 2.0 * B * H * S * (S + 1) * D      # QKᵀ and PV, keys <= query
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    ms, by = max((flops / peak * 1e3, "operations"),
+                 (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    return ms, by, flops
+
+
+def flash_check(torch, name, q, k, v) -> float:
+    """flash_attention on one layer's real q, k, v against its plain
+    version (query chunks of 1024), in q's dtype and, at S <= 2048, in
+    fp32 too; the reference test's tolerances (bf16 rtol/atol 3e-2, fp32
+    2e-4). In bf16 both are also measured against exact_attention (fp32
+    probabilities): the kernel's relative L2 error may not pass 1.25
+    times the plain version's. Returns the max abs error."""
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    cases = [(q, k, v)]
+    if q.shape[2] <= 2048:
+        cases.append(tuple(t.float() for t in (q, k, v)))
+    err = 0.0
+    for qq, kk, vv in cases:
+        o = faops.flash_attention(qq, kk, vv)
+        ref = flash_attention_ref(qq, kk, vv, q_chunk=1024)
+        torch.cuda.synchronize()
+        tol = 3e-2 if qq.dtype == torch.bfloat16 else 2e-4
+        d = (o.float() - ref.float()).abs()
+        bad = int((d > tol + tol * ref.float().abs()).sum())
+        log(f"flash_attention {name} {qq.dtype} q {tuple(qq.shape)} k "
+            f"{tuple(kk.shape)}: max |kernel - plain| {float(d.max()):.3e}"
+            f", {bad} elements outside {tol:g} + {tol:g}·|plain|")
+        if bad or not bool(torch.isfinite(o.float()).all()):
+            raise AssertionError(f"flash_attention {name} {qq.dtype}: "
+                                 f"{bad} elements outside the tolerance")
+        if qq.dtype == torch.bfloat16:
+            ex = exact_attention(qq, kk, vv).float()
+            ek = float((o.float() - ex).norm() / ex.norm())
+            ep = float((ref.float() - ex).norm() / ex.norm())
+            log(f"flash_attention {name}: relative L2 error against the "
+                f"fp32-probability attention: kernel {ek:.4e}, plain "
+                f"{ep:.4e} (limit 1.25 x plain)")
+            if ek > 1.25 * ep:
+                raise AssertionError(f"flash_attention {name}: the kernel's"
+                                     f" error {ek:.3e} passes 1.25 x the "
+                                     f"plain version's {ep:.3e}")
+            del ex
+        err = max(err, float(d.max()))
+        del o, ref, d
+    return err
+
+
+def prefill_check(torch, name, out, plain, exact) -> int:
+    """A prefill against the same prefill with the plain attention and with
+    exact_attention. The last hidden state: relative L2 error against the
+    plain prefill <= PREFILL_TOL, and against the exact prefill at most
+    1.25 times the plain prefill's (both bf16 attentions round P once an
+    element; 28 random layers carry any such rounding to about 2.4e-2,
+    PERF.md). Next tokens equal the plain prefill's except rows whose plain
+    top-2 gap is under 2e-2·|top|. Returns those rows' count."""
+    h, ph = out["hidden"].float(), plain["hidden"].float()
+    eh = exact["hidden"].float()
+    rel = float((h - ph).norm() / ph.norm())
+    rel_k = float((h - eh).norm() / eh.norm())
+    rel_p = float((ph - eh).norm() / eh.norm())
+    top2 = plain["logits"].topk(2, dim=-1).values
+    near = (top2[:, 0] - top2[:, 1]) < 2e-2 * top2[:, 0].abs()
+    differ = out["next_token"] != plain["next_token"]
+    log(f"{name}: hidden rel L2 kernel vs plain {rel:.4e} (limit "
+        f"{PREFILL_TOL:g}); against the fp32-probability prefill: kernel "
+        f"{rel_k:.4e}, plain {rel_p:.4e} (limit 1.25 x plain); next tokens "
+        f"{out['next_token'].tolist()[:8]} (plain "
+        f"{plain['next_token'].tolist()[:8]}, fp32-probability "
+        f"{exact['next_token'].tolist()[:8]}); {int(differ.sum())} differ, "
+        f"{int(near.sum())} of {len(near)} rows a near tie at the top-2")
+    if not (bool(torch.isfinite(out["logits"]).all())
+            and bool(torch.isfinite(h).all())):
+        raise AssertionError(f"{name}: non-finite prefill output")
+    if rel > PREFILL_TOL or rel_k > 1.25 * rel_p:
+        raise AssertionError(f"{name}: hidden rel L2 {rel:.3e} against the "
+                             f"plain prefill (limit {PREFILL_TOL:g}), "
+                             f"{rel_k:.3e} against the fp32-probability "
+                             f"prefill (limit 1.25 x {rel_p:.3e})")
+    if bool((differ & ~near).any()):
+        raise AssertionError(f"{name}: next tokens differ outside the "
+                             f"near ties")
+    return int(near.sum())
+
+
+ATTENTION = "flash_attention (flash_*_kernel)"
+FLASH_KERNELS = ("flash_bf16_kernel", "flash_f32_kernel")   # their names
+
+
+def is_flash(name: str) -> bool:
+    """Whether a traced kernel's (demangled) name is flash_attention's."""
+    return any(k in name for k in FLASH_KERNELS)
+
+
+def prefill_split(torch, step, model, batch) -> tuple[float, dict, int]:
+    """One warm prefill under torch.profiler -> its device time (ms), that
+    time by group and the number of flash_attention kernels it ran. The
+    groups: flash_attention's kernels (``flash_bf16_kernel``,
+    ``flash_f32_kernel``) by name, which no aten op launches; every other
+    kernel by the aten op the trace ties it to; the rest (kernels the trace
+    ties to no aten op, such as those behind a "Command Buffer Full"
+    marker) together."""
+    from torch.profiler import ProfilerActivity, profile
+    step(model, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(model, batch)
+        torch.cuda.synchronize()
+    events = prof.events()
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        raise AssertionError("torch.profiler traced no device activity in "
+                             "the prefill")
+    total = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    att = [e.time_range.elapsed_us() / 1e3 for e in dev if is_flash(e.name)]
+    split = {ATTENTION: sum(att)}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU \
+                and e.name.startswith("aten::"):
+            for kern in e.kernels:
+                if not is_flash(kern.name):
+                    split[e.name] = split.get(e.name, 0.0) \
+                        + kern.duration / 1e3
+    split["kernels tied to no aten op"] = total - sum(split.values())
+    if not att:
+        raise AssertionError(f"no flash_attention kernel in the traced "
+                             f"prefill; its kernels: "
+                             f"{sorted({e.name[:80] for e in dev})}")
+    return total, dict(sorted(split.items(), key=lambda kv: -kv[1])), \
+        len(att)
+
+
+def lm_cell(torch, dev) -> dict:
+    """The LM prefill cell: gemma-7b at full width and depth (random bf16
+    weights from SEED), build_lm_prefill at [4, 2048] and [1, 32768];
+    flash_attention once a layer and no other kernel, the kernel against
+    its plain version on layer 0's q, k, v, each prefill against the same
+    prefill with the plain attention, the times; then qwen3-4b (4 of 36
+    layers) at [4, 2048], the GQA and head_dim 128 case. Returns the
+    launches by path, the record, times and bound."""
+    import dataclasses
+
+    from repro_torch.configs.gemma_7b import CONFIG as GEMMA
+    from repro_torch.configs.qwen3_4b import CONFIG as QWEN
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.launch.steps import build_lm_prefill
+    from repro_torch.models.module import param_bytes, param_count
+    from repro_torch.models.transformer import lm_init
+
+    launches, err, near, times = {}, 0.0, 0, {}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for cfg, shapes in ((GEMMA, LM_SHAPES),
+                        (dataclasses.replace(QWEN, n_layers=QWEN_LAYERS),
+                         LM_SHAPES[:1])):
+        t0 = time.perf_counter()
+        model = lm_init(cfg, seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        log(f"{cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+            f"{cfg.n_heads} heads over {cfg.n_kv_heads} x {cfg.head_dim}, "
+            f"d_ff {cfg.d_ff}, vocab {cfg.vocab}: {param_count(model)} "
+            f"params ({param_bytes(model) / 1e9:.2f} GB bf16), init "
+            f"{time.perf_counter() - t0:.2f} s")
+        step = build_lm_prefill(cfg)
+        for bsz, seq in shapes:
+            name = f"{cfg.name} prefill [{bsz}, {seq}]"
+            tokens = torch.randint(0, cfg.vocab, (bsz, seq), generator=gen,
+                                   device=dev)
+            batch = {"tokens": tokens}
+            qkv = []
+            torch.cuda.synchronize()
+            reset_launches()
+            with first_layer_qkv(qkv):
+                out = step(model, batch)
+            torch.cuda.synchronize()
+            got = {n: c for n, c in LAUNCHES.items() if c}
+            if got != {"flash_attention": cfg.n_layers}:
+                raise AssertionError(f"{name} launched {got}, not one "
+                                     f"flash_attention a layer")
+            launches[name] = got["flash_attention"]
+            if out["logits"].shape != (bsz, cfg.vocab) \
+                    or out["logits"].dtype != torch.float32:
+                raise AssertionError(f"{name}: logits "
+                                     f"{tuple(out['logits'].shape)}")
+            with plain_attention():
+                plain = step(model, batch)
+            with plain_attention(exact=True):
+                exact = step(model, batch)
+            near += prefill_check(torch, name, out, plain, exact)
+            del plain, exact
+            q, k, v = qkv
+            err = max(err, flash_check(torch, f"({name}, layer 0)", q, k,
+                                       v))
+            n_runs = 3 if seq > 4096 else 10
+            pre_ms = time_ms(torch, lambda: step(model, batch), n=n_runs,
+                             warmup=1)
+            att_ms = time_ms(torch, lambda: faops.flash_attention(q, k, v),
+                             n=n_runs, warmup=1)
+            traced, split, n_att = prefill_split(torch, step, model, batch)
+            if n_att != cfg.n_layers:
+                raise AssertionError(f"{name}: the traced prefill ran "
+                                     f"{n_att} flash_attention kernels, "
+                                     f"not {cfg.n_layers}")
+            tok_s = bsz * seq / pre_ms * 1e3
+            # the projections' and MLPs' GEMMs, the causal attention and
+            # the last position's logits; the weights read once
+            d, hd = cfg.d_model, cfg.head_dim
+            lin = d * hd * 2 * (cfg.n_heads + cfg.n_kv_heads) \
+                + 3 * d * cfg.d_ff
+            flops = cfg.n_layers * (2.0 * bsz * seq * lin + 2.0 * bsz
+                                    * cfg.n_heads * seq * (seq + 1) * hd) \
+                + 2.0 * bsz * d * cfg.vocab
+            pre_bound, pre_by = max(
+                (flops / BF16_FLOPS * 1e3, "operations at the bf16 peak"),
+                (param_bytes(model) / HBM_BYTES_PER_S * 1e3,
+                 "the weights at the memory rate"))
+            log(f"{name}: prefill {pre_ms:.4f} ms ({tok_s:.1f} tokens/s), "
+                f"next tokens {out['next_token'].tolist()}; one "
+                f"attention call alone {att_ms:.4f} ms; {flops / 1e12:.1f} "
+                f"TFLOP -> bound {pre_bound:.1f} ms ({pre_by}), "
+                f"{pre_bound / pre_ms:.1%} of it reached")
+            log(f"{name}: one traced prefill (torch.profiler), device time "
+                f"{traced:.4f} ms, {n_att} flash_attention kernels; "
+                f"attention {split[ATTENTION] / traced:.1%} of it; by "
+                f"group: "
+                + "; ".join(f"{n} {t:.4f} ms ({t / traced:.1%})"
+                            for n, t in split.items()))
+            if cfg is GEMMA:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                o = faops.flash_attention(q, k, v)
+                torch.cuda.synchronize()
+                extra = (torch.cuda.max_memory_allocated() - before
+                         - o.numel() * o.element_size())
+                log(f"{name}: the attention call's peak device memory "
+                    f"above its inputs and output: {extra / 1e6:.3f} MB "
+                    f"(limit 64 MB)")
+                if extra >= 64e6:
+                    raise AssertionError(f"{name}: the attention call "
+                                         f"holds {extra / 1e6:.1f} MB")
+                del o
+                bms, by, flops = flash_bound(torch, q, k, v)
+                plain_ms = time_ms(torch, lambda: flash_attention_ref(
+                    q, k, v, q_chunk=1024), n=1 if seq > 4096 else 3,
+                    warmup=1)
+                sdpa_ms = time_ms(torch, lambda: torch.nn.functional
+                                  .scaled_dot_product_attention(
+                                      q, k, v, is_causal=True),
+                                  n=n_runs, warmup=1)
+                log(f"flash_attention at {name} q {tuple(q.shape)}: "
+                    f"{flops / 1e12:.4f} TFLOP -> bound {bms:.4f} ms "
+                    f"({by}); kernel {att_ms:.4f} ms "
+                    f"({flops / att_ms / 1e9:.1f} TFLOP/s), plain "
+                    f"(ref.py, query chunks of 1024) {plain_ms:.4f} ms, "
+                    f"library (scaled_dot_product_attention) {sdpa_ms:.4f}"
+                    f" ms")
+                times[seq] = (att_ms, plain_ms, sdpa_ms, (bms, by))
+            del out, qkv, q, k, v, batch, tokens
+            torch.cuda.empty_cache()
+        del model, step
+        torch.cuda.empty_cache()
+    log(f"lm cell: {near} prefill rows had a near tie at the top-2")
+    att_ms, plain_ms, sdpa_ms, bnd = times[LM_SHAPES[1][1]]
+    return {"launches": launches, "err": err,
+            "times": (att_ms, plain_ms, sdpa_ms), "bound": bnd}
 
 
 def dist_check(torch, name, vals, ids, q, base, mask, k, metric="dot"):
@@ -1476,6 +1833,16 @@ def main() -> int:
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    # -------------------------------------------------- 9. the LM prefill --
+    torch.cuda.empty_cache()
+    lm = lm_cell(torch, dev)
+    by_path["flash_attention"] = lm["launches"]
+    main_launches["flash_attention"] = sum(lm["launches"].values())
+    record["flash_attention"] = {"max_abs_err": lm["err"]}
+    bounds["flash_attention"] = lm["bound"]
+    log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
+        f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
     times = {
         "irli_topk": (stage_ms["irli_topk"], plain_irli, library_irli),
         "freq_topc": (stage_ms["freq_topc"], plain_freq, None),
@@ -1483,6 +1850,7 @@ def main() -> int:
                          None),
         "mega_query": (stage_ms["mega_query"], plain_mega, None),
         "distance_topk": stream["times"],
+        "flash_attention": lm["times"],
         **fit["times"],
     }
     replaces = {
@@ -1495,6 +1863,7 @@ def main() -> int:
         "kchoice": "src/repro/core/repartition.py:93",
         "distance_topk":
             "src/repro/kernels/distance_topk/distance_topk.py:60",
+        "flash_attention": "src/repro/kernels/flash_attn/flash_attn.py:69",
     }
     kernels = [
         {"name": n, "route": "cuda",

@@ -146,3 +146,75 @@ def stream_state_to_reference(midx) -> tuple[dict, dict]:
         return t.detach().cpu().numpy()
 
     return host(midx.state_dict(s)), midx.meta(s)
+
+
+# ------------------------------------------------------------ LM family ----
+def _lm_leaf(x, dev) -> torch.Tensor:
+    """A reference leaf (numpy or array-like; bf16 through ml_dtypes) ->
+    a tensor of the same dtype on dev (bf16 exactly, by way of fp32)."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def _lm_host(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # only a bf16 leaf needs numpy's bfloat16
+        return t.detach().float().cpu().numpy().astype(ml_dtypes.bfloat16)
+    return t.detach().cpu().numpy()
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_params_from_reference(params: dict, cfg, *,
+                             device: str | torch.device = "cuda"):
+    """The reference's LM params (``repro.models.transformer.lm_init``'s
+    tree, numpy or array leaves) -> the port's ``LM`` on ``device``. The
+    reference stacks each layer leaf on a leading [n_layers // period]
+    axis under ``layers/sub{i}/...``; layer g·period + i of the port is
+    slice g of ``sub{i}``."""
+    from repro_torch.models.transformer import LM
+    dev = resolve_device(device)
+    n_groups = cfg.n_layers // cfg.period
+    layers = [
+        _map_tree(lambda a, g=g: _lm_leaf(np.asarray(a)[g], dev),
+                  params["layers"][f"sub{i}"])
+        for g in range(n_groups) for i in range(cfg.period)]
+    tree = {k: _map_tree(lambda a: _lm_leaf(a, dev), v)
+            for k, v in params.items() if k != "layers"}
+    return LM(cfg, {**tree, "layers": layers})
+
+
+def lm_params_to_reference(model) -> dict:
+    """The port's ``LM`` -> the reference's params tree as numpy (bf16
+    leaves as ``ml_dtypes.bfloat16``), each layer leaf restacked on a
+    leading [n_layers // period] axis under ``layers/sub{i}``."""
+    cfg = model.cfg
+    n_groups = cfg.n_layers // cfg.period
+
+    def tree(m):
+        if isinstance(m, torch.nn.ParameterDict):
+            return {k: _lm_host(v) for k, v in m.items()}
+        return {k: tree(v) for k, v in m.items()}
+
+    per_layer = [tree(lp) for lp in model["layers"]]
+
+    def stack(i, *path):
+        leaves = [per_layer[g * cfg.period + i] for g in range(n_groups)]
+        for k in path:
+            leaves = [leaf[k] for leaf in leaves]
+        return np.stack(leaves)
+
+    def restack(i, sub, path=()):
+        return {k: (restack(i, v, path + (k,)) if isinstance(v, dict)
+                    else stack(i, *path, k)) for k, v in sub.items()}
+
+    out = {k: tree(m) for k, m in model.items() if k != "layers"}
+    out["layers"] = {f"sub{i}": restack(i, per_layer[i])
+                     for i in range(cfg.period)}
+    return out

@@ -1,0 +1,37 @@
+"""Step builders for the LM family.
+
+Port of ``repro/launch/steps.build_lm_prefill`` (``:137-148``): the
+forward over a prompt batch, returning the last position's fp32 logits and
+hidden state, plus the reply to each request, ``next_token`` (the greedy
+argmax the reference's decode step takes, ``:155-161``). The step runs on
+the model's device, under ``torch.inference_mode``. The train, decode and
+other families' steps wait (ROADMAP).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def next_token(logits):
+    """Greedy next token of fp32 logits [B, V] -> int32 [B]; a tie goes to
+    the smaller id (``torch.argmax`` returns the first maximum, as
+    ``jnp.argmax`` does)."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def build_lm_prefill(cfg):
+    """step(model, batch) -> {"logits" [B, V] fp32, "hidden" [B, d],
+    "next_token" [B] int32} for batch["tokens"] [B, S] (cache emission
+    elided, as in the reference)."""
+    from repro_torch.models.transformer import _logits, lm_backbone
+
+    def step(model, batch):
+        with torch.inference_mode():
+            tokens = torch.as_tensor(batch["tokens"], device=model.device)
+            h, _ = lm_backbone(model, cfg, tokens)
+            last = h[:, -1, :]
+            logits = _logits(model, cfg, last)
+            return {"logits": logits, "hidden": last,
+                    "next_token": next_token(logits)}
+
+    return step

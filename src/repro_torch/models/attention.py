@@ -1,0 +1,142 @@
+"""Grouped-query attention for the LM family.
+
+Port of ``repro/models/attention.py:25-146``: MHA/GQA/MQA, RoPE / NoPE,
+qk-norm (Qwen3), sliding-window (Mixtral), chunked-local (Llama-4), causal
+full. ``attend_train`` is [B, S] self-attention. Its causal full case
+(``kind="full"``, no logit cap, positions 0..S-1: what ``lm_backbone``
+passes) is one launch of the flash-attention kernel on the card
+(``kernels/flash_attention/ops.causal_attention``; the plain version on the
+CPU), which holds no score tensor. The other kinds run ``_sdpa`` in plain
+torch, in query chunks, as in the reference; the choice is made from the
+config alone. ``attend_decode`` waits for the decode slice; the
+reference's sequence sharding (``seq_shard``) is mesh machinery and is not
+ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.kernels.flash_attention.ops import causal_attention
+from repro_torch.models import layers as L
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    kind: str = "full"          # full | swa | chunked
+    window: int = 4096          # for swa
+    chunk: int = 8192           # for chunked
+    use_rope: bool = True       # False => NoPE (llama4 global layers)
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    q_chunk: int = 1024         # query chunking of the plain path
+    logit_cap: float = 0.0      # soft cap (0 = off)
+
+
+def attn_init(gen: torch.Generator, cfg: AttnConfig,
+              dtype=torch.float32) -> dict:
+    d, H, Kv, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {"q_proj": L.dense_init(gen, d, H * D, dtype, use_bias=False),
+         "k_proj": L.dense_init(gen, d, Kv * D, dtype, use_bias=False),
+         "v_proj": L.dense_init(gen, d, Kv * D, dtype, use_bias=False),
+         "o_proj": L.dense_init(gen, H * D, d, dtype, use_bias=False)}
+    if cfg.qk_norm:
+        p["q_norm"] = L.rmsnorm_init(D, dtype, gen.device)
+        p["k_norm"] = L.rmsnorm_init(D, dtype, gen.device)
+    return p
+
+
+def _qkv(p, cfg: AttnConfig, x, positions):
+    """x [B, S, d] -> q [B, S, H, D], k, v [B, S, Kv, D]."""
+    B, S, _ = x.shape
+    q = L.dense_apply(p["q_proj"], x).reshape(B, S, cfg.n_heads,
+                                              cfg.head_dim)
+    k = L.dense_apply(p["k_proj"], x).reshape(B, S, cfg.n_kv_heads,
+                                              cfg.head_dim)
+    v = L.dense_apply(p["v_proj"], x).reshape(B, S, cfg.n_kv_heads,
+                                              cfg.head_dim)
+    if cfg.qk_norm:
+        q = L.rmsnorm_apply(p["q_norm"], q)
+        k = L.rmsnorm_apply(p["k_norm"], k)
+    if cfg.use_rope:
+        q = L.rope(q, positions, cfg.rope_theta)
+        k = L.rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _mask(kind: str, q_pos, k_pos, window: int, chunk: int):
+    """Boolean [.., Sq, Sk] mask: True = attend."""
+    causal = q_pos[..., :, None] >= k_pos[..., None, :]
+    if kind == "full":
+        return causal
+    if kind == "swa":
+        near = q_pos[..., :, None] - k_pos[..., None, :] < window
+        return causal & near
+    if kind == "chunked":
+        same_chunk = (torch.div(q_pos[..., :, None], chunk,
+                                rounding_mode="floor")
+                      == torch.div(k_pos[..., None, :], chunk,
+                                   rounding_mode="floor"))
+        return causal & same_chunk
+    raise ValueError(kind)
+
+
+def _sdpa(q, k, v, mask, cfg: AttnConfig):
+    """q [B, Sq, H, D], k, v [B, Sk, Kv, D], mask [B or 1, Sq, Sk] ->
+    [B, Sq, H*D]. fp32 scores of the upcast inputs, probabilities cast to
+    v's dtype before an fp32-accumulated PV product."""
+    B, Sq, H, D = q.shape
+    Kv = k.shape[2]
+    qg = q.reshape(B, Sq, Kv, H // Kv, D).to(torch.float32)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(torch.float32))
+    scores = scores / (D ** 0.5)
+    if cfg.logit_cap > 0:
+        scores = cfg.logit_cap * torch.tanh(scores / cfg.logit_cap)
+    neg = torch.finfo(torch.float32).min
+    scores = torch.where(mask[:, None, None, :, :], scores,
+                         torch.full((), neg, device=scores.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd",
+                       probs.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32)).to(q.dtype)
+    return out.reshape(B, Sq, H * D)
+
+
+def uses_kernel(cfg: AttnConfig, positions=None) -> bool:
+    """Whether ``attend_train`` sends this config to the causal kernel:
+    the function it computes, and nothing else."""
+    return cfg.kind == "full" and cfg.logit_cap == 0 and positions is None
+
+
+def attend_train(p, cfg: AttnConfig, x, positions=None):
+    """Causal self-attention over [B, S, d_model]. positions [B, S]
+    defaults to 0..S-1."""
+    B, S, _ = x.shape
+    kernel = uses_kernel(cfg, positions)
+    if positions is None:
+        positions = torch.arange(S, device=x.device).expand(B, S)
+    q, k, v = _qkv(p, cfg, x, positions)
+    H, D = cfg.n_heads, cfg.head_dim
+
+    if kernel:
+        # [B, S, H, D] read in place as [B, H, S, D]; the output comes
+        # back in the same layout, so the reshape is free
+        out = causal_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2))
+        out = out.transpose(1, 2).reshape(B, S, H * D)
+        return L.dense_apply(p["o_proj"], out)
+
+    qc = min(cfg.q_chunk, S)
+    if S % qc != 0:
+        qc = S
+    outs = []
+    for s0 in range(0, S, qc):
+        mask = _mask(cfg.kind, positions[:, s0:s0 + qc], positions,
+                     cfg.window, cfg.chunk)
+        outs.append(_sdpa(q[:, s0:s0 + qc], k, v, mask, cfg))
+    return L.dense_apply(p["o_proj"], torch.cat(outs, dim=1))

@@ -1,0 +1,152 @@
+"""Core layers of the LM family: linear, embedding, norms, rotary, MLPs.
+
+Port of ``repro/models/layers.py:23-137``. An ``*_init`` draws a nested
+dict of tensors from a ``torch.Generator`` on its device, with the
+reference's distributions (its numbers differ: JAX's PRNG cannot be
+reproduced); an ``*_apply`` takes that dict (or the ``nn.ParameterDict``
+that ``models.module.as_module`` makes of it) and a tensor.
+
+Types follow the reference: a dense layer on bf16 inputs gives a bf16
+output (one bf16 matmul, accumulated in fp32: the package sets
+``allow_bf16_reduced_precision_reduction = False``); the norms and rope
+compute in fp32 and cast back; ``embedding_attend`` gives fp32 logits from
+an fp32 matmul of the upcast inputs (the reference's
+``preferred_element_type=jnp.float32``), never a bf16 matmul rounded to
+bf16. The GRU cells, ``segment_softmax`` and ``stable_bce_with_logits``
+wait for the recsys slice.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+
+def _normal(gen: torch.Generator, shape, scale: float, dtype):
+    w = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return w.mul_(scale).to(dtype)
+
+
+# ---------------------------------------------------------------- dense -----
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype=torch.float32, use_bias: bool = True,
+               scale: float | None = None) -> dict:
+    """kernel [d_in, d_out] ~ normal / sqrt(d_in) (the reference's layout),
+    bias zeros."""
+    scale = scale if scale is not None else 1.0 / (d_in ** 0.5)
+    p = {"kernel": _normal(gen, (d_in, d_out), scale, dtype)}
+    if use_bias:
+        p["bias"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+    return p
+
+
+def dense_apply(p, x):
+    """x [..., d_in] @ kernel -> [..., d_out] in x's dtype (bf16 in, bf16
+    out; fp32 stays fp32)."""
+    w = p["kernel"]
+    dt = torch.promote_types(x.dtype, w.dtype)
+    y = torch.matmul(x.to(dt), w.to(dt))
+    if "bias" in p:
+        y = y + p["bias"].to(y.dtype)
+    return y.to(x.dtype)
+
+
+# ------------------------------------------------------------- embedding ----
+def embedding_init(gen: torch.Generator, vocab: int, d: int,
+                   dtype=torch.float32, scale: float = 1.0) -> dict:
+    return {"table": _normal(gen, (vocab, d), scale / (d ** 0.5), dtype)}
+
+
+def embedding_apply(p, ids):
+    return F.embedding(ids, p["table"])
+
+
+def embedding_attend(p, x):
+    """fp32 logits against the (possibly tied) table: x @ table^T."""
+    return torch.matmul(x.to(torch.float32),
+                        p["table"].to(torch.float32).t())
+
+
+# ------------------------------------------------------------------ norms ---
+def rmsnorm_init(d: int, dtype=torch.float32, device=None) -> dict:
+    """gemma-style: the weight is (1 + scale), scale starts at 0."""
+    return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm_apply(p, x, eps: float = 1e-6):
+    xf = x.to(torch.float32)
+    var = xf.square().mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * (1.0 + p["scale"].to(torch.float32))
+    return y.to(x.dtype)
+
+
+def layernorm_init(d: int, dtype=torch.float32, device=None) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm_apply(p, x, eps: float = 1e-5):
+    xf = x.to(torch.float32)
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+# ----------------------------------------------------------------- rotary ---
+def rope(x, positions, theta: float = 10000.0):
+    """Rotary embedding of the two halves of the head (not interleaved
+    pairs), in fp32, cast back. x: [..., S, H, D]; positions: [..., S]."""
+    half = x.shape[-1] // 2
+    exponent = -torch.arange(half, dtype=torch.float32, device=x.device)
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32), exponent
+                      / half)
+    angles = positions[..., None].to(torch.float32) * freqs  # [.., S, half]
+    angles = angles[..., None, :]                          # [.., S, 1, half]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1 = x[..., :half].to(torch.float32)
+    x2 = x[..., half:].to(torch.float32)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------- MLPs ---
+ACTS: dict[str, Callable] = {
+    # jax.nn.gelu defaults to the tanh approximation
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "silu": F.silu,
+    "relu": F.relu,
+    "tanh": torch.tanh,
+}
+
+
+def glu_mlp_init(gen: torch.Generator, d: int, d_ff: int,
+                 dtype=torch.float32) -> dict:
+    return {"gate": dense_init(gen, d, d_ff, dtype, use_bias=False),
+            "up": dense_init(gen, d, d_ff, dtype, use_bias=False),
+            "down": dense_init(gen, d_ff, d, dtype, use_bias=False)}
+
+
+def glu_mlp_apply(p, x, act: str = "gelu"):
+    g = ACTS[act](dense_apply(p["gate"], x))
+    u = dense_apply(p["up"], x)
+    return dense_apply(p["down"], g * u)
+
+
+def mlp_init(gen: torch.Generator, dims: list[int], dtype=torch.float32,
+             use_bias: bool = True) -> dict:
+    """Plain MLP with len(dims)-1 layers: dims=[in, h1, ..., out]."""
+    return {f"fc{i}": dense_init(gen, dims[i], dims[i + 1], dtype, use_bias)
+            for i in range(len(dims) - 1)}
+
+
+def mlp_apply(p, x, act: str = "relu", final_act: bool = False):
+    n = len(p)
+    for i in range(n):
+        x = dense_apply(p[f"fc{i}"], x)
+        if i < n - 1 or final_act:
+            x = ACTS[act](x)
+    return x

@@ -1,0 +1,193 @@
+"""The LM family's transformer stack: GQA attention and a GLU MLP per
+layer, tied or untied head.
+
+Port of ``repro/models/transformer.py:24-205`` for the forward. The model
+is an ``nn.Module`` (:class:`LM`) whose parameter names follow the
+reference's paths with the layer axis unstacked: the reference's
+``layers/sub{i}/attn/q_proj/kernel`` [n_layers // period, d, H·D] is the
+port's ``layers.{g·period + i}.attn.q_proj.kernel`` [d, H·D] (the
+reference's [d_in, d_out] kernel layout; ``convert.lm_params_from_
+reference`` carries weights across). The reference scans the layers with
+remat; the forward's numbers are the same as a Python loop's. MoE layers
+(``cfg.moe``), ``chunked_xent``, ``lm_loss``, the KV cache and
+``lm_decode_step`` wait (ROADMAP), and so do the reference's settings that
+only they or the mesh read (``ce_chunk``, ``remat``, ``seq_shard_attn``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.attention import AttnConfig, attend_train, attn_init
+from repro_torch.models.module import as_module
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    act: str = "silu"                 # geglu => act="gelu", swiglu => "silu"
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = True
+    embed_scale: bool = False          # gemma scales embeddings by sqrt(d)
+    logit_cap: float = 0.0
+    # attention pattern: tuple of layer kinds, repeated every len(pattern)
+    attn_pattern: tuple[str, ...] = ("full",)
+    window: int = 4096
+    chunk: int = 8192
+    nope_on_full: bool = False         # NoPE on 'full' layers (llama4)
+    moe: Optional[Any] = None          # the reference's MoEConfig; not ported
+    param_dtype: str = "bfloat16"
+    q_chunk: int = 1024
+
+    @property
+    def period(self) -> int:
+        return len(self.attn_pattern)
+
+    def attn_cfg(self, kind_idx: int) -> AttnConfig:
+        kind = self.attn_pattern[kind_idx]
+        return AttnConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads, head_dim=self.head_dim, kind=kind,
+            window=self.window, chunk=self.chunk,
+            use_rope=not (self.nope_on_full and kind == "full"),
+            qk_norm=self.qk_norm, rope_theta=self.rope_theta,
+            q_chunk=self.q_chunk, logit_cap=self.logit_cap)
+
+    def _attn_params(self) -> int:
+        return (self.d_model * self.n_heads * self.head_dim * 2
+                + self.d_model * self.n_kv_heads * self.head_dim * 2)
+
+    def _total(self, mlp: int) -> int:
+        d, V = self.d_model, self.vocab
+        head = 0 if self.tie_embeddings else V * d
+        return self.n_layers * (self._attn_params() + mlp + 2 * d) \
+            + V * d + head + d
+
+    @property
+    def n_params(self) -> int:
+        d = self.d_model
+        if self.moe is None:
+            return self._total(3 * d * self.d_ff)
+        mlp = 3 * d * self.moe.d_ff * self.moe.n_experts \
+            + d * self.moe.n_experts
+        return self._total(mlp + 3 * d * self.moe.d_ff
+                           * self.moe.n_shared_experts)
+
+    @property
+    def n_active_params(self) -> int:
+        """Params touched per token (MoE: only top_k + shared experts)."""
+        if self.moe is None:
+            return self.n_params
+        d = self.d_model
+        mlp = 3 * d * self.moe.d_ff * (self.moe.top_k
+                                       + self.moe.n_shared_experts)
+        return self._total(mlp + d * self.moe.n_experts)
+
+
+def _dtype(cfg: LMConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+def _no_moe(cfg: LMConfig) -> None:
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers are not ported yet (ROADMAP, the MoE "
+            f"item: models/moe.py)")
+
+
+class LM(nn.ModuleDict):
+    """The LM's parameters, nested as the reference's tree: ``embed``,
+    ``layers`` (one entry a layer), ``ln_final`` and, untied,
+    ``lm_head``; ``cfg`` is its config. Calling it runs
+    :func:`lm_backbone`."""
+
+    def __init__(self, cfg: LMConfig, tree: dict):
+        _no_moe(cfg)
+        order = ("embed", "layers", "ln_final", "lm_head")
+        super().__init__({k: as_module(tree[k]) for k in order if k in tree})
+        self.cfg = cfg
+
+    @property
+    def device(self) -> torch.device:
+        return self["embed"]["table"].device
+
+    def forward(self, tokens):
+        return lm_backbone(self, self.cfg, tokens)
+
+
+# ------------------------------------------------------------------ init ----
+def _layer_init(gen: torch.Generator, cfg: LMConfig, kind_idx: int) -> dict:
+    dt = _dtype(cfg)
+    return {"ln_attn": L.rmsnorm_init(cfg.d_model, dt, gen.device),
+            "attn": attn_init(gen, cfg.attn_cfg(kind_idx), dt),
+            "ln_mlp": L.rmsnorm_init(cfg.d_model, dt, gen.device),
+            "mlp": L.glu_mlp_init(gen, cfg.d_model, cfg.d_ff, dt)}
+
+
+def lm_init(cfg: LMConfig, *, seed: int = 0,
+            device: str | torch.device = "cuda") -> LM:
+    """Random weights on ``device`` from a ``torch.Generator`` seeded
+    ``seed``: dense kernels normal / sqrt(d_in), the embedding normal /
+    sqrt(d), norm scales 0 (the reference's distributions; not its
+    numbers)."""
+    _no_moe(cfg)
+    if cfg.n_layers % cfg.period:
+        raise ValueError(f"n_layers {cfg.n_layers} % pattern period "
+                         f"{cfg.period} != 0")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = _dtype(cfg)
+    tree = {"embed": L.embedding_init(gen, cfg.vocab, cfg.d_model, dt),
+            "layers": [_layer_init(gen, cfg, i % cfg.period)
+                       for i in range(cfg.n_layers)],
+            "ln_final": L.rmsnorm_init(cfg.d_model, dt, dev)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab, dt,
+                                       use_bias=False)
+    return LM(cfg, tree)
+
+
+# --------------------------------------------------------------- forward ----
+def lm_backbone(params, cfg: LMConfig, tokens):
+    """tokens [B, S] -> (final hidden [B, S, d], aux loss 0). Every layer's
+    attention is one ``attend_train`` call (the flash-attention kernel on
+    the card for the full-attention configs)."""
+    _no_moe(cfg)
+    x = L.embedding_apply(params["embed"], tokens)
+    if cfg.embed_scale:
+        # rounded to the activation dtype first, as the reference does:
+        # sqrt(3072) = 55.4256 is 55.5 in bf16
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    for layer, lp in enumerate(params["layers"]):
+        acfg = cfg.attn_cfg(layer % cfg.period)
+        h = L.rmsnorm_apply(lp["ln_attn"], x)
+        x = x + attend_train(lp["attn"], acfg, h)
+        h = L.rmsnorm_apply(lp["ln_mlp"], x)
+        x = x + L.glu_mlp_apply(lp["mlp"], h, cfg.act)
+    x = L.rmsnorm_apply(params["ln_final"], x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _logits(params, cfg: LMConfig, h):
+    """fp32 logits of hidden states h [..., d]."""
+    if cfg.tie_embeddings:
+        out = L.embedding_attend(params["embed"], h)
+    else:
+        out = torch.matmul(h.to(torch.float32),
+                           params["lm_head"]["kernel"].to(torch.float32))
+    if cfg.logit_cap > 0:
+        out = cfg.logit_cap * torch.tanh(out / cfg.logit_cap)
+    return out

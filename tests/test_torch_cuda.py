@@ -530,3 +530,107 @@ def test_streaming_sequence_on_the_card(card):
                                k=10)
     assert (got == ri.cpu().numpy()).all(axis=1).mean() >= 0.95
     assert not np.isin(got, dead).any()
+
+
+# ------------------------------------------------------- flash attention --
+def _flash_inputs(card, B, H, Hkv, S, D, dtype, layout="bhsd"):
+    """q [B, H, S, D], k, v [B, Hkv, S, D] on the card from a seed; with
+    layout "bshd" each is the transpose(1, 2) view of a [B, S, H, D]
+    tensor (attend_train's layout)."""
+    rng = np.random.default_rng(B * S + H * D + Hkv)
+    dt = getattr(torch, dtype)
+
+    def make(h):
+        a = torch.from_numpy(rng.normal(size=(B, S, h, D)).astype(
+            np.float32)).to(card, dt)
+        return a.transpose(1, 2) if layout == "bshd" else \
+            a.transpose(1, 2).contiguous()
+    return make(H), make(Hkv), make(Hkv)
+
+
+def _flash_check(o, q, k, v, dtype):
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    ref = flash_attention_ref(q, k, v)
+    assert o.dtype == q.dtype and o.shape == q.shape
+    assert torch.isfinite(o.float()).all()
+    tol = 3e-2 if dtype == "bfloat16" else 2e-4
+    torch.testing.assert_close(o.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hkv,S,D", [
+    (2, 3, 3, 128, 16),
+    (1, 4, 4, 200, 64),         # ragged S: a part tile of queries and keys
+    (2, 4, 2, 77, 128),         # GQA, ragged
+    (1, 2, 2, 300, 256),        # gemma's head_dim, ragged
+    (1, 8, 1, 64, 32),          # MQA
+    (2, 2, 2, 130, 48),         # D padded to 64 in shared memory
+    (1, 2, 2, 90, 80),          # ... to 128
+    (1, 2, 1, 33, 192),         # ... to 256
+    (1, 1, 1, 1, 64),           # one position
+])
+def test_flash_attention_kernel_matches_plain(card, B, H, Hkv, S, D, dtype):
+    from repro_torch.kernels.flash_attention import ops as faops
+    q, k, v = _flash_inputs(card, B, H, Hkv, S, D, dtype)
+    reset_launches()
+    o = faops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    _flash_check(o, q, k, v, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_reads_the_bshd_layout_in_place(card, dtype):
+    """attend_train's [B, S, H, D] tensors go in as transpose(1, 2) views:
+    no copy, and the output comes back in the same layout."""
+    from repro_torch.kernels.flash_attention import ops as faops
+    q, k, v = _flash_inputs(card, 2, 8, 2, 333, 128, dtype, layout="bshd")
+    assert not q.is_contiguous()
+    reset_launches()
+    o = faops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    assert o.stride() == q.stride()
+    _flash_check(o, q.contiguous(), k.contiguous(), v.contiguous(), dtype)
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(card):
+    from repro_torch.kernels.flash_attention import ops as faops
+    q, k, v = _flash_inputs(card, 1, 2, 2, 32, 64, "bfloat16")
+    with pytest.raises(ValueError, match="head_dim"):
+        faops.flash_attention(q[..., :24], k[..., :24], v[..., :24])
+    with pytest.raises(ValueError, match="one dtype"):
+        faops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="KV heads"):
+        faops.flash_attention(q, k[:, :0], v[:, :0])
+    with pytest.raises(ValueError, match="no backward"):
+        faops.flash_attention(q.requires_grad_(), k, v)
+
+
+def test_prefill_on_the_card_launches_the_kernel_once_a_layer(card):
+    """A small bf16 LM's prefill on the card: one flash_attention launch a
+    layer and no other kernel; the hidden state within bf16 rounding of
+    the same prefill with the plain attention."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.launch.steps import build_lm_prefill
+    from repro_torch.models import attention as PA
+    from repro_torch.models.transformer import LMConfig, lm_init
+    cfg = LMConfig(name="tiny", n_layers=3, d_model=256, n_heads=4,
+                   n_kv_heads=2, head_dim=64, d_ff=512, vocab=1000,
+                   qk_norm=True)
+    model = lm_init(cfg, seed=0, device=card)
+    tokens = torch.randint(0, 1000, (2, 300), device=card,
+                           generator=torch.Generator(card).manual_seed(0))
+    step = build_lm_prefill(cfg)
+    reset_launches()
+    out = step(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert {n: c for n, c in LAUNCHES.items() if c} == {"flash_attention": 3}
+    kernel_attn = PA.causal_attention
+    PA.causal_attention = flash_attention_ref
+    try:
+        plain = step(model, {"tokens": tokens})
+    finally:
+        PA.causal_attention = kernel_attn
+    h, ph = out["hidden"].float(), plain["hidden"].float()
+    assert float((h - ph).norm() / ph.norm()) <= 2e-2
