@@ -5,10 +5,10 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-It builds the eight hand-written kernels from the repository's .cu sources
+It builds the nine hand-written kernels from the repository's .cu sources
 (one nvcc each, in parallel), holds each against its plain PyTorch version
 on the card, and drives the port's three index paths at the irli-deep1b
-widths and the LM prefill at gemma-7b's:
+widths, the LM prefill at gemma-7b's and DIEN's serve path at its own:
 
   * search (Alg. 2) through ``IRLIIndex.search``: the compact path
     (``mode="compact"``, int8 store: irli_topk, freq_topc and quant_rerank,
@@ -53,11 +53,26 @@ widths and the LM prefill at gemma-7b's:
     except rows whose plain top-2 gap is under 2e-2·|top|, counted); the
     attention call's peak memory above its inputs and output under 64 MB;
     prefill times, the device time of one traced prefill by launching op
-    (``prefill_split``: the attention's share) and the prefill's FLOP
+    (``device_split``: the attention's share) and the prefill's FLOP
     bound; the kernel's time beside its bound and
     scaled_dot_product_attention's. Then qwen3-4b at full width,
     4 of its 36 layers, at [4, 2048] (GQA, 32 heads over 8, head_dim 128),
-    held the same way.
+    held the same way;
+  * the recsys cell (``recsys_cell``): ``launch/steps.build_ctr_serve``
+    over DIEN at ``configs/dien.CONFIG``'s full width (item table
+    1,048,576 x 18 and category table 100,000 x 18 fp32, sequence 100,
+    GRU 108, MLP 200-80; random weights from ``dien_init`` seeded SEED on
+    the card) at the reference's serve_p99 (B = 512) and serve_bulk
+    (B = 262,144) batches from ``behavior_stream`` (seed SEED): two
+    embedding_bag launches a forward (the item and the category history
+    sums) and no other kernel; the kernel against its plain version on
+    each batch's ids and mask for both tables (fp32, TOL); prob against
+    the same forward with the plain history sum (``plain_bags``; TOL: only
+    the summation order of the history sum differs); the warm forward's
+    time, samples/s, peak memory above the weights and inputs and device
+    time by op (``device_split``); then the kernel alone at serve_bulk's
+    shapes beside its byte bound, the plain version and
+    ``F.embedding_bag``.
 
 Each path's counters are set to 0 just before it runs and read just after;
 the kernels line gives each kernel's launches by path.
@@ -104,7 +119,10 @@ alike, so the cell keeps L/B = 6.55 and its time (PERF.md). The LM cell:
 the reference's ``prefill_32k`` cell (configs/lm_common.py: batch 32 x
 32,768 over a pod) cut to one card as two request shapes, [1, 32768] (the
 cell's prompt length, batch 1) and [4, 2048] (a few short requests);
-tokens random from SEED; qwen3-4b's depth cut to 4 layers.
+tokens random from SEED; qwen3-4b's depth cut to 4 layers. The recsys
+cell: the reference's serve_p99 and serve_bulk cells
+(configs/recsys_common.py) for DIEN, at full width and batch, on one card
+in place of a mesh.
 """
 from __future__ import annotations
 
@@ -129,7 +147,8 @@ FP32_FLOPS = 67e12                 # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989.4e12              # H100 SXM bf16 dense, tensor cores
 TOL = 1e-5                         # |a - b| <= TOL + TOL·|b| for fp32 values
 KERNELS = ("irli_topk", "freq_topc", "quant_rerank", "mega_query",
-           "bce_logits", "kchoice", "distance_topk", "flash_attention")
+           "bce_logits", "kchoice", "distance_topk", "flash_attention",
+           "embedding_bag")
 # the stream cell
 N_INSERT, INSERT_BATCH, N_DEL_BASE, N_DEL_NEW = 65_536, 4096, 90_000, 10_000
 DELTA_LEN = 208                    # default_delta_len(2·L, L, B)
@@ -870,49 +889,46 @@ ATTENTION = "flash_attention (flash_*_kernel)"
 FLASH_KERNELS = ("flash_bf16_kernel", "flash_f32_kernel")   # their names
 
 
-def is_flash(name: str) -> bool:
-    """Whether a traced kernel's (demangled) name is flash_attention's."""
-    return any(k in name for k in FLASH_KERNELS)
-
-
-def prefill_split(torch, step, model, batch) -> tuple[float, dict, int]:
-    """One warm prefill under torch.profiler -> its device time (ms), that
-    time by group and the number of flash_attention kernels it ran. The
-    groups: flash_attention's kernels (``flash_bf16_kernel``,
-    ``flash_f32_kernel``) by name, which no aten op launches; every other
-    kernel by the aten op the trace ties it to; the rest (kernels the trace
-    ties to no aten op, such as those behind a "Command Buffer Full"
-    marker) together."""
+def device_split(torch, run, names, label) -> tuple[float, dict, int, int]:
+    """One warm ``run()`` under torch.profiler -> its device time (ms),
+    that time by group, the number of the port's kernels it ran and the
+    number of all the kernels it ran. The
+    groups: the port's kernels (``names``: parts of their demangled names)
+    as ``label``, which no aten op launches; every other kernel by the aten
+    op the trace ties it to; the rest (kernels the trace ties to no aten
+    op, such as those behind a "Command Buffer Full" marker) together."""
     from torch.profiler import ProfilerActivity, profile
-    step(model, batch)
+
+    def ours(name):
+        return any(k in name for k in names)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        step(model, batch)
+        run()
         torch.cuda.synchronize()
     events = prof.events()
     dev = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
-        raise AssertionError("torch.profiler traced no device activity in "
-                             "the prefill")
+        raise AssertionError(f"torch.profiler traced no device activity "
+                             f"({label})")
     total = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-    att = [e.time_range.elapsed_us() / 1e3 for e in dev if is_flash(e.name)]
-    split = {ATTENTION: sum(att)}
+    mine = [e.time_range.elapsed_us() / 1e3 for e in dev if ours(e.name)]
+    split = {label: sum(mine)}
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CPU \
                 and e.name.startswith("aten::"):
             for kern in e.kernels:
-                if not is_flash(kern.name):
+                if not ours(kern.name):
                     split[e.name] = split.get(e.name, 0.0) \
                         + kern.duration / 1e3
     split["kernels tied to no aten op"] = total - sum(split.values())
-    if not att:
-        raise AssertionError(f"no flash_attention kernel in the traced "
-                             f"prefill; its kernels: "
-                             f"{sorted({e.name[:80] for e in dev})}")
+    if not mine:
+        raise AssertionError(f"no {label} kernel in the trace; its "
+                             f"kernels: {sorted({e.name[:80] for e in dev})}")
     return total, dict(sorted(split.items(), key=lambda kv: -kv[1])), \
-        len(att)
+        len(mine), len(dev)
 
 
 def lm_cell(torch, dev) -> dict:
@@ -982,7 +998,8 @@ def lm_cell(torch, dev) -> dict:
                              warmup=1)
             att_ms = time_ms(torch, lambda: faops.flash_attention(q, k, v),
                              n=n_runs, warmup=1)
-            traced, split, n_att = prefill_split(torch, step, model, batch)
+            traced, split, n_att, _ = device_split(
+                torch, lambda: step(model, batch), FLASH_KERNELS, ATTENTION)
             if n_att != cfg.n_layers:
                 raise AssertionError(f"{name}: the traced prefill ran "
                                      f"{n_att} flash_attention kernels, "
@@ -1050,6 +1067,174 @@ def lm_cell(torch, dev) -> dict:
     att_ms, plain_ms, sdpa_ms, bnd = times[LM_SHAPES[1][1]]
     return {"launches": launches, "err": err,
             "times": (att_ms, plain_ms, sdpa_ms), "bound": bnd}
+
+
+@contextlib.contextmanager
+def plain_bags():
+    """dien_apply's history sum through the plain version (ref.py: no
+    launch) instead of the kernel; only for the comparison of a whole
+    forward."""
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.models import recsys
+    kernel = recsys.bag_lookup_reduce
+    recsys.bag_lookup_reduce = embedding_bag_ref
+    try:
+        yield
+    finally:
+        recsys.bag_lookup_reduce = kernel
+
+
+def bag_bound(torch, ids, table) -> tuple[float, str, int]:
+    """embedding_bag's least time on these inputs: ids and weights read
+    once, each distinct table row it touches read once, the output written
+    once, at the memory rate -> (ms, "bytes", distinct rows). Its 2·N·P·D
+    flops are far below the fp32 peak."""
+    N, P = ids.shape
+    row = table.shape[1] * table.element_size()
+    rows = int(torch.unique(ids[ids >= 0]).numel())
+    nbytes = N * P * 8 + rows * row + N * row
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", rows
+
+
+def close_err(torch, name, got, want) -> float:
+    """|got - want| <= TOL + TOL·|want| everywhere, all finite, or raise
+    -> max |got - want|."""
+    d = (got.float() - want.float()).abs()
+    bad = int((d > TOL + TOL * want.float().abs()).sum())
+    err = float(d.max()) if d.numel() else 0.0
+    log(f"{name}: max |kernel - plain| {err:.3e}, {bad} of {d.numel()} "
+        f"outside {TOL:g} + {TOL:g}·|plain|")
+    if bad or not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{name}: {bad} values outside the tolerance "
+                             f"or not finite")
+    return err
+
+
+def recsys_cell(torch, dev, smi) -> dict:
+    """The recsys cell: DIEN at configs/dien.CONFIG's full width (random
+    weights from SEED) served through build_ctr_serve at the reference's
+    serve_p99 and serve_bulk batches (behavior_stream, seed SEED): two
+    embedding_bag launches a forward and no other kernel, the kernel
+    against its plain version on each batch's ids and mask for both
+    tables, the forward against itself with the plain history sum, the
+    warm forward's time, samples/s, peak memory and device time by op;
+    then the kernel alone at serve_bulk's item shape beside its bound, the
+    plain version and F.embedding_bag. Returns launches, error, times and
+    bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.dien import BATCHES, CONFIG, apply
+    from repro_torch.data.synthetic import behavior_stream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.embedding_bag import ops as eops
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.launch.steps import build_ctr_serve
+    from repro_torch.models.module import param_bytes, param_count
+    from repro_torch.models.recsys import dien_init
+
+    t0 = time.perf_counter()
+    params = dien_init(CONFIG, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"dien: embed {CONFIG.embed_dim}, seq {CONFIG.seq_len}, gru "
+        f"{CONFIG.gru_dim}, mlp {CONFIG.mlp}, item vocab "
+        f"{CONFIG.item_vocab}, category vocab {CONFIG.cate_vocab}: "
+        f"{param_count(params)} params ({param_bytes(params) / 1e6:.1f} MB "
+        f"fp32), init {time.perf_counter() - t0:.2f} s")
+    step = build_ctr_serve(apply)
+    tables = {"item": params["item_emb"]["table"],
+              "category": params["cate_emb"]["table"]}
+    launches, err = {}, 0.0
+    for cell, bsz in BATCHES.items():
+        name = f"recsys {cell} [{bsz}]"
+        t0 = time.perf_counter()
+        host = next(behavior_stream(bsz, CONFIG.seq_len, CONFIG.item_vocab,
+                                    CONFIG.cate_vocab, seed=SEED))
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+        del host
+        torch.cuda.synchronize()
+        ids = {"item": batch["hist_items"], "category": batch["hist_cates"]}
+        mask = batch["hist_mask"]
+        log(f"{name}: batch made and moved in "
+            f"{time.perf_counter() - t0:.2f} s; "
+            f"{int(torch.unique(ids['item']).numel())} distinct history "
+            f"items of {ids['item'].numel()}")
+        for t, table in tables.items():
+            got = eops.embedding_bag(ids[t], mask, table)
+            want = embedding_bag_ref(ids[t], mask, table)
+            torch.cuda.synchronize()
+            err = max(err, close_err(
+                torch, f"embedding_bag at {name}, {t} table "
+                f"{tuple(table.shape)}", got, want))
+            del got, want
+        torch.cuda.synchronize()
+        reset_launches()
+        prob = step(params, batch)["prob"]
+        torch.cuda.synchronize()
+        got = {n: c for n, c in LAUNCHES.items() if c}
+        if got != {"embedding_bag": 2}:
+            raise AssertionError(f"{name}: the forward launched {got}, not "
+                                 f"two embedding_bag")
+        launches[name] = got["embedding_bag"]
+        if prob.shape != (bsz,) or prob.dtype != torch.float32 \
+                or not bool(((prob >= 0) & (prob <= 1)).all()):
+            raise AssertionError(f"{name}: prob {tuple(prob.shape)} "
+                                 f"{prob.dtype} not in [0, 1]")
+        with plain_bags():
+            plain = step(params, batch)["prob"]
+        close_err(torch, f"{name}: prob, kernel vs plain history sum", prob,
+                  plain)
+        del plain
+        n_runs = 10 if bsz <= 4096 else 3
+        fwd_ms = time_ms(torch, lambda: step(params, batch), n=n_runs,
+                         warmup=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        step(params, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        traced, split, n_bag, n_kern = device_split(
+            torch, lambda: step(params, batch), ("embedding_bag_kernel",),
+            "embedding_bag (embedding_bag_kernel)")
+        if n_bag != 2:
+            raise AssertionError(f"{name}: the traced forward ran {n_bag} "
+                                 f"embedding_bag kernels, not 2")
+        log(f"{name}: forward {fwd_ms:.4f} ms ({bsz / fwd_ms * 1e3:.1f} "
+            f"samples/s), peak device memory above the weights and inputs "
+            f"{peak / 1e9:.3f} GB [{smi}]")
+        log(f"{name}: one traced forward (torch.profiler), {n_kern} "
+            f"kernels ({fwd_ms / n_kern * 1e3:.2f} us of the forward a "
+            f"kernel), device time "
+            f"{traced:.4f} ms ({traced / fwd_ms:.1%} of the forward's, so "
+            f"the device idles {max(0.0, 1 - traced / fwd_ms):.1%}); by "
+            f"group: " + "; ".join(f"{n} {t:.4f} ms ({t / traced:.1%})"
+                                   for n, t in split.items()))
+        del prob
+        if cell != "serve_bulk":
+            del batch, ids, mask
+            torch.cuda.empty_cache()
+    # the kernel alone at serve_bulk's item shape
+    times, bounds = {}, {}
+    for t in ("item", "category"):
+        table = tables[t]
+        ids_t = ids[t]
+        safe = ids_t.clamp_min(0)
+        w = torch.where(ids_t >= 0, mask, torch.zeros_like(mask))
+        bms, by, rows = bag_bound(torch, ids_t, table)
+        k_ms = time_ms(torch, lambda: eops.embedding_bag(ids_t, mask, table))
+        p_ms = time_ms(torch, lambda: embedding_bag_ref(ids_t, mask, table))
+        l_ms = time_ms(torch, lambda: F.embedding_bag(
+            safe, table, per_sample_weights=w, mode="sum"))
+        log(f"embedding_bag at serve_bulk, {t} table {tuple(table.shape)}, "
+            f"ids {tuple(ids_t.shape)} ({rows} distinct rows): bound "
+            f"{bms:.4f} ms ({by}); kernel {k_ms:.4f} ms (bound / kernel "
+            f"{bms / k_ms:.1%}), plain (ref.py) {p_ms:.4f} ms, library "
+            f"(F.embedding_bag, per_sample_weights) {l_ms:.4f} ms [{smi}]")
+        times[t], bounds[t] = (k_ms, p_ms, l_ms), (bms, by)
+    del params, batch, ids, mask, safe, w
+    torch.cuda.empty_cache()
+    return {"launches": launches, "err": err, "times": times["item"],
+            "bound": bounds["item"]}
 
 
 def dist_check(torch, name, vals, ids, q, base, mask, k, metric="dot"):
@@ -1843,6 +2028,16 @@ def main() -> int:
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    # ------------------------------------------------ 10. the recsys cell --
+    torch.cuda.empty_cache()
+    rec = recsys_cell(torch, dev, smi)
+    by_path["embedding_bag"] = rec["launches"]
+    main_launches["embedding_bag"] = sum(rec["launches"].values())
+    record["embedding_bag"] = {"max_abs_err": rec["err"]}
+    bounds["embedding_bag"] = rec["bound"]
+    log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
+        f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
     times = {
         "irli_topk": (stage_ms["irli_topk"], plain_irli, library_irli),
         "freq_topc": (stage_ms["freq_topc"], plain_freq, None),
@@ -1851,6 +2046,7 @@ def main() -> int:
         "mega_query": (stage_ms["mega_query"], plain_mega, None),
         "distance_topk": stream["times"],
         "flash_attention": lm["times"],
+        "embedding_bag": rec["times"],
         **fit["times"],
     }
     replaces = {
@@ -1864,6 +2060,8 @@ def main() -> int:
         "distance_topk":
             "src/repro/kernels/distance_topk/distance_topk.py:60",
         "flash_attention": "src/repro/kernels/flash_attn/flash_attn.py:69",
+        "embedding_bag":
+            "src/repro/kernels/embedding_bag/embedding_bag.py:49",
     }
     kernels = [
         {"name": n, "route": "cuda",

@@ -1,6 +1,7 @@
 """Carry an index across between the JAX package and the port: its arrays,
 as numpy, become the port's objects (and back), so the same index can be
-served, and fitted further, by both packages.
+served, and fitted further, by both packages. The LM and DIEN params trees
+cross the same way.
 """
 from __future__ import annotations
 
@@ -148,8 +149,8 @@ def stream_state_to_reference(midx) -> tuple[dict, dict]:
     return host(midx.state_dict(s)), midx.meta(s)
 
 
-# ------------------------------------------------------------ LM family ----
-def _lm_leaf(x, dev) -> torch.Tensor:
+# ------------------------------------------------- model params (LM, DIEN) --
+def _model_leaf(x, dev) -> torch.Tensor:
     """A reference leaf (numpy or array-like; bf16 through ml_dtypes) ->
     a tensor of the same dtype on dev (bf16 exactly, by way of fp32)."""
     a = np.asarray(x)
@@ -158,7 +159,7 @@ def _lm_leaf(x, dev) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
-def _lm_host(t: torch.Tensor) -> np.ndarray:
+def _model_host(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         import ml_dtypes  # only a bf16 leaf needs numpy's bfloat16
         return t.detach().float().cpu().numpy().astype(ml_dtypes.bfloat16)
@@ -169,6 +170,14 @@ def _map_tree(fn, tree):
     if isinstance(tree, dict):
         return {k: _map_tree(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def _host_tree(params):
+    """A module or nested dict of tensors -> the same nesting of numpy
+    arrays (bf16 leaves as ``ml_dtypes.bfloat16``)."""
+    if isinstance(params, torch.Tensor):
+        return _model_host(params)
+    return {k: _host_tree(v) for k, v in params.items()}
 
 
 def lm_params_from_reference(params: dict, cfg, *,
@@ -182,10 +191,10 @@ def lm_params_from_reference(params: dict, cfg, *,
     dev = resolve_device(device)
     n_groups = cfg.n_layers // cfg.period
     layers = [
-        _map_tree(lambda a, g=g: _lm_leaf(np.asarray(a)[g], dev),
+        _map_tree(lambda a, g=g: _model_leaf(np.asarray(a)[g], dev),
                   params["layers"][f"sub{i}"])
         for g in range(n_groups) for i in range(cfg.period)]
-    tree = {k: _map_tree(lambda a: _lm_leaf(a, dev), v)
+    tree = {k: _map_tree(lambda a: _model_leaf(a, dev), v)
             for k, v in params.items() if k != "layers"}
     return LM(cfg, {**tree, "layers": layers})
 
@@ -197,12 +206,7 @@ def lm_params_to_reference(model) -> dict:
     cfg = model.cfg
     n_groups = cfg.n_layers // cfg.period
 
-    def tree(m):
-        if isinstance(m, torch.nn.ParameterDict):
-            return {k: _lm_host(v) for k, v in m.items()}
-        return {k: tree(v) for k, v in m.items()}
-
-    per_layer = [tree(lp) for lp in model["layers"]]
+    per_layer = [_host_tree(lp) for lp in model["layers"]]
 
     def stack(i, *path):
         leaves = [per_layer[g * cfg.period + i] for g in range(n_groups)]
@@ -214,7 +218,24 @@ def lm_params_to_reference(model) -> dict:
         return {k: (restack(i, v, path + (k,)) if isinstance(v, dict)
                     else stack(i, *path, k)) for k, v in sub.items()}
 
-    out = {k: tree(m) for k, m in model.items() if k != "layers"}
+    out = {k: _host_tree(m) for k, m in model.items() if k != "layers"}
     out["layers"] = {f"sub{i}": restack(i, per_layer[i])
                      for i in range(cfg.period)}
     return out
+
+
+def dien_params_from_reference(params: dict, *,
+                               device: str | torch.device = "cuda"):
+    """The reference's DIEN params (``repro.models.recsys.dien_init``'s
+    tree: ``item_emb``/``cate_emb`` tables, ``gru1`` and ``augru``
+    ``wx``/``wh``, ``att`` and ``top`` ``fc*``; numpy or array leaves) ->
+    the port's ``nn.ModuleDict`` of the same nesting on ``device``."""
+    from repro_torch.models.module import as_module
+    dev = resolve_device(device)
+    return as_module(_map_tree(lambda a: _model_leaf(a, dev), params))
+
+
+def dien_params_to_reference(params) -> dict:
+    """The port's DIEN params (module or nested dict) -> the reference's
+    tree as numpy (bf16 leaves as ``ml_dtypes.bfloat16``)."""
+    return _host_tree(params)

@@ -140,6 +140,20 @@ def frequency_filter(freq: torch.Tensor, tau: int) -> torch.Tensor:
     return freq >= tau
 
 
+def auto_tau(freq: torch.Tensor, budget: int) -> torch.Tensor:
+    """Beyond-paper: a per-query tau so that about ``budget`` candidates
+    survive. freq [Q, L] -> tau [Q]: the budget-th largest count, at least
+    1 (the smallest tau with |{freq >= tau}| <= budget on distinct
+    counts)."""
+    if budget <= 0:
+        # without the guard, budget=0 indexes column -1 and silently
+        # returns the MINIMUM frequency (i.e. keeps everything)
+        raise ValueError(f"auto_tau: budget must be >= 1, got {budget}")
+    kth = torch.sort(freq, dim=1, descending=True).values[
+        :, min(budget, freq.shape[1]) - 1]
+    return kth.clamp_min(1.0)
+
+
 def sorted_frequency_topC(cands: torch.Tensor, C: int):
     """FrequentOnes by per-query sort + run-length count, in plain PyTorch:
     cands [Q, C0] (pad -1) -> (ids [Q, C] int32, counts [Q, C] f32)."""

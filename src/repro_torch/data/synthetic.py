@@ -1,10 +1,13 @@
-"""Synthetic ANN data: a numpy copy of the reference's ``clustered_ann``
-(``repro/data/synthetic.py``), which the port keeps so that it imports
-nothing of the JAX package. The same seed gives the same arrays.
+"""Synthetic data: numpy copies of the reference's ``clustered_ann`` and
+``behavior_stream`` (``repro/data/synthetic.py``), which the port keeps so
+that it imports nothing of the JAX package. The same seed gives the same
+arrays.
 
-GloVe/SIFT-like dense vectors with planted, power-law-sized clusters and
-exact top-k ground-truth neighbours (brute force): the ANN labels of IRLI
-§3.2 ("100 exact near neighbours ... generated beforehand").
+``clustered_ann``: GloVe/SIFT-like dense vectors with planted,
+power-law-sized clusters and exact top-k ground-truth neighbours (brute
+force): the ANN labels of IRLI §3.2 ("100 exact near neighbours ...
+generated beforehand"). ``behavior_stream``: DIEN's user-history
+sequences (Zipf item ids).
 """
 from __future__ import annotations
 
@@ -89,3 +92,23 @@ def clustered_ann(n_base: int = 20000, n_queries: int = 500,
     gt = _topk_l2(base, queries, k_gt, metric)
     train_gt = _topk_l2(base, train_queries, k_train, metric)
     return ANNData(base, queries, train_queries, gt, train_gt, metric)
+
+
+# ---------------------------------------------------------------- recsys ----
+def behavior_stream(batch: int, seq_len: int, item_vocab: int,
+                    cate_vocab: int, seed: int = 0):
+    """Infinite DIEN batches: Zipf(1.2) history and target items, their
+    categories (item mod cate_vocab), a 90% history mask and random labels,
+    as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    while True:
+        hist = (rng.zipf(1.2, size=(batch, seq_len)) % item_vocab
+                ).astype(np.int32)
+        cates = (hist % cate_vocab).astype(np.int32)
+        target = (rng.zipf(1.2, size=batch) % item_vocab).astype(np.int32)
+        mask = (rng.random((batch, seq_len)) < 0.9).astype(np.float32)
+        label = rng.integers(0, 2, batch).astype(np.float32)
+        yield {"hist_items": hist, "hist_cates": cates,
+               "target_item": target,
+               "target_cate": (target % cate_vocab).astype(np.int32),
+               "hist_mask": mask, "label": label}

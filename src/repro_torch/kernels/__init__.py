@@ -22,7 +22,8 @@ import torch
 LAUNCHES: dict[str, int] = {"irli_topk": 0, "freq_topc": 0,
                              "quant_rerank": 0, "mega_query": 0,
                              "bce_logits": 0, "kchoice": 0,
-                             "distance_topk": 0, "flash_attention": 0}
+                             "distance_topk": 0, "flash_attention": 0,
+                             "embedding_bag": 0}
 
 
 def reset_launches() -> None:

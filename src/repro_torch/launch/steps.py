@@ -1,15 +1,18 @@
-"""Step builders for the LM family.
+"""Step builders of the LM and recsys families.
 
 Port of ``repro/launch/steps.build_lm_prefill`` (``:137-148``): the
 forward over a prompt batch, returning the last position's fp32 logits and
 hidden state, plus the reply to each request, ``next_token`` (the greedy
-argmax the reference's decode step takes, ``:155-161``). The step runs on
-the model's device, under ``torch.inference_mode``. The train, decode and
-other families' steps wait (ROADMAP).
+argmax the reference's decode step takes, ``:155-161``); and of
+``build_ctr_serve`` (``:179-182``): a CTR model's click probability. Each
+step runs on the model's device, under ``torch.inference_mode``. The train,
+decode and other families' steps wait (ROADMAP).
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.models.module import device_of
 
 
 def next_token(logits):
@@ -33,5 +36,20 @@ def build_lm_prefill(cfg):
             logits = _logits(model, cfg, last)
             return {"logits": logits, "hidden": last,
                     "next_token": next_token(logits)}
+
+    return step
+
+
+def build_ctr_serve(apply_fn):
+    """step(params, batch) -> {"prob": sigmoid(apply_fn(params, batch))}
+    [B]; the batch's arrays (numpy or tensors) are moved to the params'
+    device first."""
+
+    def step(params, batch):
+        with torch.inference_mode():
+            dev = device_of(params)
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in batch.items()}
+            return {"prob": torch.sigmoid(apply_fn(params, batch))}
 
     return step

@@ -1,1 +1,2 @@
-"""The LM family: layers, attention and the transformer stack."""
+"""The LM family (layers, attention, the transformer stack) and the recsys
+family (embeddings, recurrent cells, DIEN)."""

@@ -7,8 +7,10 @@ full. ``attend_train`` is [B, S] self-attention. Its causal full case
 passes) is one launch of the flash-attention kernel on the card
 (``kernels/flash_attention/ops.causal_attention``; the plain version on the
 CPU), which holds no score tensor. The other kinds run ``_sdpa`` in plain
-torch, in query chunks, as in the reference; the choice is made from the
-config alone. ``attend_decode`` waits for the decode slice; the
+torch, in query chunks, as in the reference, and so do the cases the
+kernel does not take (float16, a head_dim that is not a multiple of 16 in
+[16, 256]); the choice is made from the config and the activation dtype
+alone (``uses_kernel``). ``attend_decode`` waits for the decode slice; the
 reference's sequence sharding (``seq_shard``) is mesh machinery and is not
 ported.
 """
@@ -107,17 +109,22 @@ def _sdpa(q, k, v, mask, cfg: AttnConfig):
     return out.reshape(B, Sq, H * D)
 
 
-def uses_kernel(cfg: AttnConfig, positions=None) -> bool:
-    """Whether ``attend_train`` sends this config to the causal kernel:
-    the function it computes, and nothing else."""
-    return cfg.kind == "full" and cfg.logit_cap == 0 and positions is None
+def uses_kernel(cfg: AttnConfig, dtype: torch.dtype, positions=None) -> bool:
+    """Whether ``attend_train`` sends this config, at activation dtype
+    ``dtype``, to the causal kernel: the function it computes (causal
+    full attention, no logit cap, positions 0..S-1) on what it takes
+    (float32 or bfloat16, head_dim a multiple of 16 in [16, 256]), and
+    nothing else."""
+    return (cfg.kind == "full" and cfg.logit_cap == 0 and positions is None
+            and dtype in (torch.float32, torch.bfloat16)
+            and cfg.head_dim % 16 == 0 and 16 <= cfg.head_dim <= 256)
 
 
 def attend_train(p, cfg: AttnConfig, x, positions=None):
     """Causal self-attention over [B, S, d_model]. positions [B, S]
     defaults to 0..S-1."""
     B, S, _ = x.shape
-    kernel = uses_kernel(cfg, positions)
+    kernel = uses_kernel(cfg, x.dtype, positions)
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _qkv(p, cfg, x, positions)

@@ -1,6 +1,7 @@
-"""Core layers of the LM family: linear, embedding, norms, rotary, MLPs.
+"""Core layers of the LM and recsys families: linear, embedding, norms,
+rotary, MLPs, recurrent cells.
 
-Port of ``repro/models/layers.py:23-137``. An ``*_init`` draws a nested
+Port of ``repro/models/layers.py:23-190``. An ``*_init`` draws a nested
 dict of tensors from a ``torch.Generator`` on its device, with the
 reference's distributions (its numbers differ: JAX's PRNG cannot be
 reproduced); an ``*_apply`` takes that dict (or the ``nn.ParameterDict``
@@ -12,8 +13,10 @@ output (one bf16 matmul, accumulated in fp32: the package sets
 compute in fp32 and cast back; ``embedding_attend`` gives fp32 logits from
 an fp32 matmul of the upcast inputs (the reference's
 ``preferred_element_type=jnp.float32``), never a bf16 matmul rounded to
-bf16. The GRU cells, ``segment_softmax`` and ``stable_bce_with_logits``
-wait for the recsys slice.
+bf16. The recurrent cells of the recsys family (``gru_cell``,
+``augru_cell``, ``gru_scan``; reference ``:140-190``) follow the same
+rules; ``segment_softmax`` (GNN) and ``stable_bce_with_logits`` (the CTR
+train step) wait for their own paths.
 """
 from __future__ import annotations
 
@@ -150,3 +153,51 @@ def mlp_apply(p, x, act: str = "relu", final_act: bool = False):
         if i < n - 1 or final_act:
             x = ACTS[act](x)
     return x
+
+
+# --------------------------------------------------------- recurrent cells --
+def gru_init(gen: torch.Generator, d_in: int, d_h: int,
+             dtype=torch.float32) -> dict:
+    return {"wx": dense_init(gen, d_in, 3 * d_h, dtype, use_bias=True),
+            "wh": dense_init(gen, d_h, 3 * d_h, dtype, use_bias=False)}
+
+
+def _gates(p, h, x):
+    """The r, z and candidate n of a GRU step (gx and gh split r, z, n in
+    that order)."""
+    rx, zx, nx = dense_apply(p["wx"], x).chunk(3, dim=-1)
+    rh, zh, nh = dense_apply(p["wh"], h).chunk(3, dim=-1)
+    r = torch.sigmoid(rx + rh)
+    z = torch.sigmoid(zx + zh)
+    n = torch.tanh(nx + r * nh)
+    return z, n
+
+
+def gru_cell(p, h, x):
+    """Standard GRU cell. h [B, H], x [B, D] -> h' = (1 - z)·n + z·h."""
+    z, n = _gates(p, h, x)
+    return (1 - z) * n + z * h
+
+
+def augru_cell(p, h, x, att):
+    """Attentional-update GRU (DIEN): the update gate scaled by the
+    attention score att [B]; h' = (1 - z)·h + z·n (the other direction
+    from :func:`gru_cell`)."""
+    z, n = _gates(p, h, x)
+    z = z * att[..., None]
+    return (1 - z) * h + z * n
+
+
+def gru_scan(p, xs, h0, cell=gru_cell, att=None):
+    """Run a GRU over time: xs [B, T, D] (att [B, T] for an attentional
+    cell) -> (outputs [B, T, H], final h). Each step projects its own input
+    (no [B, T, 3H] projection of all steps) and writes its output into one
+    [T, B, H] tensor, returned as its [B, T, H] view."""
+    T = xs.shape[1]
+    ys = torch.empty((T, *h0.shape), dtype=h0.dtype, device=h0.device)
+    h = h0
+    for t in range(T):
+        h = cell(p, h, xs[:, t]) if att is None \
+            else cell(p, h, xs[:, t], att[:, t])
+        ys[t] = h
+    return ys.transpose(0, 1), h

@@ -1,4 +1,4 @@
-"""Parameter-tree helpers of the LM family.
+"""Parameter-tree helpers of the model families (LM, recsys).
 
 Port of the forward's part of ``repro/models/module.py``. The reference
 keeps params as nested dicts of arrays; the port keeps the same nesting as
@@ -18,7 +18,7 @@ from torch import nn
 
 from repro_torch.checkpoint.checkpointer import flatten_with_paths
 
-__all__ = ["as_module", "cast_floating", "flatten_with_paths",
+__all__ = ["as_module", "cast_floating", "device_of", "flatten_with_paths",
            "param_bytes", "param_count"]
 
 
@@ -42,6 +42,11 @@ def _leaves(params) -> list[torch.Tensor]:
     if isinstance(params, nn.Module):
         return list(params.parameters())
     return [v for _, v in flatten_with_paths(params)]
+
+
+def device_of(params) -> torch.device:
+    """The device of a module's or nested dict's first leaf."""
+    return _leaves(params)[0].device
 
 
 def param_count(params) -> int:

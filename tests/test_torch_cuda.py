@@ -634,3 +634,115 @@ def test_prefill_on_the_card_launches_the_kernel_once_a_layer(card):
         PA.causal_attention = kernel_attn
     h, ph = out["hidden"].float(), plain["hidden"].float()
     assert float((h - ph).norm() / ph.norm()) <= 2e-2
+
+
+# ---------------------------------------------------------- embedding_bag --
+def _bag_inputs(card, N, P, V, D, dtype, seed, lo=-1):
+    g = torch.Generator(card).manual_seed(seed)
+    ids = torch.randint(lo, V, (N, P), generator=g, device=card,
+                        dtype=torch.int32)
+    w = torch.rand((N, P), generator=g, device=card)
+    if N >= 3 and P >= 2:
+        ids[0] = -1                     # an all-pad bag
+        w[1, : P // 2] = 0.0            # zero weights on real rows
+    tbl = torch.randn((V, D), generator=g, device=card).to(dtype)
+    return ids, w, tbl
+
+
+def _bag_check(out, ids, w, tbl):
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    want = embedding_bag_ref(ids, w, tbl)
+    assert out.dtype == tbl.dtype and out.shape == want.shape
+    tol = (dict(rtol=1e-5, atol=1e-5) if tbl.dtype == torch.float32
+           else dict(rtol=1e-2, atol=1e-2))   # one bf16 rounding apart
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("P", [1, 100])
+@pytest.mark.parametrize("D", [1, 18, 32, 64, 128, 200])
+def test_embedding_bag_kernel_matches_plain(card, D, P, dtype):
+    from repro_torch.kernels.embedding_bag import ops as eops
+    ids, w, tbl = _bag_inputs(card, 333, P, 5000, D, getattr(torch, dtype),
+                              seed=D + P)
+    reset_launches()
+    out = eops.embedding_bag(ids, w, tbl)
+    torch.cuda.synchronize()
+    assert LAUNCHES["embedding_bag"] == 1
+    _bag_check(out, ids, w, tbl)
+    if P == 100:
+        assert (out[0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embedding_bag_kernel_empty_and_far_ids(card, dtype):
+    """N = 0 and P = 0 give zeros; ids near V = 2^20 (DIEN's item table)
+    read the right rows."""
+    from repro_torch.kernels.embedding_bag import ops as eops
+    dt = getattr(torch, dtype)
+    for N, P in ((0, 100), (37, 0)):
+        ids, w, tbl = _bag_inputs(card, N, P, 50, 18, dt, seed=1)
+        out = eops.embedding_bag(ids, w, tbl)
+        assert out.shape == (N, 18) and out.dtype == dt
+        assert (out == 0).all()
+    V = 1 << 20
+    ids, w, tbl = _bag_inputs(card, 1025, 100, V, 18, dt, seed=2,
+                              lo=V - 1000)
+    out = eops.embedding_bag(ids, w, tbl)
+    torch.cuda.synchronize()
+    _bag_check(out, ids, w, tbl)
+
+
+def test_embedding_bag_kernel_reads_non_contiguous_inputs(card):
+    from repro_torch.kernels.embedding_bag import ops as eops
+    ids, w, tbl = _bag_inputs(card, 200, 64, 3000, 40, torch.float32, seed=3)
+    sub_ids, sub_w = ids[::2, ::2], w[::2, ::2]        # strided views
+    sub_tbl = tbl[:, 3:21]                              # a column slice
+    assert not (sub_ids.is_contiguous() or sub_tbl.is_contiguous())
+    out = eops.embedding_bag(sub_ids, sub_w, sub_tbl)
+    torch.cuda.synchronize()
+    _bag_check(out, sub_ids, sub_w, sub_tbl)
+
+
+def test_embedding_bag_kernel_refuses_what_it_does_not_take(card):
+    from repro_torch.kernels.embedding_bag import ops as eops
+    ids, w, tbl = _bag_inputs(card, 8, 4, 50, 18, torch.float32, seed=4)
+    with pytest.raises(ValueError, match="int32"):
+        eops.embedding_bag(ids.long(), w, tbl)
+    with pytest.raises(ValueError, match="weights"):
+        eops.embedding_bag(ids, w.double(), tbl)
+    with pytest.raises(ValueError, match="table"):
+        eops.embedding_bag(ids, w, tbl.half())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        eops.embedding_bag(ids.cpu(), w.cpu(), tbl.cpu())
+
+
+def test_dien_serve_on_the_card_launches_two_bags(card):
+    """A DIEN forward at a small batch on the card: two embedding_bag
+    launches and no other kernel; prob equal to the same forward with the
+    plain bag_lookup_reduce patched in, to 1e-5."""
+    from repro_torch.configs import dien as PD
+    from repro_torch.data.synthetic import behavior_stream
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.launch.steps import build_ctr_serve
+    from repro_torch.models import recsys as PR
+    cfg = dataclasses.replace(PD.CONFIG, item_vocab=50_000, cate_vocab=1000)
+    params = PR.dien_init(cfg, seed=0, device=card)
+    batch = next(behavior_stream(64, cfg.seq_len, cfg.item_vocab,
+                                 cfg.cate_vocab, seed=0))
+    batch["hist_mask"][3] = 0.0
+    step = build_ctr_serve(lambda p, b: PR.dien_apply(
+        p, cfg, b["hist_items"], b["hist_cates"], b["target_item"],
+        b["target_cate"], b["hist_mask"]))
+    reset_launches()
+    prob = step(params, batch)["prob"]
+    torch.cuda.synchronize()
+    assert {n: c for n, c in LAUNCHES.items() if c} == {"embedding_bag": 2}
+    kernel_bag = PR.bag_lookup_reduce
+    PR.bag_lookup_reduce = embedding_bag_ref
+    try:
+        plain = step(params, batch)["prob"]
+    finally:
+        PR.bag_lookup_reduce = kernel_bag
+    assert prob.shape == (64,) and torch.isfinite(prob).all()
+    torch.testing.assert_close(prob, plain, rtol=1e-5, atol=1e-5)

@@ -203,8 +203,12 @@ def test_attend_train_matches_reference(name):
     got = PA.attend_train(_tree_t(p), pcfg, _t(x))
     assert LAUNCHES["flash_attention"] == 0        # the CPU: plain version
     np.testing.assert_allclose(got.numpy(), _np(want), **F32)
-    assert PA.uses_kernel(pcfg) == (name in ("full", "full-gqa",
-                                             "full-mqa-qknorm", "full-nope"))
+    # head_dim 8 is not a width the kernel takes; at 16 the full kinds go
+    # to it
+    assert not PA.uses_kernel(pcfg, torch.float32)
+    assert PA.uses_kernel(dataclasses.replace(pcfg, head_dim=16),
+                          torch.float32) == (
+        name in ("full", "full-gqa", "full-mqa-qknorm", "full-nope"))
 
 
 def test_attend_train_explicit_positions_take_sdpa():
@@ -215,7 +219,8 @@ def test_attend_train_explicit_positions_take_sdpa():
     p = JA.attn_init(jax.random.PRNGKey(9), jcfg)
     x = np.random.default_rng(9).normal(size=(2, 48, 32)).astype(np.float32)
     pos = np.broadcast_to(np.arange(48) + 5, (2, 48)).astype(np.int32)
-    assert not PA.uses_kernel(pcfg, torch.from_numpy(pos))
+    assert not PA.uses_kernel(dataclasses.replace(pcfg, head_dim=16),
+                              torch.float32, torch.from_numpy(pos))
     want = JA.attend_train(p, jcfg, jnp.asarray(x), jnp.asarray(pos))
     got = PA.attend_train(_tree_t(p), pcfg, _t(x), torch.from_numpy(pos))
     np.testing.assert_allclose(got.numpy(), _np(want), **F32)
@@ -223,6 +228,47 @@ def test_attend_train_explicit_positions_take_sdpa():
     want = JA.attend_train(p, jcfg, jnp.asarray(x))
     got = PA.attend_train(_tree_t(p), pcfg, _t(x))
     np.testing.assert_allclose(got.numpy(), _np(want), **F32)
+
+
+def test_uses_kernel_sends_only_what_the_kernel_takes():
+    """float16 and head_dims the kernel refuses (8, 24: not a multiple of
+    16; 272: past 256) go to _sdpa; gemma-7b's bf16 at D 256 and the
+    float32 and bfloat16 multiples of 16 go to the kernel."""
+    gemma = P_GEMMA.attn_cfg(0)
+    assert gemma.head_dim == 256
+    assert PA.uses_kernel(gemma, torch.bfloat16)
+    assert PA.uses_kernel(gemma, torch.float32)
+    assert not PA.uses_kernel(gemma, torch.float16)
+    base = PA.AttnConfig(d_model=64, n_heads=4, n_kv_heads=4, head_dim=16)
+    for d, want in ((8, False), (16, True), (24, False), (128, True),
+                    (272, False)):
+        cfg = dataclasses.replace(base, head_dim=d)
+        assert PA.uses_kernel(cfg, torch.bfloat16) == want, d
+        assert not PA.uses_kernel(cfg, torch.float16), d
+
+
+def test_attend_train_float16_takes_sdpa():
+    """A float16 full-attention layer runs _sdpa, never the kernel (which
+    raises on float16 on the card), and agrees with the float32 layer to
+    float16 rounding."""
+    kw = dict(d_model=64, n_heads=4, n_kv_heads=2, head_dim=16)
+    pcfg = PA.AttnConfig(**kw)
+    p = JA.attn_init(jax.random.PRNGKey(11), JA.AttnConfig(**kw))
+    x = np.random.default_rng(11).normal(size=(2, 24, 64)).astype(np.float32)
+    calls = []
+    kernel_attn = PA.causal_attention
+    PA.causal_attention = lambda *a: calls.append(a) or kernel_attn(*a)
+    try:
+        half = PA.attend_train(
+            {k: {n: v.half() for n, v in d.items()}
+             for k, d in _tree_t(p).items()}, pcfg, _t(x, torch.float16))
+        full = PA.attend_train(_tree_t(p), pcfg, _t(x))
+    finally:
+        PA.causal_attention = kernel_attn
+    assert len(calls) == 1 and calls[0][0].dtype == torch.float32
+    assert half.dtype == torch.float16
+    np.testing.assert_allclose(half.float().numpy(), full.numpy(),
+                               rtol=2e-2, atol=2e-2)
 
 
 def test_attend_train_bf16_matches_reference():

@@ -243,6 +243,35 @@ def test_probe_counts_and_buckets_match_reference():
         got.numpy(), np.asarray(JQ.probe_buckets(jidx.params, jq, M_PROBE)))
 
 
+def test_auto_tau_hits_budget():
+    """The reference's test (tests/test_query_and_serving.py), held
+    against repro.core.query.auto_tau on the same near-distinct freq."""
+    freq = (np.random.default_rng(0).random((4, 100)) * 6).astype(np.float32)
+    tau = TQ.auto_tau(torch.from_numpy(freq), budget=10)
+    np.testing.assert_array_equal(
+        tau.numpy(), np.asarray(JQ.auto_tau(jnp.asarray(freq), budget=10)))
+    for q in range(4):
+        n = int((torch.from_numpy(freq[q]) >= tau[q]).sum())
+        assert n <= 10, n
+    # a budget past L keeps the smallest count, and tau never drops below 1
+    small = np.array([[0.0, 0.5, 3.0]], np.float32)
+    for budget in (1, 2, 3, 7):
+        np.testing.assert_array_equal(
+            TQ.auto_tau(torch.from_numpy(small), budget).numpy(),
+            np.asarray(JQ.auto_tau(jnp.asarray(small), budget)))
+
+
+def test_auto_tau_rejects_nonpositive_budget():
+    """The reference's test (tests/test_query_pipeline.py): budget <= 0
+    raises in both packages."""
+    freq = np.ones((2, 8), np.float32)
+    for budget in (0, -3):
+        with pytest.raises(ValueError, match="budget"):
+            TQ.auto_tau(torch.from_numpy(freq), budget=budget)
+        with pytest.raises(ValueError, match="budget"):
+            JQ.auto_tau(jnp.asarray(freq), budget=budget)
+
+
 def test_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")
