@@ -54,10 +54,12 @@ widths, the LM prefill at gemma-7b's and DIEN's serve path at its own:
     attention call's peak memory above its inputs and output under 64 MB;
     prefill times, the device time of one traced prefill by launching op
     (``device_split``: the attention's share) and the prefill's FLOP
-    bound; the kernel's time beside its bound and
-    scaled_dot_product_attention's. Then qwen3-4b at full width,
-    4 of its 36 layers, at [4, 2048] (GQA, 32 heads over 8, head_dim 128),
-    held the same way;
+    bound; the kernel's time beside its bound, its plain version's and
+    scaled_dot_product_attention's (TFLOP/s and the kernel/SDPA ratio).
+    Then qwen3-4b at full width, 4 of its 36 layers, at [4, 2048] (GQA, 32
+    heads over 8, head_dim 128), held and timed the same way. The bf16
+    kernel's registers, spill bytes (0, a gate) and shared memory at each
+    padded head_dim come first (``cudaFuncGetAttributes``);
   * the recsys cell (``recsys_cell``): ``launch/steps.build_ctr_serve``
     over DIEN at ``configs/dien.CONFIG``'s full width (item table
     1,048,576 x 18 and category table 100,000 x 18 fp32, sequence 100,
@@ -661,6 +663,27 @@ def fit_cell(torch, dev, check_irli) -> dict:
         f"{n_lab * step / sm_clock * 1e3:.4f} ms (the bytes, "
         f"{k_bytes / 1e6:.1f} MB: {k_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms)"
         f" -> {k_bound[0]:.4f} ms")
+    # ---- kchoice at the stream's insert shape: one batch of 4096 ----
+    s_ids = ids[:, :INSERT_BATCH].contiguous()
+    s_orders = insertion_orders(R, INSERT_BATCH, dev,
+                                torch.Generator().manual_seed(SEED)).int()
+    s_load = torch.full((R, B), float(FIT_L // B), device=dev)
+    s_w = torch.ones(INSERT_BATCH, device=dev)
+    s_got = kops.kchoice(s_ids, s_orders, s_load, s_w, B=B)
+    s_want = kchoice_ref(s_ids, s_orders, s_load, s_w, B=B)
+    torch.cuda.synchronize()
+    if not torch.equal(s_got, s_want):
+        raise AssertionError(f"kchoice differs from the plain loop at the "
+                             f"insert shape in "
+                             f"{int((s_got != s_want).sum())} placements")
+    ks_ms = time_ms(torch, lambda: kops.kchoice(s_ids, s_orders, s_load, s_w,
+                                                B=B), n=10)
+    log(f"kchoice at the stream's insert shape {list(s_ids.shape)} (loads "
+        f"and weights given): bit-equal to the plain loop; kernel "
+        f"{ks_ms:.4f} ms ({ks_ms * 1e-3 / INSERT_BATCH * sm_clock:.1f} "
+        f"clocks a label); bound {INSERT_BATCH * step / sm_clock * 1e3:.4f}"
+        f" ms ({INSERT_BATCH} dependent steps, operations)")
+    del s_ids, s_orders, s_load, s_w, s_got, s_want
     del ak, ap
 
     # ---- one train step split into its stages (CUDA events) ----
@@ -886,7 +909,7 @@ def prefill_check(torch, name, out, plain, exact) -> int:
 
 
 ATTENTION = "flash_attention (flash_*_kernel)"
-FLASH_KERNELS = ("flash_bf16_kernel", "flash_f32_kernel")   # their names
+FLASH_KERNELS = ("flash_bf16_wgmma_kernel", "flash_f32_kernel")  # names
 
 
 def device_split(torch, run, names, label) -> tuple[float, dict, int, int]:
@@ -950,6 +973,13 @@ def lm_cell(torch, dev) -> dict:
     from repro_torch.models.module import param_bytes, param_count
     from repro_torch.models.transformer import lm_init
 
+    attrs = faops.kernel_attrs()
+    log("flash_attention bf16 kernel (cudaFuncGetAttributes): " + "; ".join(
+        f"DT {dt}: {a['registers']} registers a thread at launch, "
+        f"{a['spill_bytes']} spill bytes, {a['smem_bytes']} bytes of shared "
+        f"memory a block" for dt, a in attrs.items()))
+    if any(a["spill_bytes"] for a in attrs.values()):
+        raise AssertionError(f"flash_attention spills registers: {attrs}")
     launches, err, near, times = {}, 0.0, 0, {}
     gen = torch.Generator(device=dev).manual_seed(SEED)
     for cfg, shapes in ((GEMMA, LM_SHAPES),
@@ -1043,28 +1073,30 @@ def lm_cell(torch, dev) -> dict:
                     raise AssertionError(f"{name}: the attention call "
                                          f"holds {extra / 1e6:.1f} MB")
                 del o
-                bms, by, flops = flash_bound(torch, q, k, v)
-                plain_ms = time_ms(torch, lambda: flash_attention_ref(
-                    q, k, v, q_chunk=1024), n=1 if seq > 4096 else 3,
-                    warmup=1)
-                sdpa_ms = time_ms(torch, lambda: torch.nn.functional
-                                  .scaled_dot_product_attention(
-                                      q, k, v, is_causal=True),
-                                  n=n_runs, warmup=1)
-                log(f"flash_attention at {name} q {tuple(q.shape)}: "
-                    f"{flops / 1e12:.4f} TFLOP -> bound {bms:.4f} ms "
-                    f"({by}); kernel {att_ms:.4f} ms "
-                    f"({flops / att_ms / 1e9:.1f} TFLOP/s), plain "
-                    f"(ref.py, query chunks of 1024) {plain_ms:.4f} ms, "
-                    f"library (scaled_dot_product_attention) {sdpa_ms:.4f}"
-                    f" ms")
-                times[seq] = (att_ms, plain_ms, sdpa_ms, (bms, by))
+            bms, by, flops = flash_bound(torch, q, k, v)
+            plain_ms = time_ms(torch, lambda: flash_attention_ref(
+                q, k, v, q_chunk=1024), n=1 if seq > 4096 else 3,
+                warmup=1)
+            sdpa_ms = time_ms(torch, lambda: torch.nn.functional
+                              .scaled_dot_product_attention(
+                                  q, k, v, is_causal=True, enable_gqa=True),
+                              n=n_runs, warmup=1)
+            log(f"flash_attention at {name} q {tuple(q.shape)} k "
+                f"{tuple(k.shape)}: {flops / 1e12:.4f} TFLOP -> bound "
+                f"{bms:.4f} ms ({by}); kernel {att_ms:.4f} ms "
+                f"({flops / att_ms / 1e9:.1f} TFLOP/s), plain (ref.py, "
+                f"query chunks of 1024) {plain_ms:.4f} ms, library "
+                f"(scaled_dot_product_attention) {sdpa_ms:.4f} ms "
+                f"({flops / sdpa_ms / 1e9:.1f} TFLOP/s); kernel / library "
+                f"{att_ms / sdpa_ms:.3f}")
+            times[name] = (att_ms, plain_ms, sdpa_ms, (bms, by))
             del out, qkv, q, k, v, batch, tokens
             torch.cuda.empty_cache()
         del model, step
         torch.cuda.empty_cache()
     log(f"lm cell: {near} prefill rows had a near tie at the top-2")
-    att_ms, plain_ms, sdpa_ms, bnd = times[LM_SHAPES[1][1]]
+    att_ms, plain_ms, sdpa_ms, bnd = times[
+        f"{GEMMA.name} prefill [{LM_SHAPES[1][0]}, {LM_SHAPES[1][1]}]"]
     return {"launches": launches, "err": err,
             "times": (att_ms, plain_ms, sdpa_ms), "bound": bnd}
 

@@ -536,15 +536,23 @@ def test_streaming_sequence_on_the_card(card):
 def _flash_inputs(card, B, H, Hkv, S, D, dtype, layout="bhsd"):
     """q [B, H, S, D], k, v [B, Hkv, S, D] on the card from a seed; with
     layout "bshd" each is the transpose(1, 2) view of a [B, S, H, D]
-    tensor (attend_train's layout)."""
+    tensor (attend_train's layout); with "skew" a contiguous view whose
+    base is one element past a 16-byte boundary (the wrapper copies it)."""
     rng = np.random.default_rng(B * S + H * D + Hkv)
     dt = getattr(torch, dtype)
 
     def make(h):
         a = torch.from_numpy(rng.normal(size=(B, S, h, D)).astype(
             np.float32)).to(card, dt)
-        return a.transpose(1, 2) if layout == "bshd" else \
-            a.transpose(1, 2).contiguous()
+        if layout == "bshd":
+            return a.transpose(1, 2)
+        a = a.transpose(1, 2).contiguous()
+        if layout == "skew":
+            flat = torch.empty(a.numel() + 1, device=card, dtype=dt)
+            flat[1:] = a.reshape(-1)
+            a = flat[1:].view(a.shape)
+            assert a.data_ptr() % 16
+        return a
     return make(H), make(Hkv), make(Hkv)
 
 
@@ -558,25 +566,127 @@ def _flash_check(o, q, k, v, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,H,Hkv,S,D", [
-    (2, 3, 3, 128, 16),
-    (1, 4, 4, 200, 64),         # ragged S: a part tile of queries and keys
-    (2, 4, 2, 77, 128),         # GQA, ragged
-    (1, 2, 2, 300, 256),        # gemma's head_dim, ragged
-    (1, 8, 1, 64, 32),          # MQA
-    (2, 2, 2, 130, 48),         # D padded to 64 in shared memory
-    (1, 2, 2, 90, 80),          # ... to 128
-    (1, 2, 1, 33, 192),         # ... to 256
-    (1, 1, 1, 1, 64),           # one position
+@pytest.mark.parametrize("B,H,Hkv,S,D,layout", [
+    (2, 3, 3, 128, 16, "bhsd"),
+    (1, 4, 4, 200, 64, "bhsd"),     # ragged S: a part tile of queries, keys
+    (2, 4, 2, 77, 128, "bhsd"),     # GQA, ragged
+    (1, 2, 2, 300, 256, "bhsd"),    # gemma's head_dim, ragged
+    (1, 8, 1, 64, 32, "bhsd"),      # MQA
+    (2, 2, 2, 130, 48, "bhsd"),     # D padded to 64 in shared memory
+    (1, 2, 2, 90, 80, "bhsd"),      # ... to 128
+    (1, 2, 1, 33, 192, "bhsd"),     # ... to 256
+    (1, 1, 1, 1, 64, "bhsd"),       # one position
+    # the edges of the 128-row query tile and the 64- or 128-key tiles,
+    # and a ring of two stages that wraps many times (S = 1000)
+    (1, 2, 2, 63, 256, "bhsd"),
+    (1, 2, 1, 64, 256, "bhsd"),
+    (2, 2, 2, 65, 256, "bhsd"),
+    (1, 2, 2, 127, 128, "bhsd"),
+    (1, 2, 2, 128, 128, "bhsd"),
+    (1, 2, 2, 129, 64, "bhsd"),
+    (1, 2, 1, 1000, 256, "bhsd"),
+    (1, 2, 2, 1000, 128, "bhsd"),
+    (1, 2, 2, 1000, 64, "bhsd"),
+    # qwen3's 32 query heads over 8 KV heads, in attend_train's layout
+    (1, 8, 2, 300, 256, "bshd"),
+    (1, 8, 2, 300, 128, "bshd"),
+    # a base off the 16-byte grain: the wrapper's copy
+    (1, 2, 2, 150, 128, "skew"),
 ])
-def test_flash_attention_kernel_matches_plain(card, B, H, Hkv, S, D, dtype):
+def test_flash_attention_kernel_matches_plain(card, B, H, Hkv, S, D, layout,
+                                              dtype):
     from repro_torch.kernels.flash_attention import ops as faops
-    q, k, v = _flash_inputs(card, B, H, Hkv, S, D, dtype)
+    q, k, v = _flash_inputs(card, B, H, Hkv, S, D, dtype, layout)
     reset_launches()
     o = faops.flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert LAUNCHES["flash_attention"] == 1
+    _flash_check(o, q.contiguous(), k.contiguous(), v.contiguous(), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,D", [(200, 256), (300, 128), (130, 64),
+                                 (100, 80), (70, 48)])
+def test_flash_attention_kernel_running_mean_of_structured_v(card, S, D,
+                                                             dtype):
+    """q = 0 makes every score 0, so output row s is the mean of v over
+    keys 0..s. With v[s, d] = (s + d / 1000) · (1 + KV head), a permuted,
+    transposed or mis-swizzled tile of V, a key tile out of place or a
+    wrong KV head shows at once."""
+    from repro_torch.kernels.flash_attention import ops as faops
+    dt = getattr(torch, dtype)
+    B, H, Hkv = 2, 4, 2
+    gen = torch.Generator(card).manual_seed(S * D)
+    q = torch.zeros(B, H, S, D, device=card, dtype=dt)
+    k = torch.randn(B, Hkv, S, D, device=card, generator=gen).to(dt)
+    pos = torch.arange(S, device=card, dtype=torch.float64)
+    col = torch.arange(D, device=card, dtype=torch.float64)
+    head = torch.arange(1, Hkv + 1, device=card, dtype=torch.float64)
+    v = ((pos[:, None] + col[None, :] / 1000) * head[:, None, None]) \
+        .expand(B, Hkv, S, D).to(dt).contiguous()
+    o = faops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    mean = v.double().cumsum(2) / (pos + 1)[:, None]
+    want = mean.repeat_interleave(H // Hkv, dim=1)
+    # P is exactly 1 and l the key count: the only rounding left is the
+    # output's own (bf16: 2^-9 relative)
+    tol = 4e-3 if dtype == "bfloat16" else 1e-5
+    torch.testing.assert_close(o.double(), want, rtol=tol, atol=1e-6)
     _flash_check(o, q, k, v, dtype)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_attention_kernel_is_deterministic(card, D):
+    """Two launches on the same inputs give the same bits: no atomics, the
+    same summation order every run."""
+    from repro_torch.kernels.flash_attention import ops as faops
+    q, k, v = _flash_inputs(card, 2, 4, 2, 1000, D, "bfloat16", "bshd")
+    a = faops.flash_attention(q, k, v)
+    b = faops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_flash_attention_bf16_kernels_do_not_spill(card):
+    """cudaFuncGetAttributes: no local (spill) memory at any DT, the
+    plan's shared memory within the card's 227 KB."""
+    from repro_torch.kernels.flash_attention import ops as faops
+    attrs = faops.kernel_attrs()
+    assert sorted(attrs) == [64, 128, 256]
+    for dt, a in attrs.items():
+        assert a["spill_bytes"] == 0, (dt, a)
+        assert 0 < a["registers"] <= 255, (dt, a)
+        plan = faops.flash_plan(1, 1, 1, 128, dt, torch.bfloat16)
+        assert a["smem_bytes"] == plan.smem <= faops.SMEM_LIMIT, (dt, a)
+
+
+def test_flash_attention_c_entry_refuses_a_plan_it_was_not_built_for(card):
+    """The C entry checks the Python plan against its own constants and
+    the call's shapes before it launches."""
+    import ctypes
+
+    from repro_torch.kernels.flash_attention import ops as faops
+    q, k, v = _flash_inputs(card, 1, 2, 2, 200, 128, "bfloat16")
+    o = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 12)(
+        *(t.stride(i) for t in (q, k, v, o) for i in range(3)))
+    good = faops.flash_plan(1, 2, 2, 200, 128, torch.bfloat16).as_array()
+    for i, bad in ((2, 64), (5, good[5] - 1024), (6, good[6] + 1),
+                   (7 + 8, 64), (7 + 11 + 4, 2), (7 + 33 + 8, 128)):
+        arr = list(good)
+        arr[i] = bad
+        err = faops._lib().flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, 1, 2,
+            2, 200, 128, strides, (ctypes.c_longlong * faops.PLAN_LEN)(*arr),
+            torch.cuda.current_stream().cuda_stream)
+        assert err != 0, (i, bad)
+    err = faops._lib().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, 1, 2, 2,
+        200, 128, strides, (ctypes.c_longlong * faops.PLAN_LEN)(*good),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    _flash_check(o, q, k, v, "bfloat16")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -370,6 +370,67 @@ def test_flash_attention_layout_helper_keeps_strided_views():
     assert faops._aligned(skew).data_ptr() != skew.data_ptr()
 
 
+# ------------------------------------------------- flash_attention's plan --
+def _plan_strides(B, H, Hkv, S, D, layout):
+    """The element strides (batch, head, position) of q, k, v and o in the
+    given layout, from tensors on the meta device (no memory)."""
+    def one(h):
+        if layout == "bshd":
+            t = torch.empty(B, S, h, D, device="meta").transpose(1, 2)
+        else:
+            t = torch.empty(B, h, S, D, device="meta")
+        return t.stride()[:3]
+    return one(H), one(Hkv), one(Hkv), one(H)
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("D", list(range(16, 257, 16)))
+def test_flash_plan_fits_the_card_and_tma(D, layout):
+    """The bf16 launch plan at every head_dim the kernel takes, at lengths
+    on either side of the tile edges: shared memory within the card's
+    227 KB, TMA boxes of at most 128 bytes inside and 256 elements a
+    dimension over 16-byte strides, the caller's strides read in place, a
+    grid under 2**31 blocks numbered longest first."""
+    B, H, Hkv = 2, 4, 2
+    for S in (1, 63, 64, 65, 127, 128, 129, 32768):
+        strides = _plan_strides(B, H, Hkv, S, D, layout)
+        plan = faops.flash_plan(B, H, Hkv, S, D, torch.bfloat16, strides)
+        assert plan.DT >= D and plan.DT % faops.BOX_COLS == 0
+        assert (plan.BQ, plan.threads) == (128, 384) and plan.stages >= 2
+        assert plan.smem <= faops.SMEM_LIMIT
+        assert len(plan.maps) == 4            # q, k, v and the output o
+        for m, heads, st in zip(plan.maps, (H, Hkv, Hkv, H), strides):
+            assert m.dims == (D, S, heads, B)
+            assert m.strides == tuple(2 * x for x in reversed(st))
+            assert all(x % 16 == 0 and 0 < x < 2 ** 40 for x in m.strides)
+            assert m.box[0] * 2 <= 128 and m.box[2:] == (1, 1)
+            assert all(0 < b <= 256 for b in m.box)
+        n_qt = -(-S // plan.BQ)
+        assert plan.grid == n_qt * B * H < 2 ** 31
+        # block_work: every (batch, head, query tile) once, longest first
+        blocks = [plan.work(i) for i in range(plan.grid)]
+        assert sorted(blocks) == sorted((b, h, t) for b in range(B)
+                                        for h in range(H)
+                                        for t in range(n_qt))
+        assert all(x[2] >= y[2] for x, y in zip(blocks, blocks[1:]))
+        assert [x[2] for x in blocks[:B * H]] == [n_qt - 1] * (B * H)
+
+
+@pytest.mark.parametrize("D", [16, 80, 256])
+def test_flash_plan_fp32_and_the_grid_limit(D):
+    """fp32 runs the FMA kernel: 16-row blocks, no tensor maps. A grid of
+    2**31 blocks or more is refused before any launch."""
+    plan = faops.flash_plan(1, 2, 1, 100, D, torch.float32)
+    assert (plan.DT, plan.BQ, plan.BK, plan.threads) == (D, 16, 32, 256)
+    assert plan.maps is None and plan.grid == 7 * 2
+    assert plan.smem == (16 * D + 32 * (D + 1) + 32 * D) * 4
+    assert plan.as_array()[7:] == [0] * 44
+    with pytest.raises(ValueError, match="exceed the grid"):
+        faops.flash_plan(2 ** 16, 256, 1, 2 ** 16, D, torch.bfloat16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        faops.flash_plan(1, 2, 1, 100, D, torch.float16)
+
+
 # ------------------------------------------------------------- the prefill --
 def _tiny_lm(name, **kw):
     """tests/test_smoke_archs.py's reduced LM variants."""
