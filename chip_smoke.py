@@ -82,9 +82,13 @@ Every search is held against the same search with the plain versions
 (kernels/mega_query/ref.mega_search_ref), on the card: ids equal outside
 the rows with a near tie (|a - b| <= 1e-5 + 1e-5·|b|) at the m, k' or k cut,
 scores to 1e-5. The fit's kernels are held against their plain versions at
-the fit's shapes, and the formerly refused shapes (irli_topk at m = 128,
-40,000-wide freq_topc rows through its wide variant, quant_rerank at
-topC = 20,000) against theirs. bce_logits' gradient is held in the units
+the fit's shapes (kchoice also on uniform candidate lists at the fit's
+shape, at the stream's insert shape and at a worst case, every label of a
+rep on one K-list: bit-equal, its rounds equal to the plain schedule's,
+its bound from the inputs' dependence depth), and
+the formerly refused shapes (irli_topk at m = 128, 40,000-wide freq_topc
+rows through its wide variant, quant_rerank at topC = 20,000) against
+theirs. bce_logits' gradient is held in the units
 of σ(x) - y (each element divided by its row's scale·w), where TOL bounds
 a value of size up to 1. Then it times every stage and kernel with CUDA
 events.
@@ -130,7 +134,6 @@ from __future__ import annotations
 
 import contextlib
 import json
-import math
 import statistics
 import subprocess
 import sys
@@ -466,6 +469,82 @@ def dense_check(torch, dev, idx, base, q) -> float:
     return err, launches
 
 
+def kchoice_check(torch, name, ids, orders, load0, weights, link, sm_clock,
+                  n: int = 10, worst: bool = False):
+    """kchoice on [G, L, K] candidates: bit-equal to the plain loop
+    (kchoice_ref), its rounds (windows and in-register steps) equal to the
+    plain schedule's (kchoice_windows), two launches equal; its time beside
+    the bound of what these inputs need: the larger of the bytes
+    (candidates, order, assignment, starting loads and weights once) at the
+    memory rate and the longest dependence chain (dependence_depth) of
+    links of `link` clocks each (the cheapest the card chains: a min and an
+    add in registers) at the SM clock. Returns (ms, plain ms, (bound ms,
+    bound_by))."""
+    from repro_torch.kernels.kchoice import ops as kops
+    from repro_torch.kernels.kchoice.ref import (dependence_depth,
+                                                 kchoice_ref,
+                                                 kchoice_windows)
+    G, n_lab, k = ids.shape
+    got = kops.kchoice(ids, orders, load0, weights, B=B)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = kchoice_ref(ids, orders, load0, weights, B=B)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(got, want):
+        raise AssertionError(f"kchoice differs from the plain loop at {name} "
+                             f"in {int((got != want).sum())} placements")
+    rounds = torch.zeros(G, dtype=torch.int32, device=ids.device)
+    again = kops.kchoice(ids, orders, load0, weights, B=B, rounds=rounds)
+    plain, plain_rounds = kchoice_windows(ids, orders, load0, weights, B=B)
+    if not (torch.equal(again, got) and torch.equal(plain, want)):
+        raise AssertionError(f"kchoice at {name}: a second launch or the "
+                             f"plain window schedule differs")
+    if rounds.tolist() != plain_rounds.tolist():
+        raise AssertionError(f"kchoice at {name}: rounds {rounds.tolist()}, "
+                             f"the plain schedule's {plain_rounds.tolist()}")
+    depth = dependence_depth(ids, orders, got, B=B)
+    if worst and depth.tolist() != [n_lab] * G:
+        raise AssertionError(f"kchoice's worst case: dependence depth "
+                             f"{depth.tolist()}, not {n_lab} each")
+    ms = time_ms(torch, lambda: kops.kchoice(ids, orders, load0, weights,
+                                             B=B), n=n)
+    nbytes = (G * n_lab * (k + 2) * 4
+              + (0 if load0 is None else load0.numel() * 4)
+              + (0 if weights is None else weights.numel() * 4))
+    chain = int(depth.max()) * link / sm_clock * 1e3
+    k_bound = max((chain, "operations"),
+                  (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    n_rnd = rounds.double()
+    log(f"kchoice {list(ids.shape)} at {name}: bit-equal to the plain loop, "
+        f"two launches equal, rounds a rep {int(n_rnd.min())}-"
+        f"{int(n_rnd.max())} (mean {float(n_rnd.mean()):.1f}, equal to the "
+        f"plain schedule's), {n_lab / float(n_rnd.mean()):.2f} labels a "
+        f"round, dependence depth {int(depth.min())}-{int(depth.max())}; "
+        f"kernel {ms:.4f} ms ({ms * 1e-3 * sm_clock / float(n_rnd.mean()):.1f}"
+        f" clocks a round, {ms * 1e-3 * sm_clock / n_lab:.1f} a label), "
+        f"plain (host loop) {plain_ms:.1f} ms; bound {k_bound[0]:.5f} ms "
+        f"({k_bound[1]}: {nbytes / 1e6:.1f} MB at 3.35 TB/s = "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms; depth {int(depth.max())} "
+        f"x {link:.2f} clocks = {chain:.5f} ms), {k_bound[0] / ms:.2%} of "
+        f"it")
+    return ms, plain_ms, k_bound
+
+
+def uniform_lists(torch, G: int, L: int, K: int, seed: int):
+    """[G, L, K] int32: K distinct bucket ids < B a label, uniform, as a
+    balanced partition's candidate lists are; the lists that repeat an id
+    are drawn again. On the host, from the seed."""
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(B, (G * L, K), generator=gen)
+    while True:
+        srt = ids.sort(1).values
+        again = (srt[:, 1:] == srt[:, :-1]).any(1).nonzero()[:, 0]
+        if len(again) == 0:
+            return ids.view(G, L, K).int()
+        ids[again] = torch.randint(B, (len(again), K), generator=gen)
+
+
 def fit_cell(torch, dev, check_irli) -> dict:
     """The fit cell: IRLIIndex.fit at the irli-deep1b widths (sigmoid_bce,
     ANN mode, fit_run), its kernels against their plain versions at the
@@ -486,7 +565,6 @@ def fit_cell(torch, dev, check_irli) -> dict:
     from repro_torch.kernels.bce_logits.ref import weighted_bce_ref
     from repro_torch.kernels.distance_topk import ops as dops
     from repro_torch.kernels.kchoice import ops as kops
-    from repro_torch.kernels.kchoice.ref import kchoice_ref
     from repro_torch.optim.optimizers import apply_clip, global_norm_sq
 
     run = fit_run(torch, dev, FIT_L, FIT_L)
@@ -629,62 +707,39 @@ def fit_cell(torch, dev, check_irli) -> dict:
                           h, params["w2"], params["b2"], FIT_K)
     del h, vals
 
-    # ---- kchoice against the plain loop at the fit's shape ----
+    # ---- kchoice at the fit's shape (real affinities and uniform lists),
+    # the insert's and the worst case, each against the plain loop and its
+    # window schedule ----
     orders = insertion_orders(R, FIT_L, dev,
                               torch.Generator().manual_seed(SEED)).int()
     ids = ids.contiguous()
-    ak = kops.kchoice(ids, orders, B=B)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ap = kchoice_ref(ids, orders, B=B)
-    torch.cuda.synchronize()
-    k_plain = (time.perf_counter() - t0) * 1e3
-    if not torch.equal(ak, ap):
-        raise AssertionError(f"kchoice differs from the plain loop in "
-                             f"{int((ak != ap).sum())} placements")
-    k_ms = time_ms(torch, lambda: kops.kchoice(ids, orders, B=B), n=5)
-    # its bound: the chain of dependent steps, each at least one
-    # shared-memory read-add-write and ceil(log2 K) shuffle-and-min levels,
-    # both latencies measured on this card (kchoice.cu), at the SM's top clock
-    rmw, level = kops.step_cycles(dev)
-    n_lab = ids.shape[1]
-    step = rmw + math.ceil(math.log2(FIT_K)) * level
+    link = kops.step_cycles(dev)
     sm_clock = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
-    k_bytes = R * n_lab * (FIT_K + 2) * 4
-    k_bound = max((n_lab * step / sm_clock * 1e3, "operations"),
-                  (k_bytes / HBM_BYTES_PER_S * 1e3, "bytes"))
-    log(f"kchoice {list(ids.shape)}: bit-equal to the plain loop; kernel "
-        f"{k_ms:.4f} ms ({k_ms * 1e-3 / n_lab * sm_clock:.1f} clocks a "
-        f"label, the reps in parallel), plain (host loop over the labels, "
-        f"reps vectorised) {k_plain:.1f} ms; bound: {n_lab} dependent steps "
-        f"x ({rmw:.1f} clocks a shared-memory read-add-write + "
-        f"{math.ceil(math.log2(FIT_K))} x {level:.1f} a shuffle-and-min "
-        f"level, measured) at {sm_clock / 1e6:.0f} MHz = "
-        f"{n_lab * step / sm_clock * 1e3:.4f} ms (the bytes, "
-        f"{k_bytes / 1e6:.1f} MB: {k_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms)"
-        f" -> {k_bound[0]:.4f} ms")
-    # ---- kchoice at the stream's insert shape: one batch of 4096 ----
+    log(f"kchoice's chain link, a min and an add in registers measured on "
+        f"this card: {link:.2f} clocks at {sm_clock / 1e6:.0f} MHz")
+    k_ms, k_plain, k_bound = kchoice_check(
+        torch, "the fit's shape (real affinities)", ids, orders, None, None,
+        link, sm_clock, n=5)
+    # a balanced partition's lists: long clean prefixes, the window path
+    kchoice_check(torch, "the fit's shape (uniform lists)",
+                  uniform_lists(torch, R, FIT_L, FIT_K, SEED).to(dev),
+                  orders, None, None, link, sm_clock, n=5)
     s_ids = ids[:, :INSERT_BATCH].contiguous()
     s_orders = insertion_orders(R, INSERT_BATCH, dev,
                                 torch.Generator().manual_seed(SEED)).int()
     s_load = torch.full((R, B), float(FIT_L // B), device=dev)
     s_w = torch.ones(INSERT_BATCH, device=dev)
-    s_got = kops.kchoice(s_ids, s_orders, s_load, s_w, B=B)
-    s_want = kchoice_ref(s_ids, s_orders, s_load, s_w, B=B)
-    torch.cuda.synchronize()
-    if not torch.equal(s_got, s_want):
-        raise AssertionError(f"kchoice differs from the plain loop at the "
-                             f"insert shape in "
-                             f"{int((s_got != s_want).sum())} placements")
-    ks_ms = time_ms(torch, lambda: kops.kchoice(s_ids, s_orders, s_load, s_w,
-                                                B=B), n=10)
-    log(f"kchoice at the stream's insert shape {list(s_ids.shape)} (loads "
-        f"and weights given): bit-equal to the plain loop; kernel "
-        f"{ks_ms:.4f} ms ({ks_ms * 1e-3 / INSERT_BATCH * sm_clock:.1f} "
-        f"clocks a label); bound {INSERT_BATCH * step / sm_clock * 1e3:.4f}"
-        f" ms ({INSERT_BATCH} dependent steps, operations)")
-    del s_ids, s_orders, s_load, s_w, s_got, s_want
-    del ak, ap
+    kchoice_check(torch, "the stream's insert shape (loads and weights "
+                  "given)", s_ids, s_orders, s_load, s_w, link, sm_clock)
+    # the worst case: every label of a rep on one K-list, so each label
+    # waits on the one before it (depth = L)
+    lists = torch.stack([torch.randperm(B, generator=torch.Generator()
+                                        .manual_seed(SEED + r))[:FIT_K]
+                         for r in range(R)]).int().to(dev)
+    w_ids = lists[:, None, :].expand(R, INSERT_BATCH, FIT_K).contiguous()
+    kchoice_check(torch, "the worst case (one K-list a rep)", w_ids,
+                  s_orders, None, None, link, sm_clock, worst=True)
+    del s_ids, s_orders, s_load, s_w, lists, w_ids
 
     # ---- one train step split into its stages (CUDA events) ----
     x_in = train[sel]

@@ -6,179 +6,463 @@
 // the scan at :93), which XLA compiles to a sequential loop. Its semantics,
 // shared with the plain version (ref.py): labels are taken in the given
 // insertion order; each goes to the FIRST of its K candidate buckets (in
-// descending affinity) that holds the least float32 load, and that load
-// grows by the label's weight. Bit for bit: the same adds in the same order.
+// descending affinity) that holds the least float32 load (-0.0 equal to
+// +0.0), and that load grows by the label's weight. Bit for bit: the same
+// adds in the same order.
 //
-// What bounds it on the H100: neither the bytes nor the count of operations
-// but the chain of L dependent steps per rep (each step reads loads the
-// previous one may have written). Its bytes (the [R, L, K] candidates, the
-// order, the assignment: 201 MB at R = 32, L = 131072, K = 10) take 0.06 ms;
-// each step chains at least one shared-memory read-add-write (its read
-// waits for the last step's write) and ceil(log2 K) levels of a
-// shuffle-and-min reduction. kchoice_step_cycles measures those two
-// latencies on the card, so the bound is L x (read-add-write +
-// ceil(log2 K) levels) / the SM clock.
+// What bounds it on the H100: the process looks sequential, but label i
+// depends on an earlier label only where that label was placed in one of
+// i's K candidates. The longest such chain of a rep (its dependence depth,
+// ref.dependence_depth) times the cheapest link the card can chain (a min
+// of two loads and an add, in registers: kchoice_step_cycles measures it)
+// bounds any exact walk from below; the bytes (the [R, L, K] candidates,
+// the order, the assignment, the starting loads and weights, each once)
+// are the other bound. On uniform candidates at R = 32, L = 131072,
+// B = 20000, K = 10 the depth is about 170 and the bytes bound it (201 MB,
+// 0.06 ms); a fit's real candidate lists are hot (depth up to 58,435
+// there) and the chain bounds it.
 //
-// Design: one block of 256 threads per rep; the rep's [B] loads sit in
-// shared memory (80 KB at B = 20000). Warp 0 walks the labels: its lanes
-// read the label's K candidates' loads, reduce (load, choice rank)
-// lexicographically with shuffles, and lane 0 adds the weight and writes the
-// assignment. Meanwhile warps 1-7 gather the next chunk of 256 labels'
-// candidate rows (in insertion order) from device memory into the other half
-// of a double buffer, so the walk never waits on device memory.
+// Design: one block a rep, its [B] loads and a one-byte claim table in
+// shared memory (100 KB at B = 20000). Warp 0 walks the labels in windows
+// of 32, one label a lane. Each lane takes the first least-loaded of its K
+// candidates from the window's starting loads (its K reads independent).
+// The lowest lane that chose each bucket claims it (a plain store, then
+// __match_any_sync only where two lanes chose one bucket); a lane is dirty
+// when an earlier lane of the window claimed one of its candidates. The
+// lanes before the first dirty one commit together: none of them saw a
+// load another changed, and their buckets are distinct. Where walk_below
+// or more are clean (uniform-like lists) the next window starts at the
+// first dirty lane (the first lane is never dirty); where fewer are, as on
+// hot candidate lists, the rest of the window is walked in registers: each
+// lane holds its candidates' loads (K <= walk_max_k <= 16), and lane by
+// lane a label's bucket and new load go by shuffle to the later lanes,
+// which update and choose again. The caller passes walk_below and
+// walk_max_k (ref.WALK_BELOW, ref.WALK_MAX_K, which the plain schedule
+// follows too). Either way each bucket receives the sequential walk's adds
+// in its order.
+// Meanwhile warps 1-8 gather chunks of 256 labels (ids, weights, candidate
+// rows, in insertion order) from device memory into a ring of three, two
+// chunks ahead of the walk, so the walk reads shared memory only and a
+// window may cross a chunk's edge.
 #include <cuda_runtime.h>
-#include <math.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kChunk = 256;   // labels per staged chunk
+constexpr int kWindow = 32;                  // labels a window, one a lane
+constexpr int kChunk = 256;                  // labels a staged chunk
+constexpr int kRing = 3 * kChunk;            // staged label slots
+constexpr int kThreads = kWindow + kChunk;   // warp 0 walks, 1-8 stage
+constexpr int kGroup = 16;                   // candidates staged at once
+constexpr unsigned char kFree = 0xFF;        // an unclaimed bucket
+constexpr int kMaxKG = 16;                   // candidates a lane holds
 
-__device__ void stage_chunk(const int* __restrict__ topk,
-                            const int* __restrict__ order, long long g,
-                            int L, int K, int c, int* cand, int* lbl,
-                            int t0, int nt) {
-  const int s0 = c * kChunk;
-  const int n = min(kChunk, L - s0);
-  for (int i = threadIdx.x - t0; i < n * K; i += nt) {
-    const int s = i / K, j = i - s * K;
-    const int l = order[g * L + s0 + s];
-    if (j == 0) lbl[s] = l;
-    cand[i] = topk[(g * L + l) * K + j];
+// Staging thread t gathers label s = c·kChunk + t of the insertion order
+// (chunk c) into ring slot s mod kRing: its id, its weight and its K
+// candidates, transposed ([K][kRing]) so that the walk's lanes read
+// neighbouring words.
+__device__ void stage(const int* __restrict__ topk,
+                      const int* __restrict__ order,
+                      const float* __restrict__ w, long long g, int L, int K,
+                      int c, int t, int* cand, int* lbl, float* wt) {
+  const int s = c * kChunk + t;
+  if (s >= L) return;
+  const int l = order[g * L + s];
+  const int p = s % kRing;
+  const float wl = w ? w[l] : 1.0f;
+  const int* row = topk + (g * L + l) * K;
+  for (int j0 = 0; j0 < K; j0 += kGroup) {
+    int v[kGroup];
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      if (j0 + u < K) v[u] = row[j0 + u];
+    }
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      if (j0 + u < K) cand[(j0 + u) * kRing + p] = v[u];
+    }
+  }
+  lbl[p] = l;
+  wt[p] = wl;
+}
+
+// One lane's label of a window, read from the ring ahead of the window:
+// its ring slot, id, weight and first KG candidates. Candidates past K
+// repeat the last one: a repeat changes neither the first minimum nor the
+// dirty test, and every read is unconditional.
+template <int KG>
+struct Label {
+  int q, l;
+  float wl;
+  int b[KG];
+
+  __device__ void read(const int* cand, const int* lbl, const float* wt,
+                       int K, int slot) {
+    q = slot;
+    l = lbl[q];
+    wl = wt[q];
+#pragma unroll
+    for (int u = 0; u < KG; ++u) b[u] = cand[min(u, K - 1) * kRing + q];
+  }
+};
+
+// The first of b's buckets at the least of the loads v, as (load, bucket):
+// a tree of pairs, lower ranks on the left; the right one wins only with a
+// strictly smaller load, so the first minimum survives every level.
+template <int KG>
+__device__ void min_of(const float (&v)[KG], const int (&b)[KG], float& best,
+                       int& choice) {
+  float m[KG];
+  int c[KG];
+#pragma unroll
+  for (int u = 0; u < KG; ++u) {
+    m[u] = v[u];
+    c[u] = b[u];
+  }
+#pragma unroll
+  for (int h = 1; h < KG; h <<= 1) {
+#pragma unroll
+    for (int u = 0; u + h < KG; u += 2 * h) {
+      if (m[u + h] < m[u]) {
+        m[u] = m[u + h];
+        c[u] = c[u + h];
+      }
+    }
+  }
+  best = m[0];
+  choice = c[0];
+}
+
+// The first of b's buckets at the least load in `loads`.
+template <int KG>
+__device__ void first_min(const float* loads, const int (&b)[KG],
+                          float& best, int& choice) {
+  float v[KG];
+#pragma unroll
+  for (int u = 0; u < KG; ++u) v[u] = loads[b[u]];
+  min_of(v, b, best, choice);
+}
+
+// The labels from lane `first` to n - 1 of a window, placed one after
+// another in registers (K <= KG: each lane holds every candidate's load).
+// Lane i's choice is final once the labels before it are placed: it
+// broadcasts its bucket and that bucket's new load, and every later lane
+// that has the bucket among its candidates takes the new load and chooses
+// again. Returns each lane's choice and its bucket's load after its add in
+// (choice, after), with `last` false where a later label of the window
+// took the same bucket.
+template <int KG>
+__device__ void walk(int first, int n, const float* loads,
+                     const int (&b)[KG], float wl, int& choice, float& after,
+                     bool& last) {
+  const int lane = threadIdx.x & 31;
+  float v[KG];
+#pragma unroll
+  for (int u = 0; u < KG; ++u) v[u] = loads[b[u]];
+  float best;
+  min_of(v, b, best, choice);
+  after = best + wl;
+  last = true;
+  int d = lane - first;   // lane - i
+  // two steps a loop body: the compiler schedules one step's bookkeeping
+  // beside the next step's chain (faster than 1, 4 or 8 on hot lists)
+#pragma unroll 2
+  for (int i = first; i < n; ++i, --d) {
+    const int c = __shfl_sync(0xffffffffu, choice, i);
+    const float load = __shfl_sync(0xffffffffu, after, i);
+    const bool later = d > 0;
+    last = last && (d >= 0 || choice != c);
+#pragma unroll
+    for (int u = 0; u < KG; ++u) v[u] = later && b[u] == c ? load : v[u];
+    min_of(v, b, best, choice);   // unchanged where nothing was hit
+    after = best + wl;
   }
 }
 
+// Candidates KG.. (K > KG) of the label in slot q, KG at a time.
+template <int KG>
+__device__ void read_group(const int* cand, int K, int q, int j0,
+                           int (&b)[KG]) {
+#pragma unroll
+  for (int u = 0; u < KG; ++u) b[u] = cand[min(j0 + u, K - 1) * kRing + q];
+}
+
+// The least claim on the label's candidates.
+template <int KG>
+__device__ int least_claim(const unsigned char* claim, const int* cand,
+                           const Label<KG>& x, int K) {
+  int m[KG];
+#pragma unroll
+  for (int u = 0; u < KG; ++u) m[u] = claim[x.b[u]];
+  for (int j0 = KG; j0 < K; j0 += KG) {
+    int b[KG];
+    read_group(cand, K, x.q, j0, b);
+#pragma unroll
+    for (int u = 0; u < KG; ++u) {
+      m[u] = min(m[u], static_cast<int>(claim[b[u]]));
+    }
+  }
+#pragma unroll
+  for (int h = 1; h < KG; h <<= 1) {
+#pragma unroll
+    for (int u = 0; u + h < KG; u += 2 * h) m[u] = min(m[u], m[u + h]);
+  }
+  return m[0];
+}
+
+// The ring slot of label `start` + lane, or of `start` past L.
+__device__ int slot_of(int start, int qs, int L) {
+  const int lane = threadIdx.x & 31;
+  const int q = qs + lane;
+  return start + lane >= L ? qs : q < kRing ? q : q - kRing;
+}
+
+// One window of warp 0 from label `start` of the insertion order (ring
+// slot qs), its lanes' labels in x: commits the labels before the first
+// dirty lane (and, when they are few, walks the rest), reads the next
+// window's labels into x and returns the count committed (>= 1). Adds the
+// window and the walk's steps to `rounds`.
+template <int KG>
+__device__ int window(int start, int qs, int L, int K, long long g,
+                      float* loads, unsigned char* claim, const int* cand,
+                      const int* lbl, const float* wt, Label<KG>& x,
+                      int walk_below, int walk_max_k,
+                      int* __restrict__ assign, int& rounds) {
+  const int lane = threadIdx.x & 31;
+  const bool live = start + lane < L;
+  const float wl = x.wl;
+  float best;
+  int choice;
+  first_min(loads, x.b, best, choice);
+  for (int j0 = KG; j0 < K; j0 += KG) {
+    int b[KG];
+    read_group(cand, K, x.q, j0, b);
+    float v;
+    int c;
+    first_min(loads, b, v, c);
+    if (v < best) {
+      best = v;
+      choice = c;
+    }
+  }
+  // claim[b]: the lowest live lane that chose bucket b. A plain store per
+  // lane settles it unless two lanes chose one bucket (a lane reads back
+  // another's claim on its own choice); then the lowest lane of each such
+  // group (__match_any_sync, slow on distinct values) writes again. A lane
+  // is dirty when an earlier lane claimed one of its candidates.
+  if (live) claim[choice] = static_cast<unsigned char>(lane);
+  __syncwarp();
+  int least = least_claim(claim, cand, x, K);
+  if (__any_sync(0xffffffffu, live && claim[choice] != lane)) {
+    const unsigned peers = __match_any_sync(0xffffffffu, live ? choice : -1);
+    if (live && __ffs(peers) - 1 == lane) {
+      claim[choice] = static_cast<unsigned char>(lane);
+    }
+    __syncwarp();
+    least = least_claim(claim, cand, x, K);
+  }
+  const unsigned dirty_lanes = __ballot_sync(0xffffffffu,
+                                             live && least < lane);
+  const int n = min(kWindow, L - start);
+  const int first = dirty_lanes ? __ffs(dirty_lanes) - 1 : n;
+  // a short clean prefix: place the rest of the window in registers
+  // rather than starting the next window a few labels on
+  const bool walked = first < walk_below && first < n && K <= walk_max_k;
+  const int take = walked ? n : first;
+  const int claimed = choice;
+  // the next window's labels (staged: at most 63 past this chunk's end)
+  Label<KG> next;
+  int qn = qs + take;
+  qn -= qn < kRing ? 0 : kRing;
+  next.read(cand, lbl, wt, K, slot_of(start + take, qn, L));
+  if (lane < first) {
+    // no earlier lane of the window chose this bucket: its load is still
+    // the one read
+    loads[choice] = best + wl;
+    assign[g * L + x.l] = choice;
+  }
+  ++rounds;
+  if (walked) {
+    __syncwarp();
+    float after;
+    bool last;
+    walk(first, n, loads, x.b, wl, choice, after, last);
+    rounds += n - first;
+    if (lane >= first && lane < n) {
+      if (last) loads[choice] = after;   // one writer a bucket
+      assign[g * L + x.l] = choice;
+    }
+  }
+  if (live) claim[claimed] = kFree;   // every read of claim fed a vote
+  x = next;
+  __syncwarp();
+  return take;
+}
+
+template <int KG>
 __global__ void __launch_bounds__(kThreads)
     kchoice_kernel(const int* __restrict__ topk, const int* __restrict__ order,
                    const float* __restrict__ load0, long long load0_stride,
                    const float* __restrict__ w, int L, int K, int B,
-                   int* __restrict__ assign) {
+                   int walk_below, int walk_max_k,
+                   int* __restrict__ assign, int* __restrict__ rounds_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* loads = reinterpret_cast<float*>(smem);                 // [B]
-  int* cand = reinterpret_cast<int*>(loads + B);                 // [2][chunk·K]
-  int* lbl = cand + 2 * kChunk * K;                              // [2][chunk]
+  int* cand = reinterpret_cast<int*>(loads + B);                 // [K][ring]
+  int* lbl = cand + K * kRing;                                   // [ring]
+  float* wt = reinterpret_cast<float*>(lbl + kRing);             // [ring]
+  unsigned char* claim = reinterpret_cast<unsigned char*>(wt + kRing);  // [B]
   const long long g = blockIdx.x;
-  for (int i = threadIdx.x; i < B; i += blockDim.x) {
-    loads[i] = load0 ? load0[g * load0_stride + i] : 0.0f;
-  }
-  stage_chunk(topk, order, g, L, K, 0, cand, lbl, 0, blockDim.x);
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_chunks = (L + kChunk - 1) / kChunk;
-  for (int c = 0; c < n_chunks; ++c) {
-    const int cur = c & 1;
-    const int* cc = cand + cur * kChunk * K;
-    const int* cl = lbl + cur * kChunk;
-    if (warp == 0) {
-      const int n = min(kChunk, L - c * kChunk);
-      for (int s = 0; s < n; ++s) {
-        const int* row = cc + s * K;
-        float best = INFINITY;
-        int bj = 0x7fffffff;
-        for (int j = lane; j < K; j += 32) {   // ascending: strict < keeps
-          const float v = loads[row[j]];       // the first of equal loads
-          if (v < best) {
-            best = v;
-            bj = j;
-          }
-        }
+  const float* row0 = load0 ? load0 + g * load0_stride : nullptr;
+  for (int i0 = threadIdx.x; i0 < B; i0 += 8 * kThreads) {
+    float v[8];   // eight reads in flight a thread
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-          const float ov = __shfl_xor_sync(0xffffffffu, best, o);
-          const int oj = __shfl_xor_sync(0xffffffffu, bj, o);
-          if (ov < best || (ov == best && oj < bj)) {
-            best = ov;
-            bj = oj;
-          }
-        }
-        if (lane == 0) {
-          const int b = row[bj];
-          const int l = cl[s];
-          loads[b] += w ? w[l] : 1.0f;
-          assign[g * L + l] = b;
-        }
-        __syncwarp();
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * kThreads;
+      v[u] = row0 && i < B ? row0[i] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i < B) {
+        loads[i] = v[u];
+        claim[i] = kFree;
       }
-    } else if (c + 1 < n_chunks) {
-      stage_chunk(topk, order, g, L, K, c + 1,
-                  cand + (cur ^ 1) * kChunk * K, lbl + (cur ^ 1) * kChunk, 32,
-                  blockDim.x - 32);
+    }
+  }
+  const int warp = threadIdx.x >> 5, t = threadIdx.x - kWindow;
+  if (warp > 0) {
+    stage(topk, order, w, g, L, K, 0, t, cand, lbl, wt);
+    stage(topk, order, w, g, L, K, 1, t, cand, lbl, wt);
+  }
+  __syncthreads();
+  const int n_chunks = (L + kChunk - 1) / kChunk;
+  int start = 0, qs = 0, rounds = 0;
+  Label<KG> x;
+  if (warp == 0) x.read(cand, lbl, wt, K, slot_of(0, 0, L));
+  for (int c = 0; c < n_chunks; ++c) {
+    if (warp == 0) {
+      // windows that start in chunk c read at most 31 labels into chunk
+      // c + 1, and read the next window's ahead at most 63 into it: both
+      // are staged
+      const int end = min(L, (c + 1) * kChunk);
+      while (start < end) {
+        const int take = window(start, qs, L, K, g, loads, claim, cand, lbl,
+                                wt, x, walk_below, walk_max_k, assign,
+                                rounds);
+        start += take;
+        qs += take;
+        qs -= qs < kRing ? 0 : kRing;
+      }
+    } else if (c + 2 < n_chunks) {
+      stage(topk, order, w, g, L, K, c + 2, t, cand, lbl, wt);
     }
     __syncthreads();
   }
+  if (rounds_out && threadIdx.x == 0) rounds_out[g] = rounds;
 }
 
-// The latencies (SM clocks) of the step's dependent operations, each timed
-// with clock64 over a chain of n on one warp: out[0] a shared-memory
-// read-add-write whose read waits for the last write, out[1] one level of a
-// shuffle-and-min reduction. Volatile stores close each chain before the
-// clock is read.
-__global__ void latency_kernel(int n, long long* out) {
-  __shared__ float acc[32];
-  __shared__ float sink[32];
-  volatile float* va = acc;
-  volatile float* vs = sink;
+// The latency (SM clocks) of one link of a dependence chain at its
+// cheapest: the new load is the least of two loads plus a weight (a min,
+// then an add), each link's input the last one's output, in registers;
+// timed with clock64 over a chain of n on one warp. `other` and `wl` come
+// from the caller, so nothing folds; a volatile store of the chain's end
+// closes it before the clock is read.
+__global__ void link_kernel(int n, float other, float wl, long long* out) {
+  __shared__ float end[32];
+  volatile float* ve = end;
   const int lane = threadIdx.x;
-  va[lane] = 0.0f;
-  __syncwarp();
+  float x = static_cast<float>(lane);
   const long long t0 = clock64();
 #pragma unroll 8
-  for (int i = 0; i < n; ++i) va[lane] = va[lane] + 1.0f;
+  for (int i = 0; i < n; ++i) x = fminf(x, other) + wl;
+  ve[lane] = x;
   const long long t1 = clock64();
-  float v = va[lane];
-  const long long t2 = clock64();
-#pragma unroll 8
-  for (int i = 0; i < n; ++i) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  vs[lane] = v;
-  const long long t3 = clock64();
-  if (lane == 0) {
-    out[0] = t1 - t0;
-    out[1] = t3 - t2;
-  }
+  if (lane == 0) out[0] = t1 - t0;
 }
 
 }  // namespace
 
-// SM clocks a step of the walk chains at the least: rmw and level (one
-// each), measured over n-long chains on the card. Returns cudaError_t.
-extern "C" int kchoice_step_cycles(int n, double* rmw, double* level) {
+// SM clocks of the cheapest link of a dependence chain (a min and an add
+// in registers), measured over an n-long chain on the card. Returns
+// cudaError_t.
+extern "C" int kchoice_step_cycles(int n, double* link) {
   long long* d = nullptr;
-  long long h[2] = {0, 0};
+  long long h = 0;
   cudaError_t err = cudaMalloc(&d, sizeof(h));
   if (err != cudaSuccess) return static_cast<int>(err);
-  latency_kernel<<<1, 32>>>(n, d);
+  link_kernel<<<1, 32>>>(n, 1e30f, 1.0f, d);
   err = cudaGetLastError();
   if (err == cudaSuccess) {
-    err = cudaMemcpy(h, d, sizeof(h), cudaMemcpyDeviceToHost);
+    err = cudaMemcpy(&h, d, sizeof(h), cudaMemcpyDeviceToHost);
   }
   cudaFree(d);
-  *rmw = static_cast<double>(h[0]) / n;
-  *level = static_cast<double>(h[1]) / n;
+  *link = static_cast<double>(h) / n;
   return static_cast<int>(err);
 }
 
-// Shared memory the kernel needs at (B, K).
+// Shared memory the kernel needs at (B, K): the [B] loads, the ring's
+// candidates, ids and weights, the [B] claim bytes.
 extern "C" long long kchoice_smem_bytes(int B, int K) {
-  return (static_cast<long long>(B) + 2LL * kChunk * (K + 1)) * 4;
+  return 5LL * B + static_cast<long long>(kRing) * (K + 2) * 4;
 }
+
+namespace {
+
+// One launch of the kernel that holds KG candidates a lane.
+template <int KG>
+int launch(const int* topk, const int* order, const float* load0,
+           long long load0_stride, const float* w, int G, int L, int K, int B,
+           int walk_below, int walk_max_k, int* assign, int* rounds,
+           void* stream) {
+  const long long smem = kchoice_smem_bytes(B, K);
+  cudaError_t err = cudaFuncSetAttribute(
+      kchoice_kernel<KG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kchoice_kernel<KG>
+      <<<G, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          topk, order, load0, load0_stride, w, L, K, B, walk_below,
+          walk_max_k, assign, rounds);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launch whose KG is K, for K <= kMaxKG; KG = kMaxKG above.
+template <int KG>
+int dispatch(const int* topk, const int* order, const float* load0,
+             long long load0_stride, const float* w, int G, int L, int K,
+             int B, int walk_below, int walk_max_k, int* assign, int* rounds,
+             void* stream) {
+  if constexpr (KG > 1) {
+    if (K < KG) {
+      return dispatch<KG - 1>(topk, order, load0, load0_stride, w, G, L, K,
+                              B, walk_below, walk_max_k, assign, rounds,
+                              stream);
+    }
+  }
+  return launch<KG>(topk, order, load0, load0_stride, w, G, L, K, B,
+                    walk_below, walk_max_k, assign, rounds, stream);
+}
+
+}  // namespace
 
 // topk [G, L, K] int32 bucket ids (each < B); order [G, L] int32, a
 // permutation of 0..L-1 per rep; load0 [G, B] f32 (load0_stride B), one [B]
 // row for every rep (stride 0) or NULL (zeros); w [L] f32 or NULL (ones).
-// assign [G, L] int32. Returns cudaGetLastError() after the launch.
+// A window whose clean prefix is shorter than walk_below (0..32) is walked
+// in registers when K <= walk_max_k (at most kMaxKG). assign [G, L] int32;
+// rounds [G] int32 or NULL: each rep's sequential rounds, its windows and
+// the walks' steps. Returns cudaGetLastError() after the launch.
 extern "C" int kchoice_launch(const int* topk, const int* order,
                               const float* load0, long long load0_stride,
                               const float* w, int G, int L, int K, int B,
-                              int* assign, void* stream) {
-  if (G < 1 || L < 1 || K < 1 || B < 1) {
+                              int walk_below, int walk_max_k, int* assign,
+                              int* rounds, void* stream) {
+  if (G < 1 || L < 1 || K < 1 || B < 1 || walk_below < 0 ||
+      walk_below > kWindow || walk_max_k > kMaxKG) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long smem = kchoice_smem_bytes(B, K);
-  cudaError_t err = cudaFuncSetAttribute(
-      kchoice_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kchoice_kernel<<<G, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      topk, order, load0, load0_stride, w, L, K, B, assign);
-  return static_cast<int>(cudaGetLastError());
+  // a lane holds all its K candidates (at most kMaxKG; more are read from
+  // the ring kMaxKG at a time)
+  return dispatch<kMaxKG>(topk, order, load0, load0_stride, w, G, L, K, B,
+                          walk_below, walk_max_k, assign, rounds, stream);
 }

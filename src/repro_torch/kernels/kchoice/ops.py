@@ -11,6 +11,7 @@ import functools
 import torch
 
 from repro_torch.kernels import LAUNCHES, check_launch, on_card
+from repro_torch.kernels.kchoice import ref
 from repro_torch.kernels.kchoice.ref import kchoice_ref
 
 #: dynamic shared memory one block may use on the H100 (sm_90)
@@ -18,9 +19,10 @@ SMEM_BYTES = 227 * 1024
 
 
 def smem_bytes(B: int, K: int) -> int:
-    """The kernel's shared memory: the [B] loads and two staged chunks of
-    256 labels' K candidates and ids (kchoice.cu)."""
-    return (B + 2 * 256 * (K + 1)) * 4
+    """The kernel's shared memory: the [B] float32 loads, the [B] one-byte
+    claim table and a ring of three staged chunks of 256 labels' K
+    candidates, ids and weights (kchoice.cu)."""
+    return 5 * B + 3 * 256 * (K + 2) * 4
 
 
 @functools.cache
@@ -30,19 +32,26 @@ def _launcher():
     fn = _build.load("kchoice").kchoice_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def kchoice(topk_idx, order, load0=None, weights=None, *, B: int):
+def kchoice(topk_idx, order, load0=None, weights=None, *, B: int,
+            rounds=None):
     """Launch the CUDA kernel: topk_idx [G, L, K] int32 bucket ids < B,
     order [G, L] int32 (a permutation per rep), load0 [G, B] or [B] f32 or
     None, weights [L] f32 or None, all on the card -> assign [G, L] int32.
-    Raises where the [B] loads and the staged chunks pass one block's
-    shared memory (B <= ~55,000 at K = 10)."""
-    if not on_card(topk_idx, order, load0, weights):
+    ``rounds``, a [G] int32 tensor on the card or None, receives each
+    rep's sequential rounds: its 32-label windows and its in-register
+    steps, one a label walked (a diagnostic, compared with
+    ref.kchoice_windows). The walk's policy, ref.WALK_BELOW and
+    ref.WALK_MAX_K, goes to the kernel with each launch. Raises where the
+    [B] loads, the claim table and the staged ring pass one block's shared
+    memory (B <= ~39,000 at K = 10)."""
+    if not on_card(topk_idx, order, load0, weights, rounds):
         raise ValueError("kchoice launches on CUDA tensors only")
     if topk_idx.ndim != 3 or topk_idx.dtype != torch.int32:
         raise ValueError(f"kchoice: topk_idx must be [G, L, K] int32, got "
@@ -68,6 +77,10 @@ def kchoice(topk_idx, order, load0=None, weights=None, *, B: int):
         raise ValueError(f"kchoice: B={B}, K={K} need {smem_bytes(B, K)} B "
                          f"of shared memory, over the {SMEM_BYTES} B one "
                          f"block may use")
+    if rounds is not None and (rounds.dtype != torch.int32
+                               or tuple(rounds.shape) != (G,)):
+        raise ValueError(f"kchoice: rounds must be int32 [{G}], got "
+                         f"{rounds.dtype} {tuple(rounds.shape)}")
     if G > 2 ** 31 - 1:
         raise ValueError(f"kchoice: {G} reps exceed the grid")
     dev = topk_idx.device
@@ -83,7 +96,8 @@ def kchoice(topk_idx, order, load0=None, weights=None, *, B: int):
             topk_idx.data_ptr(), order.data_ptr(),
             None if load0 is None else load0.data_ptr(), stride,
             None if weights is None else weights.data_ptr(), G, L, K, B,
-            out.data_ptr(), stream)
+            ref.WALK_BELOW, ref.WALK_MAX_K, out.data_ptr(),
+            None if rounds is None else rounds.data_ptr(), stream)
     check_launch("kchoice", err)
     LAUNCHES["kchoice"] += 1
     return out
@@ -101,19 +115,16 @@ def kchoice_assign(topk_idx, order, load0=None, weights=None, *, B: int):
                    B=B)
 
 
-def step_cycles(device, n: int = 4096) -> tuple[float, float]:
-    """The SM clocks of the two dependent operations a step of the walk
-    chains, measured on the card over n-long chains: (a shared-memory
-    read-add-write whose read waits for the last write, one level of a
-    shuffle-and-min reduction). For the kernel's latency bound
-    (kchoice.cu); counts no launch."""
+def step_cycles(device, n: int = 4096) -> float:
+    """The SM clocks of the cheapest link of a dependence chain, a min of
+    two loads and an add in registers, each link waiting on the last,
+    measured on the card over an n-long chain. For the kernel's latency
+    bound (kchoice.cu); counts no launch."""
     from repro_torch.kernels import _build
     fn = _build.load("kchoice").kchoice_step_cycles
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_double),
-                   ctypes.POINTER(ctypes.c_double)]
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_double)]
     fn.restype = ctypes.c_int
-    rmw, level = ctypes.c_double(), ctypes.c_double()
+    link = ctypes.c_double()
     with torch.cuda.device(device):
-        check_launch("kchoice_step_cycles", fn(n, ctypes.byref(rmw),
-                                               ctypes.byref(level)))
-    return rmw.value, level.value
+        check_launch("kchoice_step_cycles", fn(n, ctypes.byref(link)))
+    return link.value

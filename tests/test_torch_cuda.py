@@ -24,6 +24,7 @@ from repro_torch.kernels.quant_rerank import ops as qops  # noqa: E402
 from repro_torch.kernels.quant_rerank.ref import (  # noqa: E402
     quant_rerank_ref, same_topk)
 from repro_torch.store.quantized import encode  # noqa: E402
+from torch_kchoice_cases import candidate_lists  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -261,21 +262,44 @@ def test_sigmoid_bce_autograd_on_the_card(card):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("G,L,K,B,weighted", [
-    (3, 5000, 10, 700, False), (2, 3000, 40, 129, True),
-    (1, 16384, 10, 20000, False)])
+def _kchoice_inputs(kind, G, L, K, B, weighted, seed):
+    """numpy inputs of one kchoice case: candidates [G, L, K] of the kind
+    (candidate_lists: "uniform", "same", "zipf"), orders [G, L], load0
+    [G, B] (near 2^23: the tie rule; "negzero": -0.0 and +0.0 mixed),
+    weights [L] or None ("zero_weights": a quarter are 0, as the insert's
+    padding rows)."""
+    rng = np.random.default_rng(seed)
+    topk = candidate_lists(rng, kind, G, L, K, B)
+    order = np.stack([rng.permutation(L) for _ in range(G)])
+    if kind == "negzero":
+        load0 = np.where(rng.random((G, B)) < 0.5, -0.0, 0.0)
+    else:
+        load0 = rng.integers(0, 3, (G, B)) + 2.0 ** 23
+    w = rng.random(L) if weighted else None
+    if kind == "zero_weights":
+        w = np.where(rng.random(L) < 0.25, 0.0, 1.0)
+    return (topk, order.astype(np.int32), load0.astype(np.float32),
+            None if w is None else w.astype(np.float32))
+
+
+@pytest.mark.parametrize("G,L,K,B,weighted,kind", [
+    (3, 5000, 10, 700, False, "uniform"), (2, 3000, 40, 129, True, "uniform"),
+    (1, 16384, 10, 20000, False, "uniform"),
+    (2, 4096, 10, 20000, False, "same"), (2, 5000, 10, 2000, True, "zipf"),
+    (2, 777, 1, 50, False, "uniform"), (2, 1000, 32, 300, True, "uniform"),
+    (2, 1000, 10, 64, False, "negzero"),
+    (2, 4100, 10, 20000, False, "zero_weights")])
 def test_kchoice_kernel_matches_plain_bit_for_bit(card, G, L, K, B,
-                                                  weighted):
+                                                  weighted, kind):
     """One launch for all reps, bit-identical to the plain loop: the same
-    float32 adds in the same order; large load0 exercises the tie rule."""
+    float32 adds in the same order; large load0 exercises the tie rule.
+    A second launch gives the same, and its count of rounds (windows and
+    in-register steps) is the plain schedule's (ref.kchoice_windows): L
+    when every label of a rep shares one K-list."""
     from repro_torch.kernels.kchoice import ops as kops
-    from repro_torch.kernels.kchoice.ref import kchoice_ref
-    rng = np.random.default_rng(L + K)
-    topk = np.stack([[rng.choice(B, K, replace=False) for _ in range(L)]
-                     for _ in range(G)]).astype(np.int32)
-    order = np.stack([rng.permutation(L) for _ in range(G)]).astype(np.int32)
-    load0 = (rng.integers(0, 3, (G, B)) + 2.0 ** 23).astype(np.float32)
-    w = rng.random(L).astype(np.float32) if weighted else None
+    from repro_torch.kernels.kchoice.ref import kchoice_ref, kchoice_windows
+    topk, order, load0, w = _kchoice_inputs(kind, G, L, K, B, weighted,
+                                            L + K)
     t = lambda a: None if a is None else torch.from_numpy(a).to(card)
     reset_launches()
     got = kops.kchoice_assign(t(topk), t(order), t(load0), t(w), B=B)
@@ -283,16 +307,68 @@ def test_kchoice_kernel_matches_plain_bit_for_bit(card, G, L, K, B,
     assert LAUNCHES["kchoice"] == 1
     want = kchoice_ref(t(topk), t(order), t(load0), t(w), B=B)
     assert torch.equal(got, want)
+    rounds = torch.zeros(G, dtype=torch.int32, device=card)
+    again = kops.kchoice(t(topk), t(order), t(load0), t(w), B=B,
+                         rounds=rounds)
+    plain, plain_rounds = kchoice_windows(t(topk), t(order), t(load0),
+                                          t(w), B=B)
+    assert torch.equal(again, got) and torch.equal(plain, want)
+    assert rounds.tolist() == plain_rounds.tolist()
+    if kind == "same":
+        assert rounds.tolist() == [L] * G
+
+
+@pytest.mark.parametrize("walk_below", [0, 32])
+@pytest.mark.parametrize("kind", ["uniform", "zipf"])
+def test_kchoice_kernel_follows_the_walk_policy(card, monkeypatch, kind,
+                                                walk_below):
+    """The walk's policy has one owner, ref.WALK_BELOW, which each launch
+    passes to the kernel: at 0 (never walk: windows only) and at 32 (walk
+    every window past its first dirty lane) the kernel stays bit-equal to
+    the plain loop and its rounds are the plain schedule's under the same
+    policy."""
+    from repro_torch.kernels.kchoice import ops as kops
+    from repro_torch.kernels.kchoice import ref as kref
+    monkeypatch.setattr(kref, "WALK_BELOW", walk_below)
+    G, L, K, B = 2, 5000, 10, 2000
+    topk, order, load0, w = _kchoice_inputs(kind, G, L, K, B, True, 7)
+    t = lambda a: torch.from_numpy(a).to(card)
+    rounds = torch.zeros(G, dtype=torch.int32, device=card)
+    got = kops.kchoice(t(topk), t(order), t(load0), t(w), B=B, rounds=rounds)
+    plain, plain_rounds = kref.kchoice_windows(t(topk), t(order), t(load0),
+                                               t(w), B=B)
+    assert torch.equal(got, kref.kchoice_ref(t(topk), t(order), t(load0),
+                                             t(w), B=B))
+    assert torch.equal(plain, got)
+    assert rounds.tolist() == plain_rounds.tolist()
+
+
+def test_kchoice_c_entry_refuses_a_walk_policy_it_cannot_hold(card):
+    """A window has 32 lanes and a lane holds at most 16 candidates: the C
+    entry refuses walk_below past 32 and walk_max_k past 16, and launches
+    nothing."""
+    from repro_torch.kernels.kchoice import ops as kops
+    topk = torch.zeros((1, 64, 4), dtype=torch.int32, device=card)
+    order = torch.arange(64, dtype=torch.int32, device=card)[None]
+    out = torch.full((1, 64), -1, dtype=torch.int32, device=card)
+    for below, max_k in ((33, 16), (8, 17), (-1, 16)):
+        err = kops._launcher()(topk.data_ptr(), order.data_ptr(), None, 0,
+                               None, 1, 64, 4, 8, below, max_k,
+                               out.data_ptr(), None,
+                               torch.cuda.current_stream(card).cuda_stream)
+        assert err != 0, (below, max_k)
+    torch.cuda.synchronize(card)
+    assert out.eq(-1).all()
 
 
 def test_kchoice_step_cycles_are_latencies(card):
-    """The latencies behind kchoice's bound: a shared-memory
-    read-add-write and one shuffle-and-min level, each a few to a few
-    hundred SM clocks; launching the probe counts no kchoice launch."""
+    """The latency behind kchoice's bound: the cheapest link of a
+    dependence chain, a min and an add in registers, a few to a few hundred
+    SM clocks; launching the probe counts no kchoice launch."""
     from repro_torch.kernels.kchoice import ops as kops
     reset_launches()
-    rmw, level = kops.step_cycles(card)
-    assert 4 <= rmw <= 500 and 4 <= level <= 500, (rmw, level)
+    link = kops.step_cycles(card)
+    assert 4 <= link <= 500, link
     assert LAUNCHES["kchoice"] == 0
 
 

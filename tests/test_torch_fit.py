@@ -39,7 +39,10 @@ from repro_torch.fit import affinity as TA  # noqa: E402
 from repro_torch.fit.engine import FitData, FitEngine  # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
 from repro_torch.kernels.irli_topk.ref import near  # noqa: E402
+from repro_torch.kernels.kchoice.ref import (  # noqa: E402
+    dependence_depth, kchoice_ref, kchoice_windows)
 from repro_torch.optim import optimizers as TO  # noqa: E402
+from torch_kchoice_cases import candidate_lists  # noqa: E402
 
 KEYS = ("b1", "b2", "w1", "w2")
 
@@ -195,6 +198,61 @@ def test_kchoice_tiebreak_survives_large_loads():
                        np.float32)
     assert int(TR.kchoice_exact(torch.tensor([[0, 1]], dtype=torch.int32), 2,
                                 load0=torch.from_numpy(load0))[0]) == 1
+
+
+def _kchoice_case(kind, G, L, K, B, seed):
+    """numpy inputs of one kchoice case (candidates [G, L, K], load0 [G, B]
+    or None, weights [L] or None): candidates of the kind (candidate_lists:
+    "uniform", "same", "zipf"; uniform for the rest); "big" loads at 2^23
+    (the tie rule); "negzero" -0.0 and +0.0 in load0; "zero_weights" a
+    quarter of the weights 0 (the insert's padding rows); "weighted"
+    fractional weights."""
+    rng = np.random.default_rng(seed)
+    topk = candidate_lists(rng, kind, G, L, K, B)
+    load0 = w = None
+    if kind == "big":
+        load0 = rng.integers(0, 3, (G, B)) + 2.0 ** 23
+    elif kind == "negzero":
+        load0 = np.where(rng.random((G, B)) < 0.5, -0.0, 0.0)
+    if kind == "zero_weights":
+        w = np.where(rng.random(L) < 0.25, 0.0, 1.0)
+    elif kind == "weighted":
+        w = rng.random(L)
+    return (topk, None if load0 is None else load0.astype(np.float32),
+            None if w is None else w.astype(np.float32))
+
+
+@pytest.mark.parametrize("kind,G,L,K,B", [
+    ("uniform", 2, 700, 10, 200), ("same", 2, 300, 10, 200),
+    ("zipf", 2, 700, 10, 200), ("big", 2, 500, 4, 16),
+    ("negzero", 2, 200, 4, 64), ("zero_weights", 2, 600, 10, 100),
+    ("weighted", 2, 333, 1, 50), ("uniform", 1, 400, 32, 64),
+    ("weighted", 1, 400, 40, 129)])
+def test_kchoice_windows_is_bit_identical(kind, G, L, K, B):
+    """The kernel's schedule, written plainly (ref.kchoice_windows), places
+    every label as the plain loop and the reference's kchoice_exact do,
+    given JAX's orders; it takes at least ceil(L / 32) rounds (windows and
+    in-register steps), never fewer than the dependence depth (two
+    dependent labels never share one), and exactly L when every label
+    shares one K-list."""
+    topk, load0, w = _kchoice_case(kind, G, L, K, B, seed=L + K)
+    order = np.stack([_jax_order(20 + g, L) for g in range(G)])
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    got, rounds = kchoice_windows(t(topk), t(order), t(load0), t(w), B=B)
+    np.testing.assert_array_equal(
+        got.numpy(), kchoice_ref(t(topk), t(order), t(load0), t(w),
+                                 B=B).numpy())
+    for g in range(G):
+        ref = JR.kchoice_exact(
+            jnp.asarray(topk[g]), B, jax.random.PRNGKey(20 + g),
+            None if load0 is None else jnp.asarray(load0[g]),
+            None if w is None else jnp.asarray(w))
+        np.testing.assert_array_equal(got[g].numpy(), np.asarray(ref))
+    depth = dependence_depth(t(topk), t(order), got, B=B)
+    assert all(n >= -(-L // 32) for n in rounds.tolist())
+    assert all(1 <= d <= n for d, n in zip(depth.tolist(), rounds.tolist()))
+    if kind == "same":
+        assert rounds.tolist() == depth.tolist() == [L] * G
 
 
 @pytest.mark.parametrize("slack", [1.05, 1.3, 2.0])

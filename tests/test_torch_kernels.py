@@ -25,7 +25,8 @@ from repro_torch.kernels.bce_logits import ops as bops  # noqa: E402
 from repro_torch.kernels.bce_logits.ref import (  # noqa: E402
     bce_logits_ref, weighted_bce_ref)
 from repro_torch.kernels.kchoice import ops as kops  # noqa: E402
-from repro_torch.kernels.kchoice.ref import kchoice_ref  # noqa: E402
+from repro_torch.kernels.kchoice.ref import (  # noqa: E402
+    dependence_depth, kchoice_ref, kchoice_windows)
 from repro_torch.kernels.freq_topc import ops as fops  # noqa: E402
 from repro_torch.kernels.freq_topc.ref import freq_topc_ref  # noqa: E402
 from repro_torch.kernels.irli_topk import ops as iops  # noqa: E402
@@ -391,6 +392,33 @@ def test_kchoice_dispatch_on_cpu_takes_the_plain_version():
         kops.kchoice(topk, order, B=B)
     assert kops.smem_bytes(20000, 10) <= kops.SMEM_BYTES
     assert kops.smem_bytes(60000, 10) > kops.SMEM_BYTES
+
+
+@pytest.mark.parametrize("case", ["disjoint", "one_bucket", "one_list"])
+def test_dependence_depth_on_hand_made_cases(case):
+    """Disjoint candidates give every label depth 1 and the schedule one
+    round a window of 32; one bucket shared by every label (K = 1), or one
+    K-list shared by every label, chains all L, and the schedule then takes
+    L rounds (a window's first label, then one in-register step a label)."""
+    G, L, K = 2, 40, 3
+    if case == "disjoint":
+        topk = torch.arange(L * K, dtype=torch.int32).reshape(1, L, K)
+    elif case == "one_bucket":
+        topk = torch.zeros((1, L, 1), dtype=torch.int32)
+    else:
+        topk = torch.tensor([5, 2, 7], dtype=torch.int32).expand(1, L, K)
+    topk = topk.expand(G, -1, -1).contiguous()
+    B = L * K
+    order = torch.stack([torch.randperm(L, generator=torch.Generator()
+                                        .manual_seed(g)) for g in range(G)])
+    assign, rounds = kchoice_windows(topk, order, B=B)
+    assert torch.equal(assign, kchoice_ref(topk, order, B=B))
+    depth = dependence_depth(topk, order, assign, B=B)
+    if case == "disjoint":
+        assert depth.tolist() == [1] * G
+        assert rounds.tolist() == [-(-L // 32)] * G
+    else:
+        assert depth.tolist() == rounds.tolist() == [L] * G
 
 
 def test_irli_topk_plain_serves_any_m():
