@@ -28,9 +28,11 @@ widths, the LM prefill at gemma-7b's and DIEN's serve path at its own:
     oracle against the plain oracle, no deleted id may come back, and at
     least 99% of 1024 sampled live inserted vectors must return their own id
     at rank 0. distance_topk is also held against its plain version at
-    Q = 64 with l2, in a dense search over the fit cell's index (L =
-    131,072) and on one chunk of ``neighbours`` (k = 100). The checkpoint of
-    the 4 GB state is not written on the card (the CPU tests round-trip it);
+    Q = 64 with l2, at d = 768 (its query tile streamed), in a dense search
+    over the fit cell's index (L = 131,072) and on one chunk of
+    ``neighbours`` (k = 100), whose time is held to NEIGHBOURS_MS_MAX. The
+    checkpoint of the 4 GB state is not written on the card (the CPU tests
+    round-trip it);
   * the fit (Alg. 1) through ``IRLIIndex.fit``, ANN mode, sigmoid_bce: per
     train step one bce_logits launch, per affinity label chunk one
     irli_topk launch, per round one kchoice launch; its round 1 again with
@@ -91,7 +93,15 @@ rows through its wide variant, quant_rerank at topC = 20,000) against
 theirs. bce_logits' gradient is held in the units
 of σ(x) - y (each element divided by its row's scale·w), where TOL bounds
 a value of size up to 1. Then it times every stage and kernel with CUDA
-events.
+events. The three kernels on the fp32 tile GEMM (irli_topk.cuh: irli_topk,
+mega_query, distance_topk) each get a tile line: TFLOP/s of their GEMM
+operations and the share of the FMA peak, the card's own fp32 GEMM alone at
+the same shapes beside it (torch.bmm, torch.mm; no TF32), the ring's depth
+and slice depth, registers and spill bytes (0 spill bytes is a gate for
+irli_topk, both its variants, and distance_topk, dot and l2); mega_query's
+phases are timed apart by probe launches (the last phase run, and phase 2's
+GEMM walked without its selection), which give the share of phase 2 that
+its epilogue takes.
 
 Its last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel record (launches, error, times, bounds). Any failure raises
@@ -160,6 +170,10 @@ DELTA_LEN = 208                    # default_delta_len(2·L, L, B)
 # the fit cell
 FIT_L = 131_072
 FIT_K, K_NEIGH, FIT_BATCH, FIT_ROUNDS, FIT_CHUNK = 10, 100, 4096, 2, 65_536
+# a neighbours chunk (1024 queries, k = K_NEIGH, over FIT_L rows) may take no
+# longer than it did before the tile GEMM's redesign: 7.4278 ms on an H100
+# 80GB HBM3 at 700 W (PERF.md)
+NEIGHBOURS_MS_MAX = 7.4278
 SOFT_L, SOFT_BATCH = 16_384, 1024
 # the LM cell: [batch, prompt length] of each gemma-7b prefill
 LM_SHAPES = ((4, 2048), (1, 32768))
@@ -202,6 +216,31 @@ def bound(flops: float, nbytes: float):
     the fp32 peak and the bytes at the memory rate -> (ms, bound_by)."""
     return max((flops / FP32_FLOPS * 1e3, "operations"),
                (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+
+
+def tile_report(name, ms, flops, alone_ms, alone, attrs,
+                spill_gate=True) -> dict:
+    """The tile GEMM's account of one kernel (irli_topk.cuh's ring and
+    slices): the TFLOP/s of its GEMM operations and their share of the FMA
+    peak, the card's own fp32 GEMM alone at the same shapes (``alone``, no
+    TF32) beside it, the ring's depth and slice depth, registers and spill
+    bytes a thread (0 a gate, unless spill_gate is False: mega_query's
+    cooperative kernel, whose phase code shares 128 registers a thread,
+    spilled before the tile was redesigned). -> the kernels line's extra
+    keys."""
+    rate, alone_rate = flops / ms / 1e9, flops / alone_ms / 1e9
+    log(f"{name} tile: {flops / 1e12:.4f} TFLOP of GEMM in {ms:.4f} ms = "
+        f"{rate:.1f} TFLOP/s, {100 * rate / (FP32_FLOPS / 1e12):.1f}% of the "
+        f"{FP32_FLOPS / 1e12:.0f} TFLOP/s FMA peak; the fp32 GEMM alone "
+        f"({alone}) {alone_ms:.4f} ms = {alone_rate:.1f} TFLOP/s, "
+        f"{100 * alone_rate / (FP32_FLOPS / 1e12):.1f}%; ring "
+        f"{attrs['stages']} stages of {attrs['slice_depth']}-deep slices; "
+        f"{attrs['registers']} registers, {attrs['spill_bytes']} spill bytes "
+        f"a thread")
+    if spill_gate and attrs["spill_bytes"] != 0:
+        raise AssertionError(f"{name} spills registers: {attrs}")
+    return {"tflops": rate, "fma_share": rate / (FP32_FLOPS / 1e12),
+            "gemm_alone_ms": alone_ms, "spill_bytes": attrs["spill_bytes"]}
 
 
 def bce_grad_err(gk, gp, wt, scale, rows=8192) -> float:
@@ -586,7 +625,11 @@ def fit_cell(torch, dev, check_irli) -> dict:
     nb_ms = time_ms(torch, lambda: neighbours(torch, dev, base, q1, K_NEIGH),
                     n=3, warmup=1)
     log(f"neighbours (exact_topk, k={K_NEIGH}) of one chunk of 1024 "
-        f"training queries over {FIT_L} rows: {nb_ms:.4f} ms")
+        f"training queries over {FIT_L} rows: {nb_ms:.4f} ms (at most "
+        f"{NEIGHBOURS_MS_MAX})")
+    if nb_ms > NEIGHBOURS_MS_MAX:
+        raise AssertionError(f"a neighbours chunk took {nb_ms:.4f} ms, more "
+                             f"than {NEIGHBOURS_MS_MAX}")
     del vals, ids
 
     # ---- one train step: bce_logits against the plain loss, and fp64 ----
@@ -1491,6 +1534,16 @@ def stream_cell(torch, dev, idx, corpus, queries, plain_search, agree):
                                 metric="l2")
     derr = max(derr, dist_check(torch, f"l2 at Q={Q_SMALL}", v2, i2, qs,
                                 vecs, live, K, "l2"))
+    # rows too wide for a resident query tile (d > 288): its slices come
+    # through the ring beside the corpus's; unit rows, as the corpus's
+    unit = lambda *shape: torch.nn.functional.normalize(
+        torch.randn(shape, generator=gen, device=dev), dim=1)
+    wq, wb = unit(Q_SMALL, 768), unit(50_000, 768)
+    every = torch.ones((1, 50_000), dtype=torch.bool, device=dev)
+    v3, i3 = dops.distance_topk(wq, wb, every.expand(Q_SMALL, -1), k=K)
+    derr = max(derr, dist_check(torch, "at d=768 (query tile streamed)", v3,
+                                i3, wq, wb, every, K))
+    del wq, wb, v3, i3
     alive = new_ids.to(dev)[~s.tombstone[new_ids.to(dev).long()]]
     sel = alive[torch.randperm(len(alive), generator=gen,
                                device=dev)[:Q]].long()
@@ -1518,6 +1571,8 @@ def stream_cell(torch, dev, idx, corpus, queries, plain_search, agree):
         return torch.topk(sim, K, dim=1)
 
     dist_lib = time_ms(torch, library, n=3, warmup=1)
+    dist_alone = time_ms(torch, lambda: torch.mm(queries, vecs.T), n=5,
+                         warmup=1)
     dist_bound = bound(2 * Q * n * D,
                        n * D * 4 + Q * D * 4 + n + Q * K * 8)
     log(f"stream stages: insert batch of {INSERT_BATCH} median "
@@ -1533,10 +1588,27 @@ def stream_cell(torch, dev, idx, corpus, queries, plain_search, agree):
         f"{dist_ms:.4f} ms ({2 * Q * n * D / dist_ms / 1e9:.1f} TFLOP/s), "
         f"plain {dist_plain:.4f} ms, library (torch.matmul + masked_fill_ "
         f"+ torch.topk) {dist_lib:.4f} ms")
+    attrs = dops.kernel_attrs(D, K)
+    log(f"distance_topk footprint at d={D}, k={K}: {attrs['smem_bytes']} B "
+        f"of shared memory a block (lists in shared memory: "
+        f"{bool(attrs['lists_in_smem'])}), {attrs['blocks_per_sm']} blocks "
+        f"an SM, {dops.splits(Q, n, K, dev, D)} splits; the l2 kernel "
+        f"{attrs['l2_registers']} registers, {attrs['l2_spill_bytes']} "
+        f"spill bytes a thread; with the query tile streamed (d > 288) the "
+        f"dot and l2 kernels {attrs['stream_registers']} and "
+        f"{attrs['stream_l2_registers']} registers, "
+        f"{attrs['stream_spill_bytes']} and "
+        f"{attrs['stream_l2_spill_bytes']} spill bytes")
+    if any(attrs[f"{v}spill_bytes"] != 0
+           for v in ("l2_", "stream_", "stream_l2_")):
+        raise AssertionError(f"distance_topk spills registers: {attrs}")
+    tile = tile_report("distance_topk", dist_ms, 2 * Q * n * D, dist_alone,
+                       f"torch.mm [{Q}, {D}] x [{D}, {n}]", attrs)
     del midx, s, vecs, live, liveq, new, pre, post, own
     torch.cuda.empty_cache()
     return {"launches": launches, "search_err": serr, "dist_err": derr,
-            "times": (dist_ms, dist_plain, dist_lib), "bound": dist_bound}
+            "times": (dist_ms, dist_plain, dist_lib), "bound": dist_bound,
+            "tile": tile}
 
 
 def main() -> int:
@@ -1978,6 +2050,16 @@ def main() -> int:
         f"({irli_flops / stage_ms['irli_topk'] / 1e9:.1f} TFLOP/s), plain "
         f"{plain_irli:.4f} ms, library (torch.bmm + bias + torch.topk) "
         f"{library_irli:.4f} ms")
+    bmm_ms = time_ms(torch, lambda: torch.bmm(hidden, w2), n=5, warmup=2)
+    iattrs = iops.kernel_attrs(torch.float32, M)
+    tiles = {"irli_topk": tile_report(
+        "irli_topk", stage_ms["irli_topk"], irli_flops, bmm_ms,
+        f"torch.bmm [{R}, {Q}, {H}] x [{R}, {H}, {B}]", iattrs)}
+    log(f"irli_topk footprint at m={M}: {iattrs['smem_bytes']} B of shared "
+        f"memory a block; the m > 64 variant {iattrs['wide_registers']} "
+        f"registers, {iattrs['wide_spill_bytes']} spill bytes a thread")
+    if iattrs["wide_spill_bytes"] != 0:
+        raise AssertionError(f"irli_topk (m > 64) spills: {iattrs}")
     wide_ms = time_ms(torch, lambda: iops.irli_topk(hidden, w2, b2, m=128),
                       n=3, warmup=1)
     log(f"irli_topk m=128 (radix-select variant, not on a main path): "
@@ -2052,6 +2134,37 @@ def main() -> int:
         f"ms ({bounds['mega_query'][1]}); kernel {stage_ms['mega_query']:.4f}"
         f" ms, whole fused search {stage_ms['whole fused search']:.4f} ms, "
         f"plain (mega_search_ref on the card) {plain_mega:.4f} ms")
+    pair_ms = time_ms(torch, lambda: torch.bmm(scorer_hidden(params, queries),
+                                               w2), n=5, warmup=2)
+    mattrs = mops.kernel_attrs(torch.int8, M)
+    log(f"mega_query footprint at m={M}: the two workers' scorer tiles "
+        f"{mattrs['tiles_smem_bytes']} B of shared memory, the launch {smem} "
+        f"B")
+    tiles["mega_query"] = tile_report(
+        "mega_query", stage_ms["mega_query"], 2 * R * Q * (D * H + H * B),
+        pair_ms, f"scorer_hidden + torch.bmm [{R}, {Q}, {H}] x [{R}, {H}, "
+        f"{B}]", mattrs, spill_gate=False)
+
+    # mega_query's phases, by timing probes of the same launch (their
+    # outputs are not read): phase 1 alone, phases 1-2, and phases 1-2 with
+    # phase 2's GEMM walked alone (no drain, no scans). Phase 2's epilogue
+    # is what selecting adds to it.
+    def mega_probe(phases, select=True):
+        return lambda: mops.mega_query(
+            params, members, store8.codes, store8.scales, None, queries,
+            m=M, tau=TAU, topC=TOPC, k=K, phases=phases, select=select)
+
+    p1, p12, p12_gemm = (time_ms(torch, mega_probe(*a), n=10)
+                         for a in ((1,), (2,), (2, False)))
+    phase2 = p12 - p1
+    epilogue = (p12 - p12_gemm) / phase2
+    log(f"mega_query phases: 1 {p1:.4f} ms, 2 {phase2:.4f} ms (its GEMM "
+        f"walked alone {p12_gemm - p1:.4f} ms: the epilogue is "
+        f"{100 * epilogue:.1f}% of phase 2), 3 "
+        f"{stage_ms['mega_query'] - p12:.4f} ms")
+    tiles["mega_query"].update(
+        phase_ms=[p1, phase2, stage_ms["mega_query"] - p12],
+        phase2_epilogue_share=epilogue)
 
     # peak device memory of one search of each path, above what it found
     def peak_gb(p):
@@ -2099,6 +2212,7 @@ def main() -> int:
     record.update(fit["record"])
     record["distance_topk"] = {"max_abs_err": max(stream["dist_err"],
                                                   fit["dist_err"])}
+    tiles["distance_topk"] = stream["tile"]
     bounds.update(fit["bounds"], distance_topk=stream["bound"])
     ierr = max(record["irli_topk"]["max_abs_err"], fit["irli_err"])
     record["irli_topk"] = {"max_abs_err": ierr}
@@ -2157,7 +2271,7 @@ def main() -> int:
          "max_abs_err": record[n]["max_abs_err"], "ms": times[n][0],
          "plain_ms": times[n][1], "bound_ms": bounds[n][0],
          "bound_by": bounds[n][1], "library_ms": times[n][2],
-         "launches_by_path": by_path[n]}
+         "launches_by_path": by_path[n], **tiles.get(n, {})}
         for n in KERNELS]
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel did not run on its path: {kernels}")

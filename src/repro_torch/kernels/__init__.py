@@ -13,6 +13,8 @@ from a failed build or launch to the plain version.
 ``LAUNCHES`` counts kernel launches per kernel name. A wrapper adds one
 exactly where it launches its kernel, so a run can show that the main path
 went through the kernels (``reset_launches`` before, read after).
+
+Kernels that read an operand by TMA take it as :func:`tma_operand` gives it.
 """
 from __future__ import annotations
 
@@ -65,3 +67,22 @@ def check_launch(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError "
                            f"{err}")
+
+
+def tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """t [G, rows, cols] laid out as a TMA tensor map reads it: unit stride
+    on cols, 16-byte aligned base, a row stride ld whose bytes are a
+    multiple of 16, and a rep stride of rows·ld. t itself when it is so
+    already (a contiguous tensor whose rows are a multiple of 16 bytes);
+    else a copy into a zero-padded [G, rows, ld] buffer, viewed as [G, rows,
+    cols]. The kernel reads the row stride from ``stride(1)``."""
+    G, rows, cols = t.shape
+    per16 = 16 // t.element_size()
+    ld = t.stride(1)
+    if (t.stride(2) == 1 and t.data_ptr() % 16 == 0 and ld % per16 == 0
+            and ld >= cols and t.stride(0) == rows * ld):
+        return t
+    ld = -(-cols // per16) * per16
+    buf = torch.zeros((G, rows, ld), dtype=t.dtype, device=t.device)
+    buf[..., :cols] = t
+    return buf[..., :cols]

@@ -14,12 +14,25 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, check_launch, on_card
+from repro_torch.kernels import (LAUNCHES, check_launch, on_card,
+                                 tma_operand)
 from repro_torch.kernels.distance_topk.ref import distance_topk_ref
 
 #: squared norms are taken this many corpus rows at a time, so an l2 call
 #: never holds a [L, d] temporary
 NORM_CHUNK = 65_536
+#: the kernel's footprint (distance_topk.cu): one block an SM, whose dynamic
+#: shared memory holds 1024 bytes of alignment slack, the ring (4 stages of
+#: a 128-row x 32-deep fp32 corpus slice, 16 KB each), the query tile
+#: transposed ([ceil32(d)][128] fp32) while it fits beside them (d <= 288;
+#: past that each stage also holds the query tile's slice, 32 KB a stage),
+#: the warps' one-row staging areas (8 x 128 floats), the rows' counts and
+#: thresholds (key and value) and, while they fit, the [128, k] (value, id)
+#: lists
+STAGES, SLICE, STAGE_BYTES = 4, 32, 16_384
+SMEM_BYTES = 232_448 - 128                # a block's limit, less its barriers
+_FIXED = 8 * 128 * 4 + 3 * 128 * 4
+MAX_SPLITS = 1024
 
 
 @functools.cache
@@ -27,12 +40,13 @@ def _lib():
     """The kernel's C entries, built and loaded at first use."""
     from repro_torch.kernels import _build
     lib = _build.load("distance_topk")
-    lib.distance_topk_splits.argtypes = [ctypes.c_int, ctypes.c_int,
-                                         ctypes.c_int,
-                                         ctypes.POINTER(ctypes.c_int)]
-    lib.distance_topk_splits.restype = ctypes.c_int
+    lib.distance_topk_attrs.argtypes = [ctypes.c_int, ctypes.c_int,
+                                        ctypes.POINTER(ctypes.c_longlong)]
+    lib.distance_topk_attrs.restype = ctypes.c_int
     lib.distance_topk_launch.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
+        [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_void_p,
+                                 ctypes.c_longlong, ctypes.c_void_p,
+                                 ctypes.c_longlong] + [ctypes.c_void_p] * 2
         + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5)
     lib.distance_topk_launch.restype = ctypes.c_int
     return lib
@@ -63,14 +77,78 @@ def squared_norms(x: torch.Tensor) -> torch.Tensor:
                       for s in range(0, x.shape[0], NORM_CHUNK)])
 
 
-def splits(Q: int, L: int, k: int, device) -> int:
-    """The kernel's number of L splits at (Q, L, k): one wave of blocks on
-    the card (distance_topk.cu, distance_topk_splits)."""
-    out = ctypes.c_int()
-    with torch.cuda.device(device):
-        check_launch("distance_topk_splits",
-                     _lib().distance_topk_splits(Q, L, k, ctypes.byref(out)))
-    return out.value
+def _qtile_bytes(d: int) -> int:
+    return -(-d // SLICE) * SLICE * 128 * 4
+
+
+def query_resident(d: int) -> bool:
+    """Whether the kernel keeps its transposed query tile in shared memory
+    for its whole walk (d <= 288); else each ring stage also brings the
+    tile's slice, from the queries' transpose."""
+    return 1024 + STAGES * STAGE_BYTES + _qtile_bytes(d) + _FIXED \
+        <= SMEM_BYTES
+
+
+def _base_bytes(d: int) -> int:
+    if query_resident(d):
+        return 1024 + STAGES * STAGE_BYTES + _qtile_bytes(d) + _FIXED
+    return 1024 + STAGES * 2 * STAGE_BYTES + _FIXED
+
+
+def lists_in_smem(d: int, k: int) -> bool:
+    """Whether the kernel keeps its [128, k] lists in shared memory at
+    query width d (k <= 108 at d = 96, k <= 92 past d = 288); else in its
+    slice of the partial outputs in device memory."""
+    return _base_bytes(d) + 128 * k * 8 <= SMEM_BYTES
+
+
+def smem_bytes(d: int, k: int) -> int:
+    """The kernel's dynamic shared memory a block (distance_topk.cu
+    smem_bytes)."""
+    return _base_bytes(d) + (128 * k * 8 if lists_in_smem(d, k) else 0)
+
+
+def blocks_per_sm(d: int, k: int) -> int:
+    """Blocks of the kernel one SM holds at (d, k): one (its registers, up
+    to 255 a thread, allow one; its shared memory fits one block at any
+    d and k)."""
+    return int(smem_bytes(d, k) <= SMEM_BYTES)
+
+
+def split_count(Q: int, L: int, k: int, sms: int, per_sm: int) -> int:
+    """The number of L splits: one wave of blocks (query tiles x splits <=
+    SMs x blocks an SM: a block past the wave would double the time), at
+    most one split a 128-column tile and MAX_SPLITS, and no empty split."""
+    q_tiles, tiles = -(-Q // 128), -(-L // 128)
+    s = sms * max(per_sm, 1) // q_tiles
+    s = max(1, min(s, tiles, MAX_SPLITS))
+    tps = -(-tiles // s)
+    return -(-tiles // tps)
+
+
+def splits(Q: int, L: int, k: int, device, d: int = 96) -> int:
+    """The kernel's number of L splits at (Q, L, k) and query width d on
+    this card (one wave of blocks)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return split_count(Q, L, k, sms, blocks_per_sm(d, k))
+
+
+def kernel_attrs(d: int = 96, k: int = 10) -> dict[str, int]:
+    """The C side's own account at (d, k) (distance_topk_attrs, on the
+    card): dynamic shared memory, lists in shared memory (0/1), blocks an
+    SM by the occupancy query, ring stages, slice depth, the query tile
+    resident (0/1), then registers and local (spill) bytes a thread of the
+    dot and of the l2 kernel, with the query tile resident and (stream_)
+    streamed."""
+    out = (ctypes.c_longlong * 14)()
+    check_launch("distance_topk_attrs",
+                 _lib().distance_topk_attrs(d, k, out))
+    keys = ("smem_bytes", "lists_in_smem", "blocks_per_sm", "stages",
+            "slice_depth", "query_resident", "registers", "spill_bytes",
+            "l2_registers", "l2_spill_bytes", "stream_registers",
+            "stream_spill_bytes", "stream_l2_registers",
+            "stream_l2_spill_bytes")
+    return dict(zip(keys, out))
 
 
 def distance_topk(queries, base, mask, *, k: int, metric: str = "dot"):
@@ -78,8 +156,10 @@ def distance_topk(queries, base, mask, *, k: int, metric: str = "dot"):
     broadcastable to [Q, L] (bool or numeric, entries > 0 keep), all on the
     card -> (vals [Q, k] f32, ids [Q, k] int32), jax.lax.top_k's order;
     slots past the survivors hold -inf (their ids are not positions). Any
-    Q, L and 1 <= k <= L; k > 31 keeps its lists in device memory.
-    Holds O(Q·k·splits) scratch, never the [Q, L] similarities."""
+    Q, L, d and 1 <= k <= L; query_resident and lists_in_smem decide where
+    the query tile and the lists live. Holds O(Q·k·splits) scratch (and,
+    past d = 288, the queries' [d, Q] transpose), never the [Q, L]
+    similarities."""
     if not on_card(queries, base, torch.as_tensor(mask)):
         raise ValueError("distance_topk launches on CUDA tensors only")
     if queries.ndim != 2 or base.ndim != 2 \
@@ -103,17 +183,22 @@ def distance_topk(queries, base, mask, *, k: int, metric: str = "dot"):
     ids = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q == 0:
         return vals, ids
-    queries, base = queries.contiguous(), base.contiguous()
+    queries = queries.contiguous()
+    qt = None if query_resident(d) else tma_operand(queries.T[None])[0]
+    base = tma_operand(base[None])[0]
     l2 = metric == "l2"
     qn = squared_norms(queries) if l2 else None
     bn = squared_norms(base) if l2 else None
-    s = splits(Q, L, k, dev)
+    s = splits(Q, L, k, dev, d)
     part_v = torch.empty((s, Q, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((s, Q, k), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _lib().distance_topk_launch(
-            queries.data_ptr(), base.data_ptr(), rows.data_ptr(), ld,
+            queries.data_ptr(), None if qt is None else qt.data_ptr(),
+            0 if qt is None else qt.stride(0), base.data_ptr(),
+            base.stride(0),
+            rows.data_ptr(), ld,
             None if qn is None else qn.data_ptr(),
             None if bn is None else bn.data_ptr(), Q, L, d, k, int(l2), s,
             part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),

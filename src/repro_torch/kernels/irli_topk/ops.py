@@ -10,16 +10,21 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, check_launch, on_card
+from repro_torch.kernels import (LAUNCHES, check_launch, on_card,
+                                 tma_operand)
 from repro_torch.kernels.irli_topk.ref import irli_topk_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: widest top-m the kernel's per-thread lists hold (irli_topk.cuh kMaxM);
 #: a wider m runs the kernel's radix-select variant
 MAX_M = 64
-_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+#: the tile routine (irli_topk.cuh): ring stages, bytes a stage, slice
+#: depth by dtype (one 128-byte row of h a slice)
+STAGES = 3
+STAGE_BYTES = 32_768
+SLICE_DEPTH = {torch.float32: 32, torch.bfloat16: 64}
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [
+    ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
 
 
 @functools.cache
@@ -32,7 +37,40 @@ def _lib():
     lib.irli_topk_wide_launch.argtypes = _ARGS + [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.irli_topk_wide_launch.restype = ctypes.c_int
+    lib.irli_topk_attrs.argtypes = [ctypes.c_int, ctypes.c_int,
+                                    ctypes.POINTER(ctypes.c_longlong)]
+    lib.irli_topk_attrs.restype = ctypes.c_int
     return lib
+
+
+def tile_smem_bytes(m: int) -> int:
+    """Shared memory of one tile worker running the scorer tile at m
+    (irli_topk.cuh topk_tile_smem_bytes, a multiple of 1024): the ring
+    (STAGES x STAGE_BYTES; each column tile's [128, 129] logits reuse it),
+    two [128] log-sum-exp halves and 256 half-row lists of m (value,
+    column) pairs. The one Python owner of this footprint: mega_query's
+    model adds two of them."""
+    return STAGES * STAGE_BYTES + 2 * 128 * 4 + 256 * m * 8
+
+
+def smem_bytes(m: int) -> int:
+    """The kernel's dynamic shared memory a block at m <= MAX_M: one tile
+    worker plus 1024 bytes to align the swizzled slices."""
+    return 1024 + tile_smem_bytes(m)
+
+
+def kernel_attrs(dtype=torch.float32, m: int = 5) -> dict[str, int]:
+    """The C side's own account (irli_topk_attrs, on the card): ring
+    stages, slice depth, bytes a stage; registers a thread, local (spill)
+    bytes a thread and dynamic shared memory of the m <= 64 kernel at m and
+    of the m > 64 variant."""
+    out = (ctypes.c_longlong * 9)()
+    check_launch("irli_topk_attrs",
+                 _lib().irli_topk_attrs(_DTYPES[dtype], m, out))
+    keys = ("stages", "slice_depth", "stage_bytes", "registers",
+            "spill_bytes", "smem_bytes", "wide_registers",
+            "wide_spill_bytes", "wide_smem_bytes")
+    return dict(zip(keys, out))
 
 
 def wide_grid(G: int, Q: int, dev) -> int:
@@ -78,10 +116,12 @@ def irli_topk(h, w2, b2, *, m: int, lse: bool = False):
     out_lse = (torch.empty((G, Q), dtype=torch.float32, device=dev)
                if lse else None)
     if Q > 0:
-        h, w2, b2 = (t.contiguous() for t in (h, w2, b2))
+        h, w2 = tma_operand(h), tma_operand(w2)
+        b2 = b2.contiguous()
         stream = torch.cuda.current_stream(dev).cuda_stream
         args = (h.data_ptr(), w2.data_ptr(), b2.data_ptr(), _DTYPES[h.dtype],
-                G, Q, H, B, m, vals.data_ptr(), idx.data_ptr(),
+                G, Q, H, B, m, h.stride(1), w2.stride(1), vals.data_ptr(),
+                idx.data_ptr(),
                 None if out_lse is None else out_lse.data_ptr())
         with torch.cuda.device(dev):
             if m <= MAX_M:

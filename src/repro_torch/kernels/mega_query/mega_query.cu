@@ -35,24 +35,34 @@
 // It was chosen over ticketed work from an atomic counter because the
 // counters would need zeroing before each launch: a memset, a second
 // launch. A block is 512 threads = two 256-thread tile workers, each with
-// its own named barrier and half the shared memory in phases 1-2:
+// its own named barrier, its own tile ring (irli_topk.cuh: 3 stages of
+// 32-deep slices that TMA brings in, each guarded by an mbarrier) and half
+// the shared memory in phases 1-2:
 //   1. hidden = relu(queries @ w1[r] + b1[r]) [R, Q, H] into device scratch
-//      (134 MB at the cell), one 128 x 128 gemm_tile (irli_topk.cuh) per
-//      work item.
+//      (134 MB at the cell, rows padded to 16 bytes), one 128 x 128 tile
+//      per work item, a worker's items in one walk; the writes are fenced
+//      for the async proxy before the grid sync, since phase 2 reads them
+//      by TMA.
 //   2. per (rep, 128-query tile) item: scorer_topk_tile (irli_topk.cuh)
 //      streams w2 [R, H, B] in its own layout (no per-call transpose, as
 //      the TPU wrapper's :292 makes) with a running top-m (+ lse) per row
 //      into scratch [R, Q, m]. Items are ordered query tile fastest, so the
 //      8 workers of one rep read the same w2 slices while they sit in L2.
 //      The 256 items of the cell fill the 264 workers of 132 SMs at once.
+//      Each column tile is one walk: the worker's ring drains, and the
+//      tile's logits go through its memory into the half-row scans (the
+//      block's other worker may multiply meanwhile). That epilogue is not
+//      overlapped with the worker's next tile: chip_smoke.py measures its
+//      share of phase 2 (PERF.md).
 //   3. per query (block-strided): the keep mask from the top-m values and
 //      lse, the R·m probed member rows gathered into the shared row (pads
 //      and dropped probes -> INT_MAX), freq_topc.cuh's sort, run count and
 //      second sort (the sorted ids and keys go through a per-block global
 //      scratch row), then quant_rerank.cuh's scoring and packed-key top-k'
 //      (fp32 stores: top-k), the refine of the k' survivors and its top-k.
-// A faster kernel (TMA-fed GEMM slices, a register-level sort) is later
-// work; this one is the simple, right first step.
+// queries, w1, hidden and w2 reach the GEMMs as tensor maps (16-byte
+// aligned rows; ops.py pads other shapes), so the rows past Q, D, H and B
+// arrive as zeros. A register-level sort for phase 3 is later work.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,11 +88,16 @@ enum PtrSlot {
 };
 enum IntSlot {
   kQ, kD, kR, kH, kB, kML, kNBlocks, kBlock, kM, kN, kC, kCp, kKp, kKpPow2,
-  kK, kKEff, kMetricL2, kAdaptive, kNumInts
+  kK, kKEff, kMetricL2, kAdaptive, kLdQ, kLdW1, kLdH, kLdW2, kPhases,
+  kSelect, kNumInts
 };
 
 struct Args {
-  const float* queries;   // [Q, D]
+  CUtensorMap mq;         // queries [1, Q, D]: X boxes
+  CUtensorMap mw1;        // w1 [R, D, H]: Y boxes
+  CUtensorMap mh;         // hid [R, Q, H]: X boxes
+  CUtensorMap mw2;        // w2 [R, H, B]: Y boxes
+  const float* queries;   // [Q, D], row stride ldq
   const float* w1;        // [R, D, H]
   const float* b1;        // [R, H]
   const float* w2;        // [R, H, B]
@@ -91,7 +106,7 @@ struct Args {
   const void* rows;       // [L, D] f32 | int8 | bf16
   const float* scales;    // [L, n_blocks] (int8) or nullptr
   const float* exact;     // [L, D] f32 or nullptr
-  float* hid;             // scratch [R, Q, H]
+  float* hid;             // scratch [R, Q, H], row stride ldh
   float* part_v;          // scratch [R, Q, m]
   int* part_i;            // scratch [R, Q, m]
   float* part_lse;        // scratch [R, Q] (adaptive) or nullptr
@@ -101,7 +116,10 @@ struct Args {
   float* out_scores;      // [Q, k]
   int* out_nc;            // [Q]
   int Q, D, R, H, B, ML, n_blocks, block, m, n, C, Cp, kp, Kp, k, k_eff, l2,
-      adaptive;
+      adaptive, ldq, ldw1, ldh, ldw2;
+  // a timing probe's: the phases run (3 unless probing), and whether
+  // phase 2 selects (0: its GEMM alone, scorer_topk_tile's select = false)
+  int phases, select;
   float tau, probe_mass;
 };
 
@@ -143,11 +161,16 @@ __host__ __device__ inline QueryLayout query_layout(const Args& a) {
   return L;
 }
 
+// The two workers' scorer tiles (each a multiple of 1024 bytes, the first
+// aligned by irli::kAlign bytes of slack)
+__host__ __device__ constexpr int tiles_smem(int m) {
+  return irli::kAlign + kWorkers * irli::topk_tile_smem_bytes(m);
+}
+
 // The launch's dynamic shared memory: the larger of phase 3's layout and
-// the two workers' scorer tiles (ops.mega_smem_bytes mirrors it).
+// the two workers' scorer tiles (ops.smem_bytes mirrors it).
 int smem_needed(const Args& a) {
-  return imax(query_layout(a).total,
-              kWorkers * irli::topk_tile_smem_bytes(a.m));
+  return imax(query_layout(a).total, tiles_smem(a.m));
 }
 
 // Phase 3 for the queries q = blockIdx.x, + gridDim.x, ...: every thread of
@@ -173,7 +196,7 @@ __device__ void per_query(const Args& a, unsigned char* smem) {
 
   for (int q = blockIdx.x; q < a.Q; q += gridDim.x) {
     for (int d = threadIdx.x; d < a.D; d += blockDim.x) {
-      qv[d] = a.queries[static_cast<long long>(q) * a.D + d];
+      qv[d] = a.queries[static_cast<long long>(q) * a.ldq + d];
     }
     for (int s = threadIdx.x; s < a.R * a.m; s += blockDim.x) {
       pb[s] = a.part_i[(static_cast<long long>(s / a.m) * a.Q + q) * a.m +
@@ -285,30 +308,48 @@ __device__ void per_query(const Args& a, unsigned char* smem) {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-    mega_query_kernel(const Args a) {
+    mega_query_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bars[kWorkers][2 * irli::kStages];
   cg::grid_group grid = cg::this_grid();
   const int sub = threadIdx.x / irli::kTileThreads;
-  const int bar = 1 + sub;
   const int worker = blockIdx.x * kWorkers + sub;
   const int n_workers = gridDim.x * kWorkers;
-  float* wsmem = reinterpret_cast<float*>(
-      smem + sub * irli::topk_tile_smem_bytes(a.m));
+  unsigned char* wsmem =
+      irli::aligned_smem(smem) + sub * irli::topk_tile_smem_bytes(a.m);
+  irli::Ring ring = irli::make_ring(wsmem, bars[sub], 1 + sub);
   const int lt = threadIdx.x & (irli::kTileThreads - 1);
   const int ty = lt >> 4, tx = lt & 15;
   const int nqt = (a.Q + irli::kBM - 1) / irli::kBM;
 
-  // 1. hidden = relu(queries @ w1[r] + b1[r])
+  // 1. hidden = relu(queries @ w1[r] + b1[r]): this worker's items it =
+  // worker, worker + n_workers, ..., one walk (the ring runs ahead across
+  // items)
   const int nht = (a.H + irli::kBN - 1) / irli::kBN;
-  for (int it = worker; it < a.R * nqt * nht; it += n_workers) {
-    const int r = it / (nqt * nht);
-    const int row0 = (it / nht) % nqt * irli::kBM;
-    const int col0 = it % nht * irli::kBN;
-    float acc[8][8];
-    irli::gemm_tile(a.queries, a.D,
-                    a.w1 + static_cast<long long>(r) * a.D * a.H, a.H, a.Q,
-                    a.H, a.D, row0, col0, wsmem, wsmem + irli::kAsFloats, bar,
-                    acc);
+  const int n_items = a.R * nqt * nht;
+  const int mine = worker < n_items ? (n_items - 1 - worker) / n_workers + 1
+                                    : 0;
+  const int nk1 = (a.D + irli::slice_depth<float>() - 1) /
+                  irli::slice_depth<float>();
+  const CUtensorMap* mq = &a.mq;
+  const CUtensorMap* mw1 = &a.mw1;
+  // item t of this worker: (rep, first row, first column)
+  auto item = [&](int t) {
+    const int it = worker + t * n_workers;
+    return make_int3(it / (nqt * nht), (it / nht) % nqt * irli::kBM,
+                     it % nht * irli::kBN);
+  };
+  auto load1 = [&](unsigned u) {
+    const int3 w = item(static_cast<int>(u / nk1));
+    const int k0 = static_cast<int>(u % nk1) * irli::slice_depth<float>();
+    const int st = irli::claim(ring, ring.n + u, irli::kStageBytes);
+    tma::tma_load(ring.x(st), mq, ring.full(st), k0, w.y, 0, 0);
+    tma::tma_load(ring.y(st), mw1, ring.full(st), w.z, k0, w.x, 0);
+  };
+  auto ys1 = [&](unsigned, int st) { return ring.yp(st); };
+  auto done1 = [&](int t, float (&acc)[8][8]) {
+    const int3 w = item(t);
+    const int r = w.x, row0 = w.y, col0 = w.z;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = col0 + irli::tile_off(j, tx);
@@ -318,23 +359,31 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int i = 0; i < 8; ++i) {
         const int row = row0 + irli::tile_off(i, ty);
         if (row < a.Q) {
-          a.hid[(static_cast<long long>(r) * a.Q + row) * a.H + col] =
+          a.hid[(static_cast<long long>(r) * a.Q + row) * a.ldh + col] =
               fmaxf(acc[i][j] + bias, 0.0f);
         }
       }
     }
-  }
+  };
+  irli::walk<float, false>(ring, mine, nk1, load1, ys1, done1);
+  if (a.phases < 2) return;
+  // phase 2 reads hid through the async proxy (TMA)
+  tma::fence_proxy_global();
   grid.sync();
+  tma::fence_proxy_global();
 
   // 2. per (rep, query tile): logits = hidden @ w2[r] + b2[r] -> top-m, lse
   for (int it = worker; it < a.R * nqt; it += n_workers) {
-    const long long r = it / nqt;
-    irli::scorer_topk_tile(
-        a.hid + r * a.Q * a.H, a.w2 + r * a.H * a.B, a.b2 + r * a.B, a.Q,
-        a.B, a.H, a.m, it % nqt * irli::kBM, a.part_v + r * a.Q * a.m,
-        a.part_i + r * a.Q * a.m, a.adaptive ? a.part_lse + r * a.Q : nullptr,
-        wsmem, bar);
+    const int r = it / nqt;
+    const long long rl = r;
+    irli::scorer_topk_tile<float>(
+        ring, &a.mh, &a.mw2, r, a.b2 + rl * a.B, a.Q, a.B, a.H, a.m,
+        it % nqt * irli::kBM, a.part_v + rl * a.Q * a.m,
+        a.part_i + rl * a.Q * a.m,
+        a.adaptive ? a.part_lse + rl * a.Q : nullptr,
+        reinterpret_cast<float*>(wsmem + irli::kRingBytes), a.select != 0);
   }
+  if (a.phases < 3) return;
   grid.sync();
 
   // 3. per query: gather, FrequentOnes, rerank
@@ -377,7 +426,47 @@ int launch(const Args& a, int grid, int smem, cudaStream_t stream) {
 
 bool is_pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
 
+// The four GEMM operands' tensor maps (false when one is not aligned for
+// TMA or the driver refuses it)
+bool make_maps(Args* a) {
+  const long long Q = a->Q, D = a->D, R = a->R, H = a->H, B = a->B;
+  return irli::tma_aligned(a->queries, 4, a->ldq, Q * a->ldq) &&
+         irli::tma_aligned(a->w1, 4, a->ldw1, D * a->ldw1) &&
+         irli::tma_aligned(a->hid, 4, a->ldh, Q * a->ldh) &&
+         irli::tma_aligned(a->w2, 4, a->ldw2, H * a->ldw2) &&
+         a->ldq >= D && a->ldw1 >= H && a->ldh >= H && a->ldw2 >= B &&
+         irli::operand_map<float>(&a->mq, a->queries, 1, Q, D, a->ldq,
+                                  Q * a->ldq, true) &&
+         irli::operand_map<float>(&a->mw1, a->w1, R, D, H, a->ldw1,
+                                  D * a->ldw1, false) &&
+         irli::operand_map<float>(&a->mh, a->hid, R, Q, H, a->ldh,
+                                  Q * a->ldh, true) &&
+         irli::operand_map<float>(&a->mw2, a->w2, R, H, B, a->ldw2,
+                                  H * a->ldw2, false);
+}
+
 }  // namespace
+
+// The kernel's registers a thread and local (spill) bytes a thread for
+// store kind (0 fp32, 1 int8, 2 bf16), then the two workers' scorer-tile
+// shared memory at m, the ring's stages and slice depth, into out[0..4].
+// Returns a cudaError_t.
+extern "C" int mega_query_attrs(int kind, int m, long long* out) {
+  int err;
+  if (kind == 0) {
+    err = irli::kernel_attrs(mega_query_kernel<float>, out);
+  } else if (kind == 1) {
+    err = irli::kernel_attrs(mega_query_kernel<int8_t>, out);
+  } else if (kind == 2) {
+    err = irli::kernel_attrs(mega_query_kernel<__nv_bfloat16>, out);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  out[2] = tiles_smem(m);
+  out[3] = irli::kStages;
+  out[4] = irli::slice_depth<float>();
+  return err;
+}
 
 // The cooperative grid for store kind (0 fp32, 1 int8, 2 bf16) at `smem`
 // bytes of dynamic shared memory: the blocks that fit one SM at once times
@@ -389,8 +478,10 @@ extern "C" int mega_query_grid(int kind, int smem, int* grid) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// ptrs[kNumPtrs] and ints[kNumInts] in the PtrSlot / IntSlot order above;
-// grid from mega_query_grid at the same kind and smem, the scratch srt and
+// ptrs[kNumPtrs] and ints[kNumInts] in the PtrSlot / IntSlot order above
+// (kPhases 3 and kSelect 1 for a search; a timing probe runs phases 1 ..
+// kPhases only, or phase 2's GEMM without its selection, kSelect 0, which
+// leaves phase 3 nothing to read: kPhases < 3 then); grid from mega_query_grid at the same kind and smem, the scratch srt and
 // kscr [grid, n]. Returns cudaGetLastError() after the launch (0 on
 // success) or cudaErrorInvalidValue when the arguments break the contract.
 extern "C" int mega_query_launch(void* const* ptrs, const int* ints,
@@ -433,6 +524,12 @@ extern "C" int mega_query_launch(void* const* ptrs, const int* ints,
   a.k_eff = ints[kKEff];
   a.l2 = ints[kMetricL2];
   a.adaptive = ints[kAdaptive];
+  a.ldq = ints[kLdQ];
+  a.ldw1 = ints[kLdW1];
+  a.ldh = ints[kLdH];
+  a.ldw2 = ints[kLdW2];
+  a.phases = ints[kPhases];
+  a.select = ints[kSelect];
   a.tau = tau;
   a.probe_mass = probe_mass;
   const long long W = static_cast<long long>(a.R) * a.m * a.ML;
@@ -445,9 +542,11 @@ extern "C" int mega_query_launch(void* const* ptrs, const int* ints,
       a.k_eff <= a.C && a.k_eff <= a.kp && grid >= 1 &&
       smem >= smem_needed(a) && (kind == 1) == (a.scales != nullptr) &&
       (a.scales == nullptr || a.n_blocks * a.block == a.D) &&
-      (a.adaptive == 0 || a.part_lse != nullptr) && kind >= 0 && kind <= 2;
+      (a.adaptive == 0 || a.part_lse != nullptr) && kind >= 0 && kind <= 2 &&
+      a.phases >= 1 && a.phases <= 3 && (a.select != 0 || a.phases < 3);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   if (a.Q == 0) return 0;
+  if (!make_maps(&a)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kind == 0) return launch<float>(a, grid, smem, s);
   if (kind == 1) return launch<int8_t>(a, grid, smem, s);

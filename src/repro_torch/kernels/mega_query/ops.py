@@ -12,12 +12,14 @@ routes every such call here) and the fused kernel's H100 footprint model.
 
 The footprint model (``mega_smem_bytes``) is the kernel's shared memory per
 block, the larger of its two layouts: the two 256-thread tile workers'
-scorer tiles (the GEMM slices, the [128, 129] logit tile and the running
-top-m lists), and the per-query stage (the sort row of n = next power of two
->= R·m·ML candidates, the top-C slots, the packed-key arrays, the query). It
-replaces the reference's TPU VMEM model (kernel_vmem_bytes against 0.75 x
-16 MB): what the H100 limits is one block's 232,448 bytes of shared memory,
-and the freq_topc sort width (n <= 32768).
+scorer tiles (irli_topk's ``tile_smem_bytes``: the ring of GEMM slices,
+which the [128, 129] logit tile reuses, and the running top-m lists, plus
+1024 bytes to align the first), and the per-query stage (the sort row of
+n = next power of two >= R·m·ML candidates, the top-C slots, the packed-key
+arrays, the query). It replaces the reference's TPU VMEM model
+(kernel_vmem_bytes against 0.75 x 16 MB): what the H100 limits is one
+block's 232,448 bytes of shared memory, and the freq_topc sort width
+(n <= 32768). ``kernel_attrs`` reads the C side's own account on the card.
 """
 from __future__ import annotations
 
@@ -27,9 +29,10 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, check_launch, on_card
+from repro_torch.kernels import (LAUNCHES, check_launch, on_card,
+                                 tma_operand)
 from repro_torch.kernels.freq_topc.ops import MAX_WIDTH, sort_width
-from repro_torch.kernels.irli_topk.ops import MAX_M
+from repro_torch.kernels.irli_topk.ops import MAX_M, tile_smem_bytes
 from repro_torch.kernels.mega_query.ref import mega_search_ref
 from repro_torch.store.quantized import QuantizedStore
 from repro_torch.store.rerank import resolve_refine_k
@@ -42,15 +45,10 @@ DEFAULT_GEOM = dict(tq=8, d=128, H=1024, B=4096, R=2, ML=64, D=128,
                     block=32, tb=512)
 #: dynamic shared memory one block may use on the H100 (sm_90)
 SMEM_BYTES = 232_448
+#: tile workers a block (mega_query.cu kWorkers)
+_WORKERS = 2
 #: store kinds of the kernel
 _KINDS = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
-#: the scorer tile's shared memory, irli_topk.cuh: GEMM slices (2 x 8 x 132
-#: + 2 x 8 x 128 floats), the logit tile (128 x 129), two [128] lse halves;
-#: then 256 threads' lists of m (value, index) pairs
-_TILE_FIXED_BYTES = (2 * 8 * 132 + 2 * 8 * 128 + 128 * 129 + 2 * 128) * 4
-_WORKERS = 2
-
-
 def _pow2(c: int) -> int:
     p = 1
     while p < c:
@@ -90,8 +88,7 @@ def smem_bytes(p: Plan, *, R: int, m: int, D: int) -> int:
     per_query = (_align16(max(4 * p.n, 8 * p.Cp, 8 * p.Kp))
                  + 3 * _align16(4 * p.C) + _align16(4 * D)
                  + 2 * _align16(4 * R * m) + 2 * _align16(4 * p.kp) + 16)
-    tiles = _WORKERS * (_TILE_FIXED_BYTES + 256 * m * 8)
-    return max(per_query, tiles)
+    return max(per_query, 1024 + _WORKERS * tile_smem_bytes(m))
 
 
 def mega_smem_bytes(m: int, topC: int, refine_k: int, k: int, *,
@@ -129,7 +126,21 @@ def _lib():
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p]
     lib.mega_query_launch.restype = ctypes.c_int
+    lib.mega_query_attrs.argtypes = [ctypes.c_int, ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_longlong)]
+    lib.mega_query_attrs.restype = ctypes.c_int
     return lib
+
+
+def kernel_attrs(rows_dtype=torch.int8, m: int = 5) -> dict[str, int]:
+    """The C side's own account (mega_query_attrs, on the card) for a store
+    kind: registers a thread, local (spill) bytes a thread, the two
+    workers' scorer-tile shared memory at m, ring stages, slice depth."""
+    out = (ctypes.c_longlong * 5)()
+    check_launch("mega_query_attrs",
+                 _lib().mega_query_attrs(_KINDS[rows_dtype], m, out))
+    return dict(zip(("registers", "spill_bytes", "tiles_smem_bytes",
+                     "stages", "slice_depth"), out))
 
 
 @functools.cache
@@ -151,13 +162,19 @@ def _check(name, t, dtype, ndim):
 def mega_query(params: dict, members, rows, scales, exact, queries, *,
                m: int, tau: int, topC: int, k: int, refine_k: int = 0,
                metric: str = "angular", adaptive_m: bool = False,
-               probe_mass: float = 1.0):
+               probe_mass: float = 1.0, phases: int = 3,
+               select: bool = True):
     """Launch the fused kernel: scorer params (w1 [R, d, H], b1 [R, H], w2
     [R, H, B], b2 [R, B] f32), members [R, B, ML] int32, rows [L, d] f32 |
     int8 | bf16 (+ scales [L, d/block] f32 for int8, exact [L, d] f32 or
     None), queries [Q, d] f32, all on the card -> (ids [Q, k] int32,
     scores [Q, k] f32, n_candidates [Q] int32). Allocates outputs and
-    scratch with torch.empty: the launch is the only kernel it runs."""
+    scratch with torch.empty: the launch is the only kernel it runs.
+
+    ``phases`` < 3 or ``select=False`` make the launch a timing probe whose
+    outputs are meaningless: it runs phases 1 .. ``phases`` only, and
+    without ``select`` phase 2 walks its GEMM with no top-m (phases <= 2
+    then)."""
     w1, b1, w2, b2 = (params[n] for n in ("w1", "b1", "w2", "b2"))
     if not on_card(w1, b1, w2, b2, members, rows, scales, exact, queries):
         raise ValueError("mega_query launches on CUDA tensors only")
@@ -179,6 +196,9 @@ def mega_query(params: dict, members, rows, scales, exact, queries, *,
             or queries.shape[1] != d or D != d):
         raise ValueError("mega_query: scorer, members, rows and queries "
                          "shapes disagree")
+    if phases not in (1, 2, 3) or (not select and phases == 3):
+        raise ValueError(f"mega_query: phases={phases}, select={select} "
+                         f"(a probe without selection stops at phase 2)")
     kind = _KINDS[rows.dtype]
     n_blocks = block = 1
     if (scales is not None) != (kind == 1):
@@ -212,21 +232,27 @@ def mega_query(params: dict, members, rows, scales, exact, queries, *,
     grid = _grid(dev.index, kind, smem)
     f32 = dict(dtype=torch.float32, device=dev)
     scratch = {
-        "hid": torch.empty((R, Q, H), **f32),
+        # rows padded to 16 bytes: phase 2 reads them by TMA
+        "hid": torch.empty((R, Q, -(-H // 4) * 4), **f32)[..., :H],
         "part_v": torch.empty((R, Q, m), **f32),
         "part_i": torch.empty((R, Q, m), dtype=torch.int32, device=dev),
         "part_lse": torch.empty((R, Q), **f32) if adaptive else None,
         "srt": torch.empty((grid, p.n), dtype=torch.int32, device=dev),
         "kscr": torch.empty((grid, p.n), dtype=torch.int32, device=dev),
     }
-    ins = [t.contiguous() for t in (queries, w1, b1, w2, b2, members, rows)]
+    queries = tma_operand(queries[None])[0]
+    w1, w2 = tma_operand(w1), tma_operand(w2)
+    ins = [queries, w1, b1.contiguous(), w2, b2.contiguous(),
+           members.contiguous(), rows.contiguous()]
     ins += [None if t is None else t.contiguous() for t in (scales, exact)]
     ptrs = [None if t is None else t.data_ptr() for t in ins + [
         scratch["hid"], scratch["part_v"], scratch["part_i"],
         scratch["part_lse"], scratch["srt"], scratch["kscr"], ids, scores,
         n_cand]]
     ints = [Q, D, R, H, B, ML, n_blocks, block, m, p.n, p.C, p.Cp, p.kp,
-            p.Kp, k, p.k_eff, int(metric == "l2"), int(adaptive)]
+            p.Kp, k, p.k_eff, int(metric == "l2"), int(adaptive),
+            queries.stride(0), w1.stride(1), scratch["hid"].stride(1),
+            w2.stride(1), phases, int(select)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _lib().mega_query_launch(

@@ -487,11 +487,15 @@ def _dist_agree(vals, ids, q, base, mask, k, metric):
     (1, 1, 8, 1, False),
     (7, 1000, 96, 10, True),
     (130, 5000, 96, 10, False),       # ragged query tiles
-    (20, 4000, 96, 31, False),        # the widest lists in shared memory
-    (20, 4000, 96, 32, True),         # k > 31: lists in device memory
-    (64, 70_000, 96, 100, True),      # many splits
+    (20, 4000, 96, 31, False),
+    (20, 4000, 96, 32, True),
+    (64, 70_000, 96, 100, True),      # many splits, lists in shared memory
+    (33, 3000, 96, 109, False),       # k > 108: lists in device memory
     (33, 3000, 40, 200, False),
     (5, 300, 17, 300, True),          # k = L
+    (40, 3000, 768, 10, True),        # d > 288: the query tile streamed
+    (70, 5000, 320, 92, False),       # streamed, the widest smem lists
+    (20, 2000, 960, 100, True),       # streamed, lists in device memory
 ])
 def test_distance_topk_kernel_matches_plain(card, Q, L, d, k, shared,
                                             metric):
@@ -606,6 +610,140 @@ def test_streaming_sequence_on_the_card(card):
                                k=10)
     assert (got == ri.cpu().numpy()).all(axis=1).mean() >= 0.95
     assert not np.isin(got, dead).any()
+
+
+# ------------------------------------------------------ the tile GEMM ----
+def _fmaf_chain(a, b):
+    """Σ_k a[:, k] · b[k, :] as the tile computes it: one fmaf a sum, k
+    ascending, from +0.0. The product of two fp32 is exact in float64, so
+    each step rounds twice (to float64, then to float32), which differs
+    from one fmaf's single rounding about once in 2^29 steps."""
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k in range(a.shape[1]):
+        acc = (acc.astype(np.float64)
+               + a64[:, k, None] * b64[None, k, :]).astype(np.float32)
+    return acc
+
+
+def _top(x, m):
+    """jax.lax.top_k of each row of a float32 array: (values, columns)."""
+    b = x.view(np.int32)
+    key = np.where(b < 0, b ^ 0x7fffffff, b).astype(np.int64)
+    cols = np.broadcast_to(np.arange(x.shape[1]), x.shape)
+    order = np.lexsort((cols, -key), axis=1)[:, :m]
+    return np.take_along_axis(x, order, 1), order.astype(np.int32)
+
+
+@pytest.mark.parametrize("kernel", ["irli_topk", "distance_topk",
+                                    "distance_topk_streamed"])
+def test_tile_sums_follow_the_fmaf_chain(card, kernel):
+    """Every similarity or logit is one fmaf chain over k ascending: the
+    kernels' top values equal a float64 emulation of that chain bit for
+    bit, at a depth that is not a multiple of the slice (K = 100; 300 with
+    distance_topk's query tile streamed)."""
+    rng = np.random.default_rng(19)
+    f32 = lambda *s: rng.normal(size=s).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(card)
+    if kernel == "irli_topk":
+        h, w2, b2 = f32(2, 70, 100), f32(2, 100, 300), f32(2, 300)
+        vals, idx = iops.irli_topk(t(h), t(w2), t(b2), m=5)
+        for g in range(2):
+            want_v, want_i = _top(_fmaf_chain(h[g], w2[g]) + b2[g], 5)
+            got = vals[g].cpu().numpy()
+            assert np.array_equal(got.view(np.int32), want_v.view(np.int32))
+            assert np.array_equal(idx[g].cpu().numpy(), want_i)
+    else:
+        from repro_torch.kernels.distance_topk import ops as dops
+        d = 100 if kernel == "distance_topk" else 300
+        assert dops.query_resident(d) == (d == 100)
+        q, base = f32(70, d), f32(700, d)
+        mask = torch.ones((1, 700), dtype=torch.bool, device=card)
+        vals, ids = dops.distance_topk(t(q), t(base), mask.expand(70, -1),
+                                       k=10)
+        want_v, want_i = _top(_fmaf_chain(q, base.T), 10)
+        got = vals.cpu().numpy()
+        assert np.array_equal(got.view(np.int32), want_v.view(np.int32))
+        assert np.array_equal(ids.cpu().numpy(), want_i)
+
+
+@pytest.mark.parametrize("G,Q,H,B,m,dtype", [
+    (2, 129, 50, 20_000, 5, "float32"),   # B = 156·128 + 32, K = 50
+    (1, 64, 96, 20_000, 5, "bfloat16"),   # K = 96: one and a half bf16 slices
+    (3, 200, 1024, 517, 10, "float32"),   # 32 slices a tile, ragged N
+    (1, 1, 1, 1, 1, "float32"),
+])
+def test_tile_ragged_edges(card, G, Q, H, B, m, dtype):
+    """Rows past Q, columns past B and depths past H arrive as zeros from
+    the tensor maps: values and lse to 1e-5, ids outside near ties."""
+    rng = np.random.default_rng(G * Q + H + B)
+    args = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        card, getattr(torch, dtype)) for s in ((G, Q, H), (G, H, B), (G, B))]
+    vals, idx, lse = iops.irli_topk(*args, m=m, lse=True)
+    wide_v, wide_i, ref_lse = irli_topk_ref(*args, m=min(m + 1, B), lse=True)
+    cut, _ = same_topm(vals, idx, wide_v, wide_i)
+    assert cut <= max(1, G * Q // 16)
+    assert bool(near(lse, ref_lse, 1e-5).all())
+
+
+@pytest.mark.parametrize("d,metric", [(96, "dot"), (100, "l2"), (33, "dot"),
+                                      (768, "l2")])
+def test_tile_ring_wraps_over_corpus_tiles(card, d, metric):
+    """One block walks many corpus tiles (at least 3 a split), so the ring
+    of 3 stages wraps over tile boundaries; d = 100 and 33 end on a part
+    slice, the transposed corpus rows zero-filled past d; at d = 768 the
+    query tile's slices come through the ring too."""
+    from repro_torch.kernels.distance_topk import ops as dops
+    Q, L, k = 64, 100_000, 10
+    tiles = -(-L // 128)
+    assert -(-tiles // dops.splits(Q, L, k, card, d)) >= 3
+    q, base, mask = _dist_card(card, Q, L, d, d, True)
+    vals, ids = dops.distance_topk(q, base, mask, k=k, metric=metric)
+    _dist_agree(vals, ids, q, base, mask, k, metric)
+
+
+@pytest.mark.parametrize("kernel", ["irli_topk", "mega_query",
+                                    "distance_topk"])
+def test_tile_footprints_match_the_c_side(card, kernel):
+    """The Python footprint models (ops.smem_bytes and friends, which the
+    CPU tests pin) equal the C side's own export; irli_topk and
+    distance_topk keep their registers (0 spill bytes)."""
+    from repro_torch.kernels.distance_topk import ops as dops
+    if kernel == "irli_topk":
+        for dtype in (torch.float32, torch.bfloat16):
+            for m in (1, 5, 64):
+                a = iops.kernel_attrs(dtype, m)
+                assert (a["stages"], a["slice_depth"], a["stage_bytes"]) == (
+                    iops.STAGES, iops.SLICE_DEPTH[dtype], iops.STAGE_BYTES)
+                assert a["smem_bytes"] == iops.smem_bytes(m)
+                assert a["wide_smem_bytes"] == 1024 + iops.STAGES * \
+                    iops.STAGE_BYTES
+                assert a["spill_bytes"] == a["wide_spill_bytes"] == 0, a
+    elif kernel == "mega_query":
+        # its phases share 128 registers a thread; the kernel spilled 56 to
+        # 64 bytes a thread before the tile was redesigned, and no more now
+        for rows in (torch.float32, torch.int8, torch.bfloat16):
+            for m in (1, 5, 8):
+                a = mops.kernel_attrs(rows, m)
+                assert a["tiles_smem_bytes"] == 1024 + 2 * \
+                    iops.tile_smem_bytes(m)
+                assert (a["stages"], a["slice_depth"]) == (
+                    iops.STAGES, iops.SLICE_DEPTH[torch.float32])
+                assert a["spill_bytes"] <= 64, a
+    else:
+        for d, k in ((96, 10), (96, 100), (96, 108), (96, 109), (100, 10),
+                     (17, 300), (8, 1), (288, 10), (289, 10), (768, 92),
+                     (768, 93), (960, 100)):
+            a = dops.kernel_attrs(d, k)
+            assert a["smem_bytes"] == dops.smem_bytes(d, k)
+            assert a["lists_in_smem"] == dops.lists_in_smem(d, k)
+            assert a["query_resident"] == dops.query_resident(d)
+            assert a["blocks_per_sm"] == dops.blocks_per_sm(d, k), (d, k, a)
+            assert (a["stages"], a["slice_depth"]) == (dops.STAGES,
+                                                       dops.SLICE)
+            assert a["spill_bytes"] == a["l2_spill_bytes"] == 0, a
+            assert a["stream_spill_bytes"] == a["stream_l2_spill_bytes"] \
+                == 0, a
 
 
 # ------------------------------------------------------- flash attention --

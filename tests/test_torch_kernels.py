@@ -284,7 +284,7 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
     before = {n: _build.library_path(n) for n in names}
     assert {p.name for p in _build.sources("mega_query")} == {
         "mega_query.cu", "irli_topk.cuh", "quant_rerank.cuh",
-        "freq_topc.cuh"}
+        "freq_topc.cuh", "tma.cuh"}
     assert {p.name for p in _build.sources("freq_topc")} == {
         "freq_topc.cu", "freq_topc.cuh"}
     header = tmp_path / "kernels" / "quant_rerank" / "quant_rerank.cuh"

@@ -208,14 +208,16 @@ def test_select_mode_and_resolve_match_reference(case):
 
 def test_mega_fits_the_card():
     """The H100 footprint model: the deep1b cell fits (n = 32768 sort row,
-    two 94 KB scorer tiles), rows past the freq_topc sort width do not, nor
-    does a footprint past one block's shared memory."""
+    two 107 KB scorer tiles: the 96 KB ring of GEMM slices, which each
+    column tile's logits reuse, the lse halves and 256 half-row top-m
+    lists, plus 1 KB to align them), rows past the freq_topc sort width do
+    not, nor does a footprint past one block's shared memory."""
     from repro.kernels.mega_query.ops import mega_fits as jfits
     from repro_torch.kernels.mega_query import ops as mops
     cell = dict(R=32, B=20000, ML=200, d=96, D=96)
     assert mops.mega_fits(5, 1024, 0, 10, geom=cell)
-    assert mops.mega_smem_bytes(5, 1024, 0, 10, geom=cell) == 2 * (
-        83712 + 256 * 5 * 8)
+    assert mops.mega_smem_bytes(5, 1024, 0, 10, geom=cell) == 1024 + 2 * (
+        3 * 32768 + 2 * 128 * 4 + 256 * 5 * 8)
     p = mops.plan(32, 200, 5, 1024, 0, 10)
     assert (p.W, p.n, p.C, p.kp, p.k_eff) == (32000, 32768, 1024, 40, 10)
     assert not mops.mega_fits(6, 1024, 0, 10, geom=cell)     # W = 38400
