@@ -89,8 +89,11 @@ shape, at the stream's insert shape and at a worst case, every label of a
 rep on one K-list: bit-equal, its rounds equal to the plain schedule's,
 its bound from the inputs' dependence depth), and
 the formerly refused shapes (irli_topk at m = 128, 40,000-wide freq_topc
-rows through its wide variant, quant_rerank at topC = 20,000) against
-theirs. bce_logits' gradient is held in the units
+rows through a cluster of two blocks, quant_rerank at topC = 20,000)
+against theirs; freq_topc also on every row of tests/torch_freq_cases.py
+(the card tests' widths and adversarial rows) and on 300,000-wide rows
+(its wide kernel), with its registers and spill bytes (0, a gate) and its
+launch plan against ops.radix_plan. bce_logits' gradient is held in the units
 of σ(x) - y (each element divided by its row's scale·w), where TOL bounds
 a value of size up to 1. Then it times every stage and kernel with CUDA
 events. The three kernels on the fp32 tile GEMM (irli_topk.cuh: irli_topk,
@@ -114,12 +117,13 @@ Widths (configs/irli_deep1b.py): D=96, B=20000, R=32, H=1024. Search, the
 serve_query cell: int8 block 32, m=5, tau=2, k=10, topC=1024, refine_k auto
 (40); reduced in scale to one card: L = 2,000,000 corpus rows (of 2^27),
 so that max_load = 2·L/B = 200 and the gathered width C0 = R·m·max_load =
-32,000 sorts in one block's shared memory (freq_topc's MAX_WIDTH 32,768);
+32,000 fits one freq_topc block and mega_query's sort (MAX_WIDTH 32,768);
 Q = 1024 queries per call (of 4096); data, queries and weights random,
 from a seed. The stream cell: the same index and queries, K = 10 placement
 choices, the reference's default capacity 2·L and delta_len 208
 (default_delta_len); its streaming search gathers C0 = R·m·(200 + 208) =
-65,280 ids a query (freq_topc's wide variant); its 65,536 inserts and
+65,280 ids a query (a cluster of two freq_topc blocks; 55,040 after
+compaction); its 65,536 inserts and
 100,000 deletes are 3.3% and 5% of the corpus. The fit: K =
 FIT_K = 10, 100 exact-neighbour labels a point (K_NEIGH), lr 1e-3, ANN mode
 (Def. 2); reduced in scale: L = N = 131,072 labels and training points (of
@@ -216,6 +220,22 @@ def bound(flops: float, nbytes: float):
     the fp32 peak and the bytes at the memory rate -> (ms, bound_by)."""
     return max((flops / FP32_FLOPS * 1e3, "operations"),
                (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+
+
+def freq_smem_bytes(plan: dict, rows: int, windows: int) -> int:
+    """Shared-memory bytes freq_topc's row kernel moves for `rows` rows of
+    its plan (ops.radix_plan) and `windows` count windows in all: a radix
+    pass takes a 4-byte atomic on the key's counter in each of its two
+    walks, writes the key to its rank and reads it back (16 B a slot), a
+    window the two atomics (8 B a slot); each scans the block's counters
+    (read twice, written once); the run count reads each slot's neighbour
+    (4 B a slot)."""
+    slots = min(plan["slots"], plan["threads"] * 64)      # a block's
+    words = plan["threads"] * 34                           # its counters
+    blocks = rows * plan["cluster"]
+    return (blocks * (plan["passes"] * (16 * slots + 12 * words)
+                      + 4 * slots)
+            + windows * plan["cluster"] * (8 * slots + 12 * words))
 
 
 def tile_report(name, ms, flops, alone_ms, alone, attrs,
@@ -624,9 +644,14 @@ def fit_cell(torch, dev, check_irli) -> dict:
         torch, "neighbours' chunk", vals, ids, q1, base, every, K_NEIGH))
     nb_ms = time_ms(torch, lambda: neighbours(torch, dev, base, q1, K_NEIGH),
                     n=3, warmup=1)
+    # its bound: the distances' operations, and the rows, queries, the
+    # stride-0 mask and the k ids and values each moved once
+    nb_bound = bound(2 * 1024 * FIT_L * D, (FIT_L + 1024) * D * 4 + FIT_L
+                     + 1024 * K_NEIGH * 8)
     log(f"neighbours (exact_topk, k={K_NEIGH}) of one chunk of 1024 "
         f"training queries over {FIT_L} rows: {nb_ms:.4f} ms (at most "
-        f"{NEIGHBOURS_MS_MAX})")
+        f"{NEIGHBOURS_MS_MAX}); bound {nb_bound[0]:.4f} ms ({nb_bound[1]}: "
+        f"{2 * 1024 * FIT_L * D / 1e9:.2f} GFLOP at the fp32 peak)")
     if nb_ms > NEIGHBOURS_MS_MAX:
         raise AssertionError(f"a neighbours chunk took {nb_ms:.4f} ms, more "
                              f"than {NEIGHBOURS_MS_MAX}")
@@ -1391,6 +1416,52 @@ def dist_check(torch, name, vals, ids, q, base, mask, k, metric="dot"):
     return err
 
 
+@contextlib.contextmanager
+def freq_rows_seen(seen: list):
+    """Within it, every freq_topc launch also appends its (candidates, C)
+    to ``seen``; the launch itself is unchanged."""
+    from repro_torch.kernels.freq_topc import ops as fops
+    launch = fops.freq_topc
+
+    def capture(cands, *, C):
+        seen.append((cands, C))
+        return launch(cands, C=C)
+
+    fops.freq_topc = capture
+    try:
+        yield seen
+    finally:
+        fops.freq_topc = launch
+
+
+def stream_freq(torch, seen) -> dict:
+    """freq_topc at the streaming search's own gathered candidates, before
+    compaction (C0 = R·m·(max_load + delta_len) = 65,280 a query: a cluster
+    of two blocks a row) and after it: each held bit-equal to the plain
+    version, then timed beside the plain version and the byte bound (the
+    ids read once, the ids and counts written once)."""
+    from repro_torch.kernels.freq_topc import ops as fops
+    from repro_torch.kernels.freq_topc.ref import freq_topc_ref
+    out = {}
+    for key, (cands, C) in zip(("stream", "stream_compacted"), seen):
+        ids, cnt = fops.freq_topc(cands, C=C)
+        rids, rcnt = freq_topc_ref(cands, C=C)
+        if not (torch.equal(ids, rids) and torch.equal(cnt, rcnt)):
+            raise AssertionError(f"freq_topc differs from its plain version "
+                                 f"at the {key} search's candidates")
+        plan = fops.radix_plan(cands.shape[1], int(cands.max()))
+        ms = time_ms(torch, lambda: fops.freq_topc(cands, C=C), n=10)
+        plain = time_ms(torch, lambda: freq_topc_ref(cands, C=C), n=5)
+        b = bound(0, cands.numel() * 4 + cands.shape[0] * C * 8)
+        log(f"freq_topc at the {key} search's candidates "
+            f"{tuple(cands.shape)} C={C}: bit-exact; plan {plan}; kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b[0]:.4f} ms "
+            f"({b[1]})")
+        out.update({f"{key}_shape": list(cands.shape), f"{key}_ms": ms,
+                    f"{key}_plain_ms": plain, f"{key}_bound_ms": b[0]})
+    return out
+
+
 def stream_cell(torch, dev, idx, corpus, queries, plain_search, agree):
     """The stream cell: MutableIRLIIndex over the serve cell's index (L =
     2,000,000, capacity 2·L, delta_len 208, int8 store) at the irli-deep1b
@@ -1446,16 +1517,19 @@ def stream_cell(torch, dev, idx, corpus, queries, plain_search, agree):
     n_dead = midx.delete(dead)
     torch.cuda.synchronize()
     delete_s = time.perf_counter() - t0
+    seen = []                  # the candidates each search gathers
     t0 = time.perf_counter()
-    pre = midx.search(queries, sp, cache=cache)
-    torch.cuda.synchronize()
+    with freq_rows_seen(seen):
+        pre = midx.search(queries, sp, cache=cache)
+        torch.cuda.synchronize()
     first_search_s = time.perf_counter() - t0
     snap = midx.snapshot
     t0 = time.perf_counter()
     midx.compact()
     torch.cuda.synchronize()
     compact_s = time.perf_counter() - t0
-    post = midx.search(queries, sp, cache=cache)
+    with freq_rows_seen(seen):
+        post = midx.search(queries, sp, cache=cache)
     oracle = midx.exact_oracle(K)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1559,6 +1633,8 @@ def stream_cell(torch, dev, idx, corpus, queries, plain_search, agree):
     # ---- the times ----
     search_ms = time_ms(torch, lambda: midx.search(queries, sp, cache=cache),
                         n=5, warmup=1)
+    freq = stream_freq(torch, seen)
+    del seen
     oracle_ms = time_ms(torch, lambda: oracle(queries), n=5, warmup=1)
     dist_ms = time_ms(torch, lambda: dops.distance_topk(queries, vecs, liveq,
                                                         k=K), n=10)
@@ -1608,7 +1684,7 @@ def stream_cell(torch, dev, idx, corpus, queries, plain_search, agree):
     torch.cuda.empty_cache()
     return {"launches": launches, "search_err": serr, "dist_err": derr,
             "times": (dist_ms, dist_plain, dist_lib), "bound": dist_bound,
-            "tile": tile}
+            "tile": tile, "freq": freq}
 
 
 def main() -> int:
@@ -1728,16 +1804,43 @@ def main() -> int:
     err = max(err, check_freq("edges (all-pad, one id, width 777)", edge,
                               1024),
               check_freq("C > distinct ids", edge[2:], 64))
-    # rows wider than MAX_WIDTH: the wide variant (sorts in global scratch)
+    # the card tests' rows (tests/torch_freq_cases.py): the widths at the
+    # edges of a block (32,768) and of the cluster, the stream cell's
+    # 65,280, all pads, one id 65,280 times, all distinct, ids near 2^31,
+    # counts spread past one ranking window; and a row past 8 chunks (the
+    # wide kernel)
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_freq_cases import freq_rows
+    cases = dict(freq_rows())
+    past = torch.randint(-1, 100_000, (2, 300_000), generator=rng,
+                         device=dev, dtype=torch.int32)
+    for name, (rows, C) in cases.items():
+        err = max(err, check_freq(name, torch.from_numpy(rows).to(dev), C))
+    err = max(err, check_freq("300,000 wide (the wide kernel)", past, TOPC))
+    fattrs = fops.kernel_attrs()
+    log(f"freq_topc attrs: the row kernel {fattrs['registers']} registers, "
+        f"{fattrs['spill_bytes']} spill bytes a thread, {fattrs['smem_bytes']}"
+        f" B of shared memory a block; the wide kernel "
+        f"{fattrs['wide_registers']} registers, {fattrs['wide_spill_bytes']} "
+        f"spill bytes, {fattrs['wide_smem_bytes']} B")
+    if fattrs["spill_bytes"] or fattrs["wide_spill_bytes"]:
+        raise AssertionError(f"freq_topc spills registers: {fattrs}")
+    for c0, mx in ((C0, 1_999_999), (40_000, 29_999), (65_280, 2 ** 31 - 2),
+                   (300_000, 99_999), (777, -1)):
+        if fops.plan_export(c0, mx) != fops.radix_plan(c0, mx):
+            raise AssertionError(f"freq_topc's plan at C0={c0}: C side "
+                                 f"{fops.plan_export(c0, mx)}, radix_plan "
+                                 f"{fops.radix_plan(c0, mx)}")
+    # rows wider than a block (a cluster of two blocks a row)
     wide40 = torch.randint(-1, 30_000, (64, 40_000), generator=rng,
                            device=dev, dtype=torch.int32)
-    err = max(err, check_freq("40,000-wide rows (the wide variant)", wide40,
+    err = max(err, check_freq("40,000-wide rows (a cluster of 2)", wide40,
                               TOPC))
     wide_ms = time_ms(torch, lambda: fops.freq_topc(wide40, C=TOPC), n=5)
     wide_plain = time_ms(torch, lambda: freq_topc_ref(wide40, C=TOPC), n=5)
     log(f"freq_topc 40,000-wide rows {tuple(wide40.shape)} (not on a main "
         f"path): kernel {wide_ms:.4f} ms, plain {wide_plain:.4f} ms")
-    del wide40
+    del wide40, past
     record["freq_topc"] = {"max_abs_err": err}
 
     def check_quant(name, store, metric, cid, cnt, tau, kp, q=None):
@@ -2068,18 +2171,21 @@ def main() -> int:
     plain_freq = time_ms(torch, lambda: freq_topc_ref(cands, C=TOPC), n=10)
     freq_bytes = cands.numel() * 4 + Q * TOPC * 8
     bounds["freq_topc"] = bound(0, freq_bytes)
-    n = fops.sort_width(cands.shape[1])
-    passes = n.bit_length() * (n.bit_length() - 1) // 2      # per sort
-    smem_reads = Q * 2 * passes * n * 4
+    plan = fops.radix_plan(cands.shape[1], int(cands.max()))
+    top = freq_topc_ref(cands, C=1)[1][:, 0]          # each row's top count
+    windows = int((top > 0).sum()) + int((top > fops.BINS - 1).sum())
+    smem = freq_smem_bytes(plan, Q, windows)
     sm_clock = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     smem_rate = torch.cuda.get_device_properties(0).multi_processor_count \
         * 128 * sm_clock                       # 32 banks x 4 B a clock
     log(f"freq_topc: {freq_bytes / 1e6:.1f} MB in+out -> bound "
         f"{bounds['freq_topc'][0] * 1e3:.1f} us; kernel "
-        f"{stage_ms['freq_topc']:.4f} ms, plain {plain_freq:.4f} ms; its "
-        f"2 sorts x {passes} passes read {smem_reads / 1e9:.1f} GB of shared "
-        f"memory -> {smem_reads / smem_rate * 1e3:.3f} ms at "
-        f"{smem_rate / 1e12:.1f} TB/s")
+        f"{stage_ms['freq_topc']:.4f} ms, plain {plain_freq:.4f} ms; plan "
+        f"{plan}; its {plan['passes']} radix passes a row and {windows} "
+        f"count windows ({int((top > fops.BINS - 1).sum())} rows with a "
+        f"count past {fops.BINS - 1} need two or more, counted as two) move "
+        f"{smem / 1e9:.2f} GB of shared memory -> "
+        f"{smem / smem_rate * 1e3:.3f} ms at {smem_rate / 1e12:.1f} TB/s")
 
     def quant_bound(tau):
         """Least time for the coarse stage on this run's inputs: the ids,
@@ -2213,6 +2319,7 @@ def main() -> int:
     record["distance_topk"] = {"max_abs_err": max(stream["dist_err"],
                                                   fit["dist_err"])}
     tiles["distance_topk"] = stream["tile"]
+    tiles["freq_topc"] = stream["freq"]
     bounds.update(fit["bounds"], distance_topk=stream["bound"])
     ierr = max(record["irli_topk"]["max_abs_err"], fit["irli_err"])
     record["irli_topk"] = {"max_abs_err": ierr}

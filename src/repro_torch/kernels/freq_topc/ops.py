@@ -1,11 +1,15 @@
 """The ONE dispatch site for FrequentOnes top-C (core/query.frequency_topC).
 
 A CPU tensor takes the plain version (ref.py); a CUDA tensor launches the
-hand-written kernel (freq_topc.cu) or raises. Rows up to ``MAX_WIDTH`` wide
-sort in one block's shared memory; wider rows (the paper's per-node shard
-gathers C0 ~ 268k) launch the kernel's wide variant, which sorts in global
-scratch. (The reference sends such rows to its plain version, on the TPU
-too.)
+hand-written kernel (freq_topc.cu) or raises. The kernel sorts each row by
+LSD radix passes with the row's ids in registers: rows up to ``CHUNK`` wide
+in one block, rows up to MAX_CLUSTER chunks (the stream cell's 65,280) in a
+thread block cluster of one block a chunk, which scatters keys into each
+other's shared memory. Wider rows (the paper's per-node shard gathers C0 ~
+268k) take the wide variant, one block a row passing its chunks between two
+global scratch rows. (The reference sends rows past 32,768 to its plain
+version, on the TPU too.) ``radix_plan`` is the launch plan the C side
+computes, for the CPU tests and chip_smoke.py.
 """
 from __future__ import annotations
 
@@ -15,11 +19,23 @@ import functools
 import torch
 
 from repro_torch.kernels import LAUNCHES, check_launch, on_card
-from repro_torch.kernels.freq_topc.ref import freq_topc_ref
+from repro_torch.kernels.freq_topc.ref import (CHUNK, DIGIT_BITS, KEYS,
+                                               freq_topc_ref, sort_passes)
 
-#: widest candidate row whose packed (count, position) keys fit int32 and
-#: whose sort fits one block's shared memory (wider rows: the wide variant)
+#: widest candidate row of the fused query kernel's bitonic sort
+#: (mega_query.cu's phase 3 keeps freq_topc.cuh's bitonic routines)
 MAX_WIDTH = 32768
+#: bins of a ranking pass, ints of reduction scratch (freq_topc.cuh) and
+#: of a block's cluster exchange area (freq_topc.cu)
+BINS, RED = 1 << DIGIT_BITS, 64
+#: blocks a cluster of the row kernel (chunks a row); wider rows take the
+#: wide kernel
+MAX_CLUSTER = 8
+#: threads a block of the wide kernel (its chunks: WIDE_THREADS x KEYS)
+WIDE_THREADS = 256
+EXCHANGE = 3 * BINS + 3 + MAX_CLUSTER * (BINS + 2)
+#: the widest row the kernel takes
+MAX_C0 = 2 ** 30
 
 
 @functools.cache
@@ -27,28 +43,96 @@ def _lib():
     """The kernel's C entries, built and loaded at first use."""
     from repro_torch.kernels import _build
     lib = _build.load("freq_topc")
-    head = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
-    out = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    lib.freq_topc_launch.argtypes = head + out
+    lib.freq_topc_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.freq_topc_launch.restype = ctypes.c_int
-    lib.freq_topc_wide_launch.argtypes = head + [ctypes.c_void_p] + out
-    lib.freq_topc_wide_launch.restype = ctypes.c_int
+    lib.freq_topc_plan.argtypes = [ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p]
+    lib.freq_topc_plan.restype = ctypes.c_int
+    lib.freq_topc_attrs.argtypes = [ctypes.c_void_p]
+    lib.freq_topc_attrs.restype = ctypes.c_int
     return lib
 
 
 def sort_width(C0: int) -> int:
-    """The kernel's padded row width: the next power of two >= C0 (>= 32)."""
+    """The fused query kernel's padded row width: the next power of two
+    >= C0 (>= 32)."""
     n = 32
     while n < C0:
         n *= 2
     return n
 
 
+_PLAN_KEYS = ("wide", "cluster", "threads", "chunks", "slots",
+              "smem_bytes", "scratch_ints", "passes", "digit_bits")
+
+
+def radix_plan(C0: int, max_id: int) -> dict[str, int]:
+    """The launch plan of a row C0 wide whose largest id is max_id (-1: no
+    real id). wide 0: the row kernel, a cluster of ``cluster`` blocks a
+    row, each a chunk of CHUNK slots (one block of ``threads`` for rows up
+    to CHUNK); wide 1, rows past MAX_CLUSTER chunks: the wide kernel, one
+    block a row passing chunks of WIDE_THREADS x KEYS slots through global
+    scratch. Then threads a block, chunks, slots (keys sorted, pads
+    included), dynamic shared bytes a block, global scratch ints a row, the
+    id sort's radix passes and digit bits (the C side's
+    ``freq_topc_plan``)."""
+    if not 1 <= C0 <= MAX_C0:
+        raise ValueError(f"candidate width {C0} outside [1, 2^30]")
+    passes, bits = sort_passes(max_id + 1)
+
+    def padded(p):                   # a padded row: a pad word every 64
+        return p + p // 64
+
+    def counter_words(threads):      # 16-bit (digit, thread) counters
+        return BINS * threads // 2 + BINS * threads // 32
+
+    chunks = -(-C0 // CHUNK)
+    wide = int(chunks > MAX_CLUSTER)
+    if wide:
+        threads = WIDE_THREADS
+        chunks = -(-C0 // (threads * KEYS))
+        slots = chunks * threads * KEYS
+        smem = (padded(threads * KEYS) + counter_words(threads) + 2 * BINS
+                + RED) * 4
+        scratch = 2 * slots + BINS * chunks
+    else:
+        threads = (CHUNK // KEYS if chunks > 1
+                   else -(-C0 // (32 * KEYS)) * 32)
+        slots = chunks * CHUNK if chunks > 1 else threads * KEYS
+        smem = (padded(min(slots, CHUNK)) + counter_words(threads) + RED
+                + EXCHANGE) * 4
+        scratch = 0
+    cluster = 1 if wide else chunks
+    return dict(zip(_PLAN_KEYS, (wide, cluster, threads, chunks, slots,
+                                 smem, scratch, passes, bits)))
+
+
+def plan_export(C0: int, max_id: int) -> dict[str, int]:
+    """The C side's own plan (freq_topc_plan, on the card), keyed as
+    ``radix_plan``."""
+    out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+    check_launch("freq_topc_plan", _lib().freq_topc_plan(C0, max_id, out))
+    return dict(zip(_PLAN_KEYS, out))
+
+
+def kernel_attrs() -> dict[str, int]:
+    """The C side's account of both kernels (freq_topc_attrs, on the card):
+    registers and local (spill) bytes a thread and the largest dynamic
+    shared bytes of the row kernel and of the wide kernel (``wide_``)."""
+    out = (ctypes.c_longlong * 6)()
+    check_launch("freq_topc_attrs", _lib().freq_topc_attrs(out))
+    keys = ("registers", "spill_bytes", "smem_bytes", "wide_registers",
+            "wide_spill_bytes", "wide_smem_bytes")
+    return dict(zip(keys, out))
+
+
 def freq_topc(cands: torch.Tensor, *, C: int):
-    """Launch the CUDA kernel: cands [Q, C0] int32 on the card (pad -1)
-    -> (ids [Q, C] int32, counts [Q, C] float32). Rows wider than
-    ``MAX_WIDTH`` take the wide variant (sorts in global scratch)."""
+    """Launch the CUDA kernel: cands [Q, C0] int32 on the card (pad: any
+    negative id) -> (ids [Q, C] int32, counts [Q, C] float32). One launch;
+    rows past MAX_CLUSTER chunks take the wide variant, which needs
+    ``radix_plan``'s scratch ints a row."""
     if not on_card(cands):
         raise ValueError("freq_topc launches on a CUDA tensor only")
     if cands.dtype != torch.int32 or cands.ndim != 2:
@@ -57,7 +141,7 @@ def freq_topc(cands: torch.Tensor, *, C: int):
     if C < 1:
         raise ValueError(f"C must be >= 1, got {C}")
     Q, C0 = cands.shape
-    if C0 > 2 ** 30:
+    if C0 > MAX_C0:
         raise ValueError(f"candidate width {C0} > 2^30")
     cands = cands.contiguous()
     dev = cands.device
@@ -65,19 +149,15 @@ def freq_topc(cands: torch.Tensor, *, C: int):
     cnt = torch.empty((Q, C), dtype=torch.float32, device=dev)
     if C0 == 0:
         return ids.fill_(-1), cnt.zero_()
-    n = sort_width(C0)
-    scratch = torch.empty((Q, n), dtype=torch.int32, device=dev)
+    need = radix_plan(C0, -1)["scratch_ints"]
+    scratch = (torch.empty((Q, need), dtype=torch.int32, device=dev)
+               if need else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        if n <= MAX_WIDTH:
-            err = _lib().freq_topc_launch(
-                cands.data_ptr(), Q, C0, n, C, scratch.data_ptr(),
-                ids.data_ptr(), cnt.data_ptr(), stream)
-        else:
-            keys = torch.empty((Q, n), dtype=torch.int64, device=dev)
-            err = _lib().freq_topc_wide_launch(
-                cands.data_ptr(), Q, C0, n, C, scratch.data_ptr(),
-                keys.data_ptr(), ids.data_ptr(), cnt.data_ptr(), stream)
+        err = _lib().freq_topc_launch(
+            cands.data_ptr(), Q, C0, C,
+            None if scratch is None else scratch.data_ptr(),
+            ids.data_ptr(), cnt.data_ptr(), stream)
     check_launch("freq_topc", err)
     LAUNCHES["freq_topc"] += 1
     return ids, cnt

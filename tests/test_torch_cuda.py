@@ -24,15 +24,13 @@ from repro_torch.kernels.quant_rerank import ops as qops  # noqa: E402
 from repro_torch.kernels.quant_rerank.ref import (  # noqa: E402
     quant_rerank_ref, same_topk)
 from repro_torch.store.quantized import encode  # noqa: E402
+from torch_freq_cases import (  # noqa: E402
+    FREQ_CASES, FREQ_ROW_NAMES, freq_rows)
+from torch_freq_cases import random_rows as _cands  # noqa: E402
 from torch_kchoice_cases import candidate_lists  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
-FREQ_CASES = [
-    (8, 96, 40, 16),      # fewer values than slots: heavy duplication
-    (7, 120, 500, 64),    # mostly-distinct
-    (4, 100, 30, 160),    # C > C0: output right-padded
-]
 QUANT_CASES = [
     (8, 200, 32, 24, 8, 16),
     (7, 500, 48, 40, 12, 16),
@@ -45,14 +43,6 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: CUDA kernels have no CPU mode")
     return torch.device("cuda")
-
-
-def _cands(Q, C0, V):
-    rng = np.random.default_rng(Q + C0)
-    cands = rng.integers(-1, V, (Q, C0)).astype(np.int32)
-    cands[0, : C0 // 2] = -1                     # heavily padded row
-    cands[-1] = -1                               # zero-candidate row
-    return cands
 
 
 def _quant_inputs(Q, L, D, C, blk, dtype, seed):
@@ -80,10 +70,10 @@ def test_freq_topc_kernel_matches_plain_exactly(card, Q, C0, V, C):
     assert torch.equal(ids, rids) and torch.equal(cnt, rcnt)
 
 
-def test_freq_topc_raises_on_rows_wider_than_the_kernel(card):
-    """Rows past MAX_WIDTH launch the kernel's wide variant (sorts in global
-    scratch, int64 keys): 40,000- and 70,000-wide rows (padded to 65,536
-    and 131,072) equal freq_topc_ref bit for bit, one launch each."""
+def test_freq_topc_matches_plain_on_rows_wider_than_a_block(card):
+    """Rows past one block's 32,768 ids take a thread block cluster of one
+    block a 32,768-id chunk: 40,000- and 70,000-wide rows (clusters of 2
+    and 3) equal freq_topc_ref bit for bit, one launch each."""
     for C0, V, C in ((40_000, 30_000, 1024), (70_000, 500, 4096)):
         cands = torch.from_numpy(_cands(3, C0, V)).to(card)
         reset_launches()
@@ -92,6 +82,76 @@ def test_freq_topc_raises_on_rows_wider_than_the_kernel(card):
         assert LAUNCHES["freq_topc"] == 1
         rids, rcnt = freq_topc_ref(cands, C=C)
         assert torch.equal(ids, rids) and torch.equal(cnt, rcnt)
+
+
+def _freq_exact(cands, C):
+    reset_launches()
+    ids, cnt = fops.frequent_topc(cands, C=C)
+    torch.cuda.synchronize()
+    assert LAUNCHES["freq_topc"] == 1
+    rids, rcnt = freq_topc_ref(cands, C=C)
+    assert torch.equal(ids, rids) and torch.equal(cnt, rcnt)
+    return ids, cnt
+
+
+@pytest.mark.parametrize("name", FREQ_ROW_NAMES)
+def test_freq_topc_kernel_matches_plain_on_every_row(card, name):
+    """The widths at the edges of a warp, a block and a cluster, the stream
+    cell's 65,280, and the adversarial rows (tests/torch_freq_cases.py):
+    bit for bit, one launch each."""
+    rows, C = freq_rows()[name]
+    _freq_exact(torch.from_numpy(rows).to(card), C)
+
+
+@pytest.mark.parametrize("C0", [262_144, 262_145, 300_000])
+def test_freq_topc_kernel_past_eight_chunks(card, C0):
+    """A cluster of 8 blocks holds 262,144 ids; one more takes the wide
+    kernel (chunks of 16,384 through global scratch)."""
+    rng = np.random.default_rng(C0)
+    rows = rng.integers(-1, C0 // 3, (2, C0)).astype(np.int32)
+    rows[1, ::5] = 77
+    assert fops.radix_plan(C0, C0)["wide"] == int(C0 > 262_144)
+    _freq_exact(torch.from_numpy(rows).to(card), 1024)
+
+
+def test_freq_topc_kernel_reads_an_unaligned_row(card):
+    """A row whose start is not 16-byte aligned (a view one int into its
+    storage) takes scalar loads; widths not a multiple of 4 do too."""
+    rows = _cands(4, 32_000, 9000)
+    flat = torch.zeros(rows.size + 1, dtype=torch.int32, device=card)
+    flat[1:] = torch.from_numpy(rows.ravel()).to(card)
+    cands = flat[1:].view(rows.shape)
+    assert cands.is_contiguous() and cands.data_ptr() % 16 != 0
+    _freq_exact(cands, 1024)
+    _freq_exact(torch.from_numpy(_cands(3, 32_001, 9000)).to(card), 64)
+
+
+@pytest.mark.parametrize("Q,C0", [(64, 32_000), (16, 65_280),
+                                  (2, 300_000)])
+def test_freq_topc_two_launches_are_bit_equal(card, Q, C0):
+    g = torch.Generator(device=card).manual_seed(C0)
+    cands = torch.randint(-1, 2_000_000, (Q, C0), generator=g, device=card,
+                          dtype=torch.int32)
+    a = fops.freq_topc(cands, C=1024)
+    b = fops.freq_topc(cands, C=1024)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_freq_topc_kernels_do_not_spill(card):
+    """0 spill bytes in both kernels (the row kernel at 512 threads and 128
+    registers, the wide one at 256 and 255), and the shared memory the C
+    side reports is radix_plan's."""
+    a = fops.kernel_attrs()
+    assert a["spill_bytes"] == 0 and a["wide_spill_bytes"] == 0, a
+    assert a["smem_bytes"] == fops.radix_plan(32_768, 0)["smem_bytes"]
+    assert a["wide_smem_bytes"] == fops.radix_plan(300_000, 0)["smem_bytes"]
+
+
+@pytest.mark.parametrize("C0", [1, 31, 777, 2049, 32_000, 32_768, 32_769,
+                                65_280, 70_000, 262_144, 262_145, 2 ** 30])
+def test_freq_topc_radix_plan_is_the_c_sides(card, C0):
+    for max_id in (-1, 0, 62, 63, 1_999_999, 2 ** 27 - 2, 2 ** 31 - 1):
+        assert fops.plan_export(C0, max_id) == fops.radix_plan(C0, max_id)
 
 
 @pytest.mark.parametrize("dtype", ["int8", "bf16"])

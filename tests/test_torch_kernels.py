@@ -28,29 +28,20 @@ from repro_torch.kernels.kchoice import ops as kops  # noqa: E402
 from repro_torch.kernels.kchoice.ref import (  # noqa: E402
     dependence_depth, kchoice_ref, kchoice_windows)
 from repro_torch.kernels.freq_topc import ops as fops  # noqa: E402
-from repro_torch.kernels.freq_topc.ref import freq_topc_ref  # noqa: E402
+from repro_torch.kernels.freq_topc.ref import (  # noqa: E402
+    freq_topc_radix, freq_topc_ref)
 from repro_torch.kernels.irli_topk import ops as iops  # noqa: E402
 from repro_torch.kernels.irli_topk.ref import (  # noqa: E402
     irli_topk_ref, same_topm)
 from repro_torch.kernels.quant_rerank import ops as qops  # noqa: E402
 from repro_torch.kernels.quant_rerank.ref import quant_rerank_ref  # noqa: E402
 from repro_torch.store.quantized import encode  # noqa: E402
+from torch_freq_cases import (  # noqa: E402
+    FREQ_CASES, FREQ_ROW_NAMES, runs_row, freq_rows)
+from torch_freq_cases import random_rows as _cands  # noqa: E402
 
 
 # ------------------------------------------------------------ freq_topc ----
-FREQ_CASES = [                  # the cases of test_kernels.py's freq_topc
-    (8, 96, 40, 16),      # fewer values than slots: heavy duplication
-    (7, 120, 500, 64),    # mostly-distinct
-    (4, 100, 30, 160),    # C > C0: output right-padded
-]
-
-
-def _cands(Q, C0, V, seed=None):
-    rng = np.random.default_rng(Q + C0 if seed is None else seed)
-    cands = rng.integers(-1, V, (Q, C0)).astype(np.int32)
-    cands[0, : C0 // 2] = -1                     # heavily padded row
-    cands[-1] = -1                               # zero-candidate row
-    return cands
 
 
 @pytest.mark.parametrize("Q,C0,V,C", FREQ_CASES)
@@ -80,6 +71,94 @@ def test_freq_topc_dispatch_on_cpu_takes_the_plain_version():
         fops.freq_topc(cands, C=32)
     with pytest.raises(ValueError, match="all on cpu"):
         on_card(cands, torch.empty(1, device="meta"))
+
+
+def _same_as_references(ids, cnt, cands, C):
+    """ids, cnt equal, bit for bit, to the port's plain version, the JAX
+    package's oracle and its sorted_frequency_topC."""
+    rids, rcnt = freq_topc_ref(torch.from_numpy(cands), C=C)
+    assert torch.equal(ids, rids) and torch.equal(cnt, rcnt)
+    for jids, jcnt in (j_freq(jnp.asarray(cands), C=C),
+                       sorted_frequency_topC(jnp.asarray(cands), C)):
+        np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+        np.testing.assert_array_equal(cnt.numpy(), np.asarray(jcnt))
+
+
+@pytest.mark.parametrize("name", FREQ_ROW_NAMES)
+def test_freq_topc_radix_schedule_matches_the_references(name):
+    """The kernel's schedule (freq_topc_radix: pad key, radix passes in
+    chunks, run ends, count windows) on every width and adversarial row the
+    card tests run."""
+    cands, C = freq_rows()[name]
+    ids, cnt = freq_topc_radix(torch.from_numpy(cands), C=C)
+    _same_as_references(ids, cnt, cands, C)
+
+
+@pytest.mark.parametrize("chunk,digit_bits", [(64, 1), (64, 3), (256, 5),
+                                              (1024, 2), (32_768, 8)])
+@pytest.mark.parametrize("case", ["random", "few ids", "spread counts"])
+def test_freq_topc_radix_schedule_in_small_chunks_and_digits(case, chunk,
+                                                             digit_bits):
+    """Small chunks and digits run the wide kernel's chunked bookkeeping,
+    many passes and many count windows on rows the CPU takes in seconds."""
+    rng = np.random.default_rng(digit_bits)
+    if case == "random":
+        cands, C = _cands(3, 777, 300, seed=chunk), 64
+    elif case == "few ids":
+        cands, C = _cands(4, 1500, 6, seed=chunk), 3
+    else:
+        cands = np.stack([runs_row(rng, [1, 9, 17, 25, 40, 70], 400),
+                          runs_row(rng, [3] * 20 + [50, 90], 400, 5)])
+        C = 30
+    ids, cnt = freq_topc_radix(torch.from_numpy(cands), C=C, chunk=chunk,
+                               digit_bits=digit_bits)
+    _same_as_references(ids, cnt, cands, C)
+
+
+@pytest.mark.parametrize("C0,wide,cluster,threads,slots", [
+    (1, 0, 1, 32, 2048), (31, 0, 1, 32, 2048), (777, 0, 1, 32, 2048),
+    (2049, 0, 1, 64, 4096), (32_000, 0, 1, 512, 32_768),
+    (32_768, 0, 1, 512, 32_768), (32_769, 0, 2, 512, 65_536),
+    (65_280, 0, 2, 512, 65_536), (70_000, 0, 3, 512, 98_304),
+    (262_144, 0, 8, 512, 262_144), (262_145, 1, 1, 256, 278_528),
+    (2 ** 30, 1, 1, 256, 2 ** 30)])
+def test_freq_topc_radix_plan_shapes(C0, wide, cluster, threads, slots):
+    """The launch plan: one block of up to 512 threads (64 ids a thread)
+    holds rows up to 32,768; rows up to 8 chunks of 32,768 take a cluster
+    of a block a chunk; wider rows go, in chunks of 256 x 64, through two
+    global scratch rows and a [64, chunks] table; shared memory fits one
+    block's 232,448 bytes."""
+    p = fops.radix_plan(C0, 1_999_999)
+    assert (p["wide"], p["cluster"], p["threads"], p["slots"]) == (
+        wide, cluster, threads, slots)
+    assert p["chunks"] == -(-C0 // (64 * threads)) if wide else (
+        p["chunks"] == -(-C0 // 32_768))
+    assert p["slots"] >= C0 and p["threads"] % 32 == 0
+    assert p["smem_bytes"] <= 232_448
+    # a padded row (a pad word every 64), the 16-bit counters (64 digits x
+    # threads, a pad word every 16), reduction scratch; the row kernel the
+    # cluster's exchange area (3 x 64 + 3 ints, and 8 blocks' 64 + 2), the
+    # wide kernel 64 + 64 ints of digit starts and bases, 2 scratch rows
+    # and a [64, chunks] table
+    rows = min(slots, 64 * threads)
+    assert p["smem_bytes"] == (rows + rows // 64 + 34 * threads + 64
+                               + (128 if wide else 195 + 8 * 66)) * 4
+    assert p["scratch_ints"] == (2 * slots + 64 * p["chunks"]) * wide
+
+
+@pytest.mark.parametrize("max_id,passes,bits", [
+    (-1, 0, 0),                     # no real id: nothing to sort
+    (0, 1, 1), (62, 1, 6), (63, 2, 4),
+    (1_999_999, 4, 6),              # the deep1b cell's ids: 21 bits
+    (2 ** 27 - 2, 5, 6),            # a full deep1b shard: 27 bits
+    (2 ** 31 - 2, 6, 6),            # pad 2^31 - 1 still an int32
+    (2 ** 31 - 1, 6, 6),            # pad 2^31: 32 bits, unsigned keys
+])
+def test_freq_topc_radix_plan_passes(max_id, passes, bits):
+    """The id sort's passes: b = bit_length(max_id + 1) bits in ceil(b / 6)
+    passes of equal width."""
+    p = fops.radix_plan(100, max_id)
+    assert (p["passes"], p["digit_bits"]) == (passes, bits)
 
 
 # ----------------------------------------------------------- quant_rerank ---
