@@ -76,7 +76,8 @@ widths, the LM prefill at gemma-7b's and DIEN's serve path at its own:
     time, samples/s, peak memory above the weights and inputs and device
     time by op (``device_split``); then the kernel alone at serve_bulk's
     shapes beside its byte bound, the plain version and
-    ``F.embedding_bag``.
+    ``F.embedding_bag``, and at serve_p99's item ids; its registers and
+    spill bytes (0, a gate) and its lane plan against the C side's.
 
 Each path's counters are set to 0 just before it runs and read just after;
 the kernels line gives each kernel's launches by path.
@@ -96,7 +97,10 @@ against theirs; freq_topc also on every row of tests/torch_freq_cases.py
 launch plan against ops.radix_plan. bce_logits' gradient is held in the units
 of σ(x) - y (each element divided by its row's scale·w), where TOL bounds
 a value of size up to 1. Then it times every stage and kernel with CUDA
-events. The three kernels on the fp32 tile GEMM (irli_topk.cuh: irli_topk,
+events; embedding_bag and quant_rerank (at tau = 2 and at tau = 1) also
+by their device time alone (``device_ms``: calls captured in a CUDA graph),
+beside their registers and spill bytes (0, a gate for both). The three
+kernels on the fp32 tile GEMM (irli_topk.cuh: irli_topk,
 mega_query, distance_topk) each get a tile line: TFLOP/s of their GEMM
 operations and the share of the FMA peak, the card's own fp32 GEMM alone at
 the same shapes beside it (torch.bmm, torch.mm; no TF32), the ring's depth
@@ -213,6 +217,23 @@ def time_ms(torch, fn, n: int = 15, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, n: int = 20) -> float:
+    """The device time of one fn() call in ms without the host time of
+    the call, which time_ms includes: n calls captured in one CUDA graph,
+    the median of 5 replays over n."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return time_ms(torch, graph.replay, n=5, warmup=1) / n
 
 
 def bound(flops: float, nbytes: float):
@@ -623,6 +644,7 @@ def fit_cell(torch, dev, check_irli) -> dict:
     from repro_torch.kernels.bce_logits import ops as bops
     from repro_torch.kernels.bce_logits.ref import weighted_bce_ref
     from repro_torch.kernels.distance_topk import ops as dops
+    from repro_torch.kernels.distance_topk.ref import distance_topk_ref
     from repro_torch.kernels.kchoice import ops as kops
     from repro_torch.optim.optimizers import apply_clip, global_norm_sq
 
@@ -644,6 +666,17 @@ def fit_cell(torch, dev, check_irli) -> dict:
         torch, "neighbours' chunk", vals, ids, q1, base, every, K_NEIGH))
     nb_ms = time_ms(torch, lambda: neighbours(torch, dev, base, q1, K_NEIGH),
                     n=3, warmup=1)
+    allq = every.expand(1024, -1)
+    nb_plain = time_ms(torch, lambda: distance_topk_ref(q1, base, allq,
+                                                        k=K_NEIGH),
+                       n=3, warmup=1)
+
+    def nb_library():
+        sim = torch.matmul(q1, base.T)
+        sim.masked_fill_(~every, -torch.inf)
+        return torch.topk(sim, K_NEIGH, dim=1)
+
+    nb_lib = time_ms(torch, nb_library, n=3, warmup=1)
     # its bound: the distances' operations, and the rows, queries, the
     # stride-0 mask and the k ids and values each moved once
     nb_bound = bound(2 * 1024 * FIT_L * D, (FIT_L + 1024) * D * 4 + FIT_L
@@ -651,7 +684,9 @@ def fit_cell(torch, dev, check_irli) -> dict:
     log(f"neighbours (exact_topk, k={K_NEIGH}) of one chunk of 1024 "
         f"training queries over {FIT_L} rows: {nb_ms:.4f} ms (at most "
         f"{NEIGHBOURS_MS_MAX}); bound {nb_bound[0]:.4f} ms ({nb_bound[1]}: "
-        f"{2 * 1024 * FIT_L * D / 1e9:.2f} GFLOP at the fp32 peak)")
+        f"{2 * 1024 * FIT_L * D / 1e9:.2f} GFLOP at the fp32 peak); plain "
+        f"{nb_plain:.4f} ms, library (torch.matmul + masked_fill_ + "
+        f"torch.topk) {nb_lib:.4f} ms")
     if nb_ms > NEIGHBOURS_MS_MAX:
         raise AssertionError(f"a neighbours chunk took {nb_ms:.4f} ms, more "
                              f"than {NEIGHBOURS_MS_MAX}")
@@ -890,6 +925,10 @@ def fit_cell(torch, dev, check_irli) -> dict:
                       "kchoice": (k_ms, k_plain, None)},
             "bounds": {"bce_logits": bce_bound, "kchoice": k_bound},
             "irli_err": irli_err, "dist_err": dist_err,
+            "neighbours": {"neighbours_ms": nb_ms,
+                           "neighbours_plain_ms": nb_plain,
+                           "neighbours_library_ms": nb_lib,
+                           "neighbours_bound_ms": nb_bound[0]},
             "dense_launches": dense_launches}
 
 
@@ -1298,6 +1337,19 @@ def recsys_cell(torch, dev, smi) -> dict:
     step = build_ctr_serve(apply)
     tables = {"item": params["item_emb"]["table"],
               "category": params["cate_emb"]["table"]}
+    attrs = eops.kernel_attrs()
+    plan = eops.bag_plan(CONFIG.embed_dim, torch.float32)
+    log(f"embedding_bag attrs: {attrs['registers']} registers, "
+        f"{attrs['spill_bytes']} spill bytes a thread (the most of its "
+        f"instantiations); plan at D={CONFIG.embed_dim} fp32 {plan}")
+    if attrs["spill_bytes"]:
+        raise AssertionError(f"embedding_bag spills registers: {attrs}")
+    for dt in (torch.float32, torch.bfloat16):
+        if eops.plan_export(CONFIG.embed_dim, dt) != eops.bag_plan(
+                CONFIG.embed_dim, dt):
+            raise AssertionError(f"embedding_bag's plan at {dt}: C side "
+                                 f"{eops.plan_export(CONFIG.embed_dim, dt)}")
+    extra = dict(attrs)
     launches, err = {}, 0.0
     for cell, bsz in BATCHES.items():
         name = f"recsys {cell} [{bsz}]"
@@ -1321,6 +1373,18 @@ def recsys_cell(torch, dev, smi) -> dict:
                 torch, f"embedding_bag at {name}, {t} table "
                 f"{tuple(table.shape)}", got, want))
             del got, want
+        if cell == "serve_p99":
+            ids_p, table = ids["item"], tables["item"]
+            extra["serve_p99_ms"] = time_ms(
+                torch, lambda: eops.embedding_bag(ids_p, mask, table), n=50)
+            extra["serve_p99_plain_ms"] = time_ms(
+                torch, lambda: embedding_bag_ref(ids_p, mask, table), n=20)
+            extra["serve_p99_device_ms"] = device_ms(
+                torch, lambda: eops.embedding_bag(ids_p, mask, table))
+            log(f"embedding_bag at {name}, item table: kernel "
+                f"{extra['serve_p99_ms']:.4f} ms (device time "
+                f"{extra['serve_p99_device_ms']:.4f} ms), plain (ref.py) "
+                f"{extra['serve_p99_plain_ms']:.4f} ms [{smi}]")
         torch.cuda.synchronize()
         reset_launches()
         prob = step(params, batch)["prob"]
@@ -1377,19 +1441,25 @@ def recsys_cell(torch, dev, smi) -> dict:
         w = torch.where(ids_t >= 0, mask, torch.zeros_like(mask))
         bms, by, rows = bag_bound(torch, ids_t, table)
         k_ms = time_ms(torch, lambda: eops.embedding_bag(ids_t, mask, table))
+        k_dev = device_ms(torch, lambda: eops.embedding_bag(ids_t, mask,
+                                                            table))
+        extra[f"{t}_device_ms"] = k_dev
         p_ms = time_ms(torch, lambda: embedding_bag_ref(ids_t, mask, table))
         l_ms = time_ms(torch, lambda: F.embedding_bag(
             safe, table, per_sample_weights=w, mode="sum"))
         log(f"embedding_bag at serve_bulk, {t} table {tuple(table.shape)}, "
             f"ids {tuple(ids_t.shape)} ({rows} distinct rows): bound "
             f"{bms:.4f} ms ({by}); kernel {k_ms:.4f} ms (bound / kernel "
-            f"{bms / k_ms:.1%}), plain (ref.py) {p_ms:.4f} ms, library "
+            f"{bms / k_ms:.1%}; device time {k_dev:.4f} ms), plain (ref.py) "
+            f"{p_ms:.4f} ms, library "
             f"(F.embedding_bag, per_sample_weights) {l_ms:.4f} ms [{smi}]")
         times[t], bounds[t] = (k_ms, p_ms, l_ms), (bms, by)
     del params, batch, ids, mask, safe, w
     torch.cuda.empty_cache()
+    extra.update(category_ms=times["category"][0],
+                 category_bound_ms=bounds["category"][0])
     return {"launches": launches, "err": err, "times": times["item"],
-            "bound": bounds["item"]}
+            "bound": bounds["item"], "extra": extra}
 
 
 def dist_check(torch, name, vals, ids, q, base, mask, k, metric="dot"):
@@ -2210,11 +2280,29 @@ def main() -> int:
     log(f"quant_rerank tau={TAU}: {text}; kernel "
         f"{stage_ms['coarse (quant_rerank)']:.4f} ms, plain "
         f"{plain_quant:.4f} ms")
-    _, text = quant_bound(1)
+    tau1_bound, text = quant_bound(1)
+    tau1_ms = time_ms(torch, quant_call(1, qops.quant_rerank), n=20)
+    tau1_plain = time_ms(torch, quant_call(1, quant_rerank_ref), n=10)
     log(f"quant_rerank tau=1 (all 1024 slots): {text}; kernel "
-        f"{time_ms(torch, quant_call(1, qops.quant_rerank), n=20):.4f} ms, "
-        f"plain {time_ms(torch, quant_call(1, quant_rerank_ref), n=10):.4f}"
-        f" ms")
+        f"{tau1_ms:.4f} ms, plain {tau1_plain:.4f} ms")
+    qattrs = qops.kernel_attrs()
+    log(f"quant_rerank attrs: {qattrs['registers']} registers, "
+        f"{qattrs['spill_bytes']} spill bytes a thread (the most of its "
+        f"instantiations), {qattrs['fixed_smem_bytes']} B of shared memory "
+        f"beside the keys and the query; at C={TOPC}, D={D} "
+        f"{qops.smem_bytes(TOPC, D)} B")
+    if qattrs["spill_bytes"]:
+        raise AssertionError(f"quant_rerank spills registers: {qattrs}")
+    q_dev = device_ms(torch, quant_call(TAU, qops.quant_rerank))
+    q1_dev = device_ms(torch, quant_call(1, qops.quant_rerank))
+    log(f"quant_rerank device time (20 calls in a CUDA graph, without the "
+        f"call's host time): tau={TAU} {q_dev:.4f} ms, tau=1 {q1_dev:.4f} "
+        f"ms")
+    tiles["quant_rerank"] = {
+        "device_ms": q_dev, "tau1_ms": tau1_ms, "tau1_device_ms": q1_dev,
+        "tau1_plain_ms": tau1_plain, "tau1_bound_ms": tau1_bound[0],
+        "registers": qattrs["registers"],
+        "spill_bytes": qattrs["spill_bytes"]}
 
     # mega_query: plain = mega_search_ref on the card; bound from this
     # run's data: both GEMMs, the probed member rows, the distinct valid
@@ -2318,7 +2406,7 @@ def main() -> int:
     record.update(fit["record"])
     record["distance_topk"] = {"max_abs_err": max(stream["dist_err"],
                                                   fit["dist_err"])}
-    tiles["distance_topk"] = stream["tile"]
+    tiles["distance_topk"] = {**stream["tile"], **fit["neighbours"]}
     tiles["freq_topc"] = stream["freq"]
     bounds.update(fit["bounds"], distance_topk=stream["bound"])
     ierr = max(record["irli_topk"]["max_abs_err"], fit["irli_err"])
@@ -2343,6 +2431,7 @@ def main() -> int:
     main_launches["embedding_bag"] = sum(rec["launches"].values())
     record["embedding_bag"] = {"max_abs_err": rec["err"]}
     bounds["embedding_bag"] = rec["bound"]
+    tiles["embedding_bag"] = rec["extra"]
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 

@@ -81,7 +81,8 @@ class IRLIIndex:
 
     # ---------------------------------------------------------------- fit --
     def fit(self, x_train, label_ids, label_mask=None, label_vecs=None,
-            verbose: bool = False, log=None) -> FitStats:
+            verbose: bool = False, mesh=None, registry=None,
+            log=None) -> FitStats:
         """x_train [N, d]; label_ids [N, k] (ANN: k exact neighbours; XML:
         padded label sets); label_mask [N, k] (1 for real labels);
         label_vecs [L, d] selects Def. 2 affinity (ANN mode). Numpy arrays
@@ -92,7 +93,17 @@ class IRLIIndex:
         re-assignments converge" stop), then ``build_index``. The index's
         params, optimizer state and assignment are updated in place. ``log``
         (anything with ``log(row, step=)``) gets one row a round: what
-        :meth:`_record_fit_round` returns."""
+        :meth:`_record_fit_round` returns. ``mesh`` and ``registry`` stand
+        in the reference's places and raise unless None: the mesh fit and
+        the fit gauges are not ported yet."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "fit(mesh=...) is not ported yet (ROADMAP, the distributed "
+                "item: core/distributed.py and the mesh fit)")
+        if registry is not None:
+            raise NotImplementedError(
+                "fit(registry=...) is not ported yet (ROADMAP, the online "
+                "and obs item: the fit_* gauges)")
         cfg = self.cfg
         data = FitData.build(x_train, label_ids, label_mask, label_vecs,
                              n_labels=cfg.n_labels, chunk=cfg.affinity_chunk,

@@ -254,7 +254,7 @@ class PipelineCache:
         if staged:
             raise NotImplementedError(
                 "staged=True (QueryPipeline.search_staged) is not ported "
-                "yet: ROADMAP module queue item 8")
+                "yet (ROADMAP, the online and obs item)")
         resolved = params.resolve(int(base.shape[0]), int(queries.shape[0]))
         fn, fresh = self._lookup(resolved, base.shape[0], queries.shape[0])
         if fresh:

@@ -18,6 +18,8 @@ Kernels that read an operand by TMA take it as :func:`tma_operand` gives it.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 #: launches per kernel
@@ -36,11 +38,17 @@ def reset_launches() -> None:
 def on_card(*tensors) -> bool:
     """True when every given tensor lies on a CUDA device, False when every
     one lies on the CPU; raises on a mix or any other device."""
-    kinds = {t.device.type for t in tensors if t is not None}
-    if kinds == {"cpu"}:
-        return False
-    if kinds == {"cuda"}:
+    n = n_cuda = n_cpu = 0
+    for t in tensors:                  # attribute reads: a wrapper's hot path
+        if t is not None:
+            n += 1
+            n_cuda += t.is_cuda
+            n_cpu += t.is_cpu
+    if n and n_cuda == n:
         return True
+    if n and n_cpu == n:
+        return False
+    kinds = {t.device.type for t in tensors if t is not None}
     raise ValueError(f"kernel inputs must all be on cuda or all on cpu, "
                      f"got devices {sorted(kinds)}")
 
@@ -59,6 +67,27 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+_NO_SCOPE = contextlib.nullcontext()
+
+
+def card_scope(dev: torch.device):
+    """The context a launch on card ``dev`` runs in: none when ``dev`` is
+    the current device already (the usual case; entering and leaving
+    ``torch.cuda.device`` costs a short kernel's call host time), else
+    ``torch.cuda.device(dev)``."""
+    if dev.index == torch.cuda.current_device():
+        return _NO_SCOPE
+    return torch.cuda.device(dev)
+
+
+def card_stream(dev: torch.device) -> int:
+    """The current CUDA stream of card ``dev``, as the int a kernel's C
+    entry takes: torch's raw-stream query, which its own compiled kernels
+    launch with; ``torch.cuda.current_stream(dev).cuda_stream`` builds a
+    Stream object first, a large share of a short kernel's call."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def check_launch(name: str, err: int) -> None:

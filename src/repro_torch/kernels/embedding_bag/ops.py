@@ -10,10 +10,31 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, check_launch, on_card
+from repro_torch.kernels import (LAUNCHES, card_scope, card_stream,
+                                 check_launch, on_card)
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PLAN_KEYS = ("vec_bytes", "vec_elems", "cols", "group", "slots",
+              "col_chunks")
+
+
+def bag_plan(D: int, dtype: torch.dtype) -> dict[str, int]:
+    """The kernel's lanes at row width D for a fp32 or bf16 table whose
+    pointer (and the output's) is 16-byte aligned: a row is ``cols``
+    vectors of ``vec_bytes`` (the widest of 16, 8, 4 and, for bf16, 2 bytes
+    that divides the row's bytes), a group of ``group`` = min(cols, 32)
+    lanes takes one slot, a warp ``slots`` = 32 // group slots a step, and
+    rows past 32 vectors go in ``col_chunks`` chunks of 32. The C side
+    narrows the vector where a pointer is aligned to less."""
+    es = 4 if dtype == torch.float32 else 2
+    vb = 16
+    while vb > es and (D * es) % vb:
+        vb //= 2
+    cols = D // (vb // es)
+    group = min(cols, 32)
+    return dict(zip(_PLAN_KEYS, (vb, vb // es, cols, group, 32 // group,
+                                 -(-cols // 32))))
 
 
 @functools.cache
@@ -27,6 +48,27 @@ def _lib():
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     lib.embedding_bag_launch.restype = ctypes.c_int
     return lib
+
+
+def plan_export(D: int, dtype: torch.dtype) -> dict[str, int]:
+    """The C side's own plan (embedding_bag_plan, on the card), keyed as
+    :func:`bag_plan`."""
+    out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+    fn = _lib().embedding_bag_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    check_launch("embedding_bag_plan",
+                 fn(D, _DTYPES[dtype], ctypes.addressof(out)))
+    return dict(zip(_PLAN_KEYS, out))
+
+
+def kernel_attrs() -> dict[str, int]:
+    """The most registers and local (spill) bytes a thread of any of the
+    kernel's instantiations takes (embedding_bag_attrs, on the card)."""
+    out = (ctypes.c_longlong * 2)()
+    fn = _lib().embedding_bag_attrs
+    fn.argtypes = [ctypes.c_void_p]
+    check_launch("embedding_bag_attrs", fn(ctypes.addressof(out)))
+    return dict(zip(("registers", "spill_bytes"), out))
 
 
 def embedding_bag(ids, weights, table):
@@ -58,8 +100,8 @@ def embedding_bag(ids, weights, table):
         return out
     ids, weights, table = (ids.contiguous(), weights.contiguous(),
                            table.contiguous())
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    stream = card_stream(dev)
+    with card_scope(dev):
         err = _lib().embedding_bag_launch(
             ids.data_ptr(), weights.data_ptr(), table.data_ptr(), N, P, V,
             D, _DTYPES[table.dtype], out.data_ptr(), stream)

@@ -9,28 +9,35 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, check_launch, on_card
+from repro_torch.kernels import (LAUNCHES, card_scope, card_stream,
+                                 check_launch, on_card)
 from repro_torch.kernels.quant_rerank.ref import quant_rerank_ref
 
 _CODE_DTYPES = {torch.int8: 0, torch.bfloat16: 1}
 _METRICS = {"angular": 0, "l2": 1}
 #: dynamic shared memory one block may use on the H100 (sm_90)
 SMEM_BYTES = 227 * 1024
+#: the kernel's shared ints beside the keys and the query: a tile's valid
+#: ids and positions (2 x 1024), the radix select's 256 bins, 64 ints of
+#: block-prefix scratch and 4 of the select's result
+FIXED_INTS = 2 * 1024 + 256 + 64 + 4
 
 
 def smem_bytes(C: int, D: int) -> int:
     """The kernel's shared memory for a pass of C candidate slots at width
-    D: the int64 sort keys padded to a power of two, the f32 scores, the
+    D: the int64 keys of the pass's valid slots, room padded to a power of
+    two (the sort of the selected keys pads them), the fixed ints, the
     query."""
     Cp = 1
     while Cp < C:
         Cp *= 2
-    return Cp * 8 + (C + D) * 4
+    return Cp * 8 + (FIXED_INTS + D) * 4
 
 
+@functools.cache
 def pass_slots(C: int, D: int) -> int:
     """Slots the kernel takes a pass: all C (padded to a power of two) where
-    their keys, scores and query fit one block's shared memory, else the
+    their keys and the query fit one block's shared memory, else the
     largest power of two that fits; the passes then merge into a running
     top-k' in scratch."""
     P = 1
@@ -59,8 +66,22 @@ def _launcher():
     return fn
 
 
+def kernel_attrs() -> dict[str, int]:
+    """The C side's account of the kernel (quant_rerank_attrs, on the card):
+    the most registers and local (spill) bytes a thread of any of its
+    instantiations takes, and its shared bytes outside the keys and the
+    query (``FIXED_INTS`` x 4)."""
+    from repro_torch.kernels import _build
+    fn = _build.load("quant_rerank").quant_rerank_attrs
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 3)()
+    check_launch("quant_rerank_attrs", fn(ctypes.addressof(out)))
+    return dict(zip(("registers", "spill_bytes", "fixed_smem_bytes"), out))
+
+
 def _check(name, t, dtype, shape):
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+    if t.dtype != dtype or t.shape != shape:
         raise ValueError(f"quant_rerank: {name} must be {dtype} "
                          f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
 
@@ -72,8 +93,8 @@ def quant_rerank(queries, codes, scales, cand_ids, cand_counts, *, tau: int,
     every id < L), cand_counts [Q, C] f32 -> (ids [Q, k'] int32 with -1
     where no survivor, coarse scores [Q, k'] f32, -inf there),
     k' = min(k, C). The slots run in passes of ``pass_slots(C, D)``: one
-    pass while their sort keys fit one block's shared memory (C <= 16384
-    at D <= 8960), else passes merged into a running top-k' in scratch."""
+    pass while their keys fit one block's shared memory (C <= 16384 at
+    D <= 22972), else passes merged into a running top-k' in scratch."""
     if not on_card(queries, codes, scales, cand_ids, cand_counts):
         raise ValueError("quant_rerank launches on CUDA tensors only")
     if metric not in _METRICS:
@@ -83,9 +104,13 @@ def quant_rerank(queries, codes, scales, cand_ids, cand_counts, *, tau: int,
                          f"{codes.dtype} {tuple(codes.shape)}")
     L, D = codes.shape
     Q, C = cand_ids.shape
-    _check("queries", queries, torch.float32, (Q, D))
-    _check("cand_ids", cand_ids, torch.int32, (Q, C))
-    _check("cand_counts", cand_counts, torch.float32, (Q, C))
+    if (queries.dtype != torch.float32 or queries.shape != (Q, D)
+            or cand_ids.dtype != torch.int32
+            or cand_counts.dtype != torch.float32
+            or cand_counts.shape != (Q, C)):       # one test on the hot path
+        _check("queries", queries, torch.float32, (Q, D))
+        _check("cand_ids", cand_ids, torch.int32, (Q, C))
+        _check("cand_counts", cand_counts, torch.float32, (Q, C))
     if (scales is None) != (codes.dtype == torch.bfloat16):
         raise ValueError("int8 codes need scales; bf16 codes take none")
     n_blocks = block = 1
@@ -98,20 +123,22 @@ def quant_rerank(queries, codes, scales, cand_ids, cand_counts, *, tau: int,
     P = pass_slots(C, D)
     kp = min(k, C)
     dev = cand_ids.device
-    ids = torch.empty((Q, kp), dtype=torch.int32, device=dev)
-    vals = torch.empty((Q, kp), dtype=torch.float32, device=dev)
+    # one allocation for both outputs: at tau = 2 the kernel is shorter
+    # than its call's host time, of which torch.empty is a large share
+    out = torch.empty((2, Q, kp), dtype=torch.int32, device=dev)
+    ids, vals = out[0], out[1].view(torch.float32)
     if kp < 1 or Q == 0:
         return ids, vals
-    queries, codes, cand_ids, cand_counts = (
-        t.contiguous() for t in (queries, codes, cand_ids, cand_counts))
+    queries, codes = queries.contiguous(), codes.contiguous()
+    cand_ids, cand_counts = cand_ids.contiguous(), cand_counts.contiguous()
     scales_ptr = None
     if scales is not None:
         scales = scales.contiguous()
         scales_ptr = scales.data_ptr()
     run = (torch.empty((Q, 2, kp), dtype=torch.int64, device=dev)
            if P < C else None)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    stream = card_stream(dev)
+    with card_scope(dev):
         err = _launcher()(
             queries.data_ptr(), codes.data_ptr(), _CODE_DTYPES[codes.dtype],
             scales_ptr, n_blocks, block, cand_ids.data_ptr(),

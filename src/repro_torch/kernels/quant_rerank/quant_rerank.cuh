@@ -1,6 +1,7 @@
-// Device routines of the quantized coarse rerank, shared by quant_rerank.cu
-// and the fused query kernel (mega_query.cu): scoring gathered rows against
-// a query (a warp per row) and the packed-key top-k' of a score row.
+// Device routines of the quantized coarse rerank: scoring gathered rows
+// against a query (a warp per row) and the packed-key top-k' of a score row,
+// which the fused query kernel (mega_query.cu) runs; quant_rerank.cu takes
+// the key packing (order_key, key_pos) and scores and selects its own way.
 #pragma once
 
 #include <cuda_bf16.h>

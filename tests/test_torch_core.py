@@ -139,3 +139,14 @@ def test_topk_stable_breaks_ties_like_lax_top_k(k):
     gv, gi = topk_stable(torch.from_numpy(x), k)
     np.testing.assert_array_equal(gi.numpy(), np.asarray(ri))
     np.testing.assert_array_equal(gv.numpy(), np.asarray(rv))
+
+
+# ------------------------------------------------------------ search_api ---
+def test_staged_search_names_its_roadmap_item():
+    """staged=True (the reference's search_staged) is not ported: it raises
+    and names its ROADMAP item by name, not by a number that moves."""
+    from repro_torch.core.search_api import PipelineCache, SearchParams
+    with pytest.raises(NotImplementedError,
+                       match=r"\(ROADMAP, the online and obs item\)"):
+        PipelineCache().search(SearchParams(), None, None, torch.zeros(4, 2),
+                               torch.zeros(1, 2), staged=True)

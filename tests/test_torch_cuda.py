@@ -207,6 +207,100 @@ def test_quant_rerank_raises_past_shared_memory(card, C, k, dtype):
     assert same_topk(ids, rids, vals, rvals, wide) <= 1
 
 
+def _quant_valid_rows(Q, L, D, C, n_valid, dtype, seed, blk=32):
+    """Rows with exactly n_valid[q] valid slots (count 3 >= tau = 2) at
+    random positions; the others an id of -1 or a count below tau."""
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(L, D)).astype(np.float32)
+    queries = rng.normal(size=(Q, D)).astype(np.float32)
+    cid = rng.integers(0, L, (Q, C)).astype(np.int32)
+    cnt = np.zeros((Q, C), np.float32)
+    for q, n in enumerate(n_valid):
+        cnt[q, rng.permutation(C)[:n]] = 3.0
+        off = cnt[q] == 0
+        cid[q, off & (rng.random(C) < 0.5)] = -1
+        cnt[q, off & (cid[q] >= 0)] = 1.0
+    return queries, cid, cnt, encode(torch.from_numpy(base), dtype, blk)
+
+
+def _quant_hold(card, queries, cid, cnt, tstore, k, metric="angular",
+                tau=2):
+    """One launch, held against the plain version by ref.same_topk ->
+    (ids, vals, plain ids, plain vals, flagged rows)."""
+    args = [torch.from_numpy(a).to(card) for a in (queries, cid, cnt)]
+    codes = tstore.codes.to(card)
+    scales = None if tstore.scales is None else tstore.scales.to(card)
+    reset_launches()
+    ids, vals = qops.quant_coarse_topk(args[0], codes, scales, args[1],
+                                       args[2], tau=tau, k=k, metric=metric)
+    torch.cuda.synchronize()
+    assert LAUNCHES["quant_rerank"] == 1
+    kp = min(k, cid.shape[1])
+    rids, rvals = quant_rerank_ref(args[0], codes, scales, args[1], args[2],
+                                   tau=tau, k=kp, metric=metric)
+    _, wide = quant_rerank_ref(args[0], codes, scales, args[1], args[2],
+                               tau=tau, k=min(kp + 1, cid.shape[1]),
+                               metric=metric)
+    flagged = same_topk(ids, rids, vals, rvals, wide)
+    return ids, vals, rids, rvals, flagged
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+@pytest.mark.parametrize("C,k", [(1024, 40), (300, 100), (1023, 40)])
+def test_quant_rerank_kernel_at_every_valid_count(card, C, k, dtype):
+    """Rows with 0, k'-1, k', 64, 65 and C valid slots: the warp sort
+    (<= 64 keys), the radix select past it, k' > 64 (a block sort of the
+    selected keys), C not a multiple of 4 (scalar id loads)."""
+    counts = [0, k - 1, k, 64, 65, C, 1, 63]
+    queries, cid, cnt, tstore = _quant_valid_rows(len(counts), 4000, 96, C,
+                                                  counts, dtype, C + k)
+    ids, vals, rids, _, flagged = _quant_hold(card, queries, cid, cnt,
+                                              tstore, k)
+    assert flagged <= 1
+    got_valid = torch.isfinite(vals).sum(1).cpu().tolist()
+    assert got_valid == [min(n, k) for n in counts]
+    assert (ids[~torch.isfinite(vals)] == -1).all()
+
+
+@pytest.mark.parametrize("metric", ["angular", "l2"])
+@pytest.mark.parametrize("C,k", [(1024, 40), (200, 100)])
+def test_quant_rerank_kernel_ties_go_to_the_smaller_position(card, C, k,
+                                                            metric):
+    """Every slot's row equal (distinct ids over one repeated row): every
+    score ties, and the kernel keeps the first k' valid positions in
+    position order, id for id as the plain version."""
+    rng = np.random.default_rng(5)
+    L, D = 3000, 96
+    base = np.repeat(rng.normal(size=(1, D)).astype(np.float32), L, 0)
+    tstore = encode(torch.from_numpy(base), "int8", 32)
+    queries = rng.normal(size=(6, D)).astype(np.float32)
+    cid = np.stack([rng.permutation(L)[:C] for _ in range(6)]
+                   ).astype(np.int32)
+    cnt = (rng.random((6, C)) < 0.3).astype(np.float32) * 3
+    cnt[0] = 3.0                                  # every slot valid
+    ids, vals, rids, rvals, _ = _quant_hold(card, queries, cid, cnt, tstore,
+                                            k, metric)
+    assert torch.equal(ids, rids)
+    torch.testing.assert_close(vals, rvals, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+@pytest.mark.parametrize("D,blk", [(100, 4), (100, 25), (36, 12), (8, 8)])
+def test_quant_rerank_kernel_rows_not_16_byte_aligned(card, D, blk, dtype):
+    """D = 100 int8 rows are 100 B (4-byte vectors), a scale block of 25
+    crosses them (a scale an element); bf16 rows of 200 B take 4-byte
+    vectors too."""
+    queries, cid, cnt, tstore = _quant_inputs(9, 2000, D, 1000, blk, dtype,
+                                              7)
+    assert _quant_hold(card, queries, cid, cnt, tstore, 40)[4] <= 1
+
+
+def test_quant_rerank_kernel_does_not_spill(card):
+    a = qops.kernel_attrs()
+    assert a["spill_bytes"] == 0, a
+    assert a["fixed_smem_bytes"] == qops.FIXED_INTS * 4
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("G,Q,H,B,m", [
     (1, 64, 64, 512, 5),
@@ -1099,6 +1193,80 @@ def test_embedding_bag_kernel_refuses_what_it_does_not_take(card):
         eops.embedding_bag(ids, w, tbl.half())
     with pytest.raises(ValueError, match="CUDA tensors"):
         eops.embedding_bag(ids.cpu(), w.cpu(), tbl.cpu())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("P", [1, 3, 99, 100, 101])
+@pytest.mark.parametrize("D", [1, 17, 18, 19, 36, 64, 65, 128, 200])
+def test_embedding_bag_kernel_lanes_over_slots_and_columns(card, D, P,
+                                                           dtype):
+    """Every plan the kernel takes (a group of lanes a slot, several
+    groups a warp, columns past 32 vectors in chunks) at bag widths whose
+    offsets are not 16-byte aligned (P = 1, 3, 99, 101: scalar id loads)."""
+    from repro_torch.kernels.embedding_bag import ops as eops
+    ids, w, tbl = _bag_inputs(card, 203, P, 3000, D, getattr(torch, dtype),
+                              seed=7 * D + P)
+    reset_launches()
+    out = eops.embedding_bag(ids, w, tbl)
+    torch.cuda.synchronize()
+    assert LAUNCHES["embedding_bag"] == 1
+    _bag_check(out, ids, w, tbl)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embedding_bag_kernel_bag_of_one_id(card, dtype):
+    """Bags whose slots all hold one id (a hot Zipf row), with weights
+    that differ: the sum in the kernel's fixed order against the plain
+    one; two launches bit-equal."""
+    from repro_torch.kernels.embedding_bag import ops as eops
+    ids, w, tbl = _bag_inputs(card, 64, 100, 500, 18, getattr(torch, dtype),
+                              seed=11)
+    ids[:] = ids[:, :1]                  # each bag: its first id, 100 times
+    ids[5] = 7
+    out = eops.embedding_bag(ids, w, tbl)
+    again = eops.embedding_bag(ids, w, tbl)
+    torch.cuda.synchronize()
+    _bag_check(out, ids, w, tbl)
+    assert torch.equal(out, again)
+
+
+def test_embedding_bag_kernel_reads_an_unaligned_table(card):
+    """A table view 4 bytes off a 16-byte boundary: the C side narrows the
+    row vectors (float2 to float) and the sum is the same."""
+    from repro_torch.kernels.embedding_bag import ops as eops
+    ids, w, _ = _bag_inputs(card, 100, 100, 400, 18, torch.float32, seed=12)
+    flat = torch.randn(400 * 18 + 1, device=card)
+    tbl = flat[1:].view(400, 18)
+    assert tbl.is_contiguous() and tbl.data_ptr() % 16 == 4
+    out = eops.embedding_bag(ids, w, tbl)
+    torch.cuda.synchronize()
+    _bag_check(out, ids, w, tbl)
+
+
+def test_embedding_bag_kernel_empty_table(card):
+    """V = 0: every slot adds nothing (the kernel has no row 0 to read in
+    a pad's place), the output is zeros."""
+    from repro_torch.kernels.embedding_bag import ops as eops
+    ids = torch.full((9, 7), -1, dtype=torch.int32, device=card)
+    ids[0, 0] = 3                                  # past the empty table
+    w = torch.ones((9, 7), device=card)
+    out = eops.embedding_bag(ids, w, torch.zeros((0, 18), device=card))
+    torch.cuda.synchronize()
+    assert out.shape == (9, 18) and (out == 0).all()
+
+
+@pytest.mark.parametrize("D", [1, 2, 17, 18, 19, 36, 64, 65, 128, 200])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embedding_bag_plan_is_the_c_sides(card, D, dtype):
+    from repro_torch.kernels.embedding_bag import ops as eops
+    dt = getattr(torch, dtype)
+    assert eops.plan_export(D, dt) == eops.bag_plan(D, dt)
+
+
+def test_embedding_bag_kernel_does_not_spill(card):
+    from repro_torch.kernels.embedding_bag import ops as eops
+    a = eops.kernel_attrs()
+    assert a["spill_bytes"] == 0, a
 
 
 def test_dien_serve_on_the_card_launches_two_bags(card):

@@ -700,6 +700,29 @@ def test_jax_fitted_index_continues_in_the_port_and_back():
     assert np.isfinite(np.asarray(ji.params["w2"])).all()
 
 
+# ------------------------------------------------------ fit's signature ---
+def test_fit_parameters_are_the_references():
+    """IRLIIndex.fit takes the reference's parameters in its order, so a
+    positional argument binds alike in both packages; mesh= and registry=
+    raise NotImplementedError naming their ROADMAP items unless None."""
+    import inspect
+    want = inspect.signature(JIndex.fit).parameters
+    got = inspect.signature(IRLIIndex.fit).parameters
+    assert list(got) == list(want)
+    assert [p.default for p in got.values()] == [p.default
+                                                 for p in want.values()]
+    assert list(got).index("mesh") == 6 and list(got)[-1] == "log"
+    cfg = IRLIConfig(d=4, n_labels=16, n_buckets=4, n_reps=1, d_hidden=8,
+                     rounds=1, epochs_per_round=1, batch_size=8)
+    idx = IRLIIndex(cfg, device="cpu")
+    x = np.zeros((8, 4), np.float32)
+    lab = np.zeros((8, 2), np.int32)
+    with pytest.raises(NotImplementedError, match="the distributed item"):
+        idx.fit(x, lab, mesh=object())
+    with pytest.raises(NotImplementedError, match="the online and obs item"):
+        idx.fit(x, lab, None, None, False, None, object())
+
+
 # ------------------------------------------------- the port stands alone ---
 def test_port_sources_import_neither_jax_nor_the_reference():
     """A grep of every module of the port and of chip_smoke.py: no line

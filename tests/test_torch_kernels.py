@@ -224,20 +224,25 @@ def test_quant_rerank_dispatch_on_cpu_takes_the_plain_version():
 
 
 def test_quant_rerank_shared_memory_limit():
-    """A pass sorts its slots' keys in one block's shared memory: topC 16384
-    fits up to D = 8960, one slot more does not. ``pass_slots`` takes all C
-    slots in one pass where they fit, else the largest power of two that
-    does (the passes then merge in scratch)."""
-    assert qops.smem_bytes(1024, 96) == 1024 * 8 + (1024 + 96) * 4
-    assert qops.smem_bytes(777, 96) == 1024 * 8 + (777 + 96) * 4
-    assert qops.smem_bytes(16384, 8960) <= qops.SMEM_BYTES
-    assert qops.smem_bytes(16384, 8961) > qops.SMEM_BYTES
+    """A pass keeps its valid slots' keys in one block's shared memory
+    (room padded to a power of two) beside a tile's ids and positions, the
+    select's bins and scratch, and the query: topC 16384 fits up to D =
+    22972, one slot more does not. ``pass_slots`` takes all C slots in one
+    pass where they fit, else the largest power of two that does (the
+    passes then merge in scratch)."""
+    fixed = (2 * 1024 + 256 + 64 + 4) * 4
+    assert qops.FIXED_INTS * 4 == fixed
+    assert qops.smem_bytes(1024, 96) == 1024 * 8 + fixed + 96 * 4
+    assert qops.smem_bytes(777, 96) == 1024 * 8 + fixed + 96 * 4
+    assert qops.smem_bytes(16384, 22972) <= qops.SMEM_BYTES
+    assert qops.smem_bytes(16384, 22973) > qops.SMEM_BYTES
     assert qops.smem_bytes(16385, 1) > qops.SMEM_BYTES
     assert qops.pass_slots(1024, 96) == 1024
     assert qops.pass_slots(777, 96) == 1024
     assert qops.pass_slots(16384, 96) == 16384
-    assert qops.pass_slots(20000, 96) == qops.pass_slots(20000, 8960) == 16384
-    assert qops.pass_slots(16384, 8961) == 8192
+    assert qops.pass_slots(20000, 96) == qops.pass_slots(20000, 22972) \
+        == 16384
+    assert qops.pass_slots(16384, 22973) == 8192
     assert qops.smem_bytes(qops.pass_slots(20000, 40000), 40000) <= \
         qops.SMEM_BYTES
     with pytest.raises(ValueError, match="no room"):

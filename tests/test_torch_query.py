@@ -446,5 +446,6 @@ def test_index_search_legacy_kwargs_and_default_cache():
                                                + before["misses"] + 1)
     with pytest.raises(TypeError, match="either SearchParams"):
         tidx.search(queries, base, SearchParams(), k=3)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError,
+                       match="the online and obs item"):
         tidx.search(queries, base, SearchParams(), staged=True)

@@ -104,6 +104,29 @@ def test_embedding_bag_ref_refuses_ids_past_the_table():
         embedding_bag_ref(ids, torch.ones(1, 2), torch.zeros(5, 3))
 
 
+@pytest.mark.parametrize("D,dtype,plan", [
+    # D: (vec_bytes, vec_elems, cols, group, slots, col_chunks)
+    (18, "float32", (8, 2, 9, 9, 3, 1)),        # DIEN: 9 float2, 3 slots
+    (18, "bfloat16", (4, 2, 9, 9, 3, 1)),       # 9 __nv_bfloat162
+    (1, "float32", (4, 1, 1, 1, 32, 1)),
+    (17, "float32", (4, 1, 17, 17, 1, 1)),
+    (36, "float32", (16, 4, 9, 9, 3, 1)),
+    (64, "bfloat16", (16, 8, 8, 8, 4, 1)),
+    (65, "float32", (4, 1, 65, 32, 1, 3)),      # lanes over columns
+    (128, "float32", (16, 4, 32, 32, 1, 1)),
+    (200, "float32", (16, 4, 50, 32, 1, 2)),
+    (19, "bfloat16", (2, 1, 19, 19, 1, 1))])
+def test_embedding_bag_plan(D, dtype, plan):
+    """The kernel's lanes: the widest vector dividing a row, a group of
+    lanes a slot, 32 // group slots a warp step, chunks of 32 vectors past
+    that (the C side's embedding_bag_plan, checked on the card)."""
+    from repro_torch.kernels.embedding_bag.ops import bag_plan
+    got = bag_plan(D, getattr(torch, dtype))
+    assert tuple(got.values()) == plan
+    assert got["cols"] * got["vec_elems"] == D
+    assert got["slots"] * got["group"] <= 32
+
+
 # --------------------------------------------------------- models/embedding --
 def _table(V=40, D=6, seed=0):
     p = JE.bag_init(jax.random.PRNGKey(seed), V, D)

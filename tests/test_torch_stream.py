@@ -338,7 +338,8 @@ def test_legacy_kwargs_shim_warns_and_returns_the_old_tuple(fitted, data):
                                                      res.n_candidates)
     with pytest.raises(TypeError, match="either SearchParams"):
         tm.search(data.queries, SearchParams(), k=5)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError,
+                       match="the online and obs item"):
         tm.search(data.queries, SearchParams(), staged=True)
 
 
