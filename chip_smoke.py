@@ -33,6 +33,32 @@ widths, the LM prefill at gemma-7b's and DIEN's serve path at its own:
     ``neighbours`` (k = 100), whose time is held to NEIGHBOURS_MS_MAX. The
     checkpoint of the 4 GB state is not written on the card (the CPU tests
     round-trip it);
+  * the server cell (``server_cell``): ``IRLIServer`` (max_batch 512,
+    max_wait 2 ms, the probe counter on) over the search cell's index and
+    int8 store at the search cell's SearchParams (mode "auto"), one request
+    in eight at m = 10 as launch/serve.py's wide override: a burst of
+    N_BURST requests from one client thread (queries/s over the wall clock
+    from the first submit to the last result, p50/p99 from submit to
+    result, batches, pad waste, param groups, cache compiles), the
+    burst's first N_BARE requests without the probe counter (its irli_topk
+    a batch), N_PACED requests at seeded Poisson arrivals at half the
+    burst's rate, then a server over the stream cell's index with an insert of MUT_INSERT rows
+    after every MUT_EVERY of N_MUT_Q queries and a delete of N_MUT_DEL live
+    ids after the second; every served row bit-equal to a direct search of
+    its padded batch (the mutation phase's at the snapshot the batch
+    read), held to the plain search, the probe counter's sum, each batch's
+    launches, each query's epoch that of the last mutation before it;
+  * the refit cell (``refit_cell``): a hash-partitioned index at the
+    deep1b widths over FIT_L labels (sigmoid_bce), a MutableIRLIIndex
+    (int8, capacity 2L, delta_len 208) served through IRLIServer with a
+    QueryLog, a ShadowAuditor over the exact oracle (sample 0.05) and a
+    DriftDetector, inserts and deletes through the server, one
+    ``OnlineRefitLoop`` cycle (bce_logits, irli_topk and kchoice; rows
+    inserted while it runs re-placed by the swap: irli_topk and kchoice);
+    the fit, cycle, swap-pause and build_replicas times, the artifact's ML
+    and live maximum load, verify(), a save/restore with the digest equal,
+    the epochs after the swap, >= 99% of the tail finding itself, no
+    deleted id, staged = unstaged, a hot-replica search;
   * the fit (Alg. 1) through ``IRLIIndex.fit``, ANN mode, sigmoid_bce: per
     train step one bce_logits launch, per affinity label chunk one
     irli_topk launch, per round one kchoice launch; its round 1 again with
@@ -183,6 +209,19 @@ FIT_K, K_NEIGH, FIT_BATCH, FIT_ROUNDS, FIT_CHUNK = 10, 100, 4096, 2, 65_536
 # 80GB HBM3 at 700 W (PERF.md)
 NEIGHBOURS_MS_MAX = 7.4278
 SOFT_L, SOFT_BATCH = 16_384, 1024
+# the server cell: requests of the burst, of the burst without the probe
+# counter, of the paced run, one in eight at m = WIDE_M (a batch then holds
+# about 7 requests, and a batch of 8 rows takes about as long as one of
+# 1024: these counts keep the script's time, and the rates are the same at
+# any count); the mutation phase's queries, an insert of MUT_INSERT rows
+# after every MUT_EVERY queries and a delete of N_MUT_DEL live ids after the
+# second insert
+N_BURST, N_BARE, N_PACED, WIDE_M = 4096, 1024, 512, 10
+N_MUT_Q, MUT_EVERY, MUT_INSERT, N_MUT_DEL = 4096, 1024, 4096, 10_000
+# the refit cell (over FIT_L labels): queries served, rows inserted before
+# the cycle and again while it runs (the swap's tail), ids deleted
+N_REFIT_Q, REFIT_INSERT, REFIT_DELETE = 4096, 4096, 1000
+REFIT_MIN_Q, REFIT_HOT = 1024, 0.005     # RefitConfig's min_queries, hot_frac
 # the LM cell: [batch, prompt length] of each gemma-7b prefill
 LM_SHAPES = ((4, 2048), (1, 32768))
 QWEN_LAYERS = 4
@@ -1381,10 +1420,23 @@ def recsys_cell(torch, dev, smi) -> dict:
                 torch, lambda: embedding_bag_ref(ids_p, mask, table), n=20)
             extra["serve_p99_device_ms"] = device_ms(
                 torch, lambda: eops.embedding_bag(ids_p, mask, table))
-            log(f"embedding_bag at {name}, item table: kernel "
+            safe_p = ids_p.clamp_min(0)
+            w_p = torch.where(ids_p >= 0, mask, torch.zeros_like(mask))
+            extra["serve_p99_library_ms"] = time_ms(
+                torch, lambda: F.embedding_bag(
+                    safe_p, table, per_sample_weights=w_p, mode="sum"),
+                n=50)
+            p99_bound, _, p99_rows = bag_bound(torch, ids_p, table)
+            extra["serve_p99_bound_ms"] = p99_bound
+            log(f"embedding_bag at {name}, item table, ids "
+                f"{tuple(ids_p.shape)} ({p99_rows} distinct rows): bound "
+                f"{p99_bound:.4f} ms (bytes); kernel "
                 f"{extra['serve_p99_ms']:.4f} ms (device time "
                 f"{extra['serve_p99_device_ms']:.4f} ms), plain (ref.py) "
-                f"{extra['serve_p99_plain_ms']:.4f} ms [{smi}]")
+                f"{extra['serve_p99_plain_ms']:.4f} ms, library "
+                f"(F.embedding_bag, per_sample_weights) "
+                f"{extra['serve_p99_library_ms']:.4f} ms [{smi}]")
+            del safe_p, w_p
         torch.cuda.synchronize()
         reset_launches()
         prob = step(params, batch)["prob"]
@@ -1750,11 +1802,521 @@ def stream_cell(torch, dev, idx, corpus, queries, plain_search, agree):
         raise AssertionError(f"distance_topk spills registers: {attrs}")
     tile = tile_report("distance_topk", dist_ms, 2 * Q * n * D, dist_alone,
                        f"torch.mm [{Q}, {D}] x [{D}, {n}]", attrs)
-    del midx, s, vecs, live, liveq, new, pre, post, own
+    del s, vecs, live, liveq, new, pre, post, own
     torch.cuda.empty_cache()
     return {"launches": launches, "search_err": serr, "dist_err": derr,
             "times": (dist_ms, dist_plain, dist_lib), "bound": dist_bound,
-            "tile": tile, "freq": freq}
+            "tile": tile, "freq": freq, "midx": midx}
+
+
+# ------------------------------------------------------------ the server --
+def percentiles(lat) -> str:
+    ms = sorted(x * 1e3 for x in lat)
+    return (f"p50 {ms[len(ms) // 2]:.3f} ms, p99 "
+            f"{ms[min(len(ms) - 1, int(len(ms) * 0.99))]:.3f} ms")
+
+
+def open_loop(server, reqs, arrivals=None):
+    """Submit (query row, params) requests from this one client thread,
+    all at once or at ``arrivals`` (seconds after the first) -> (results,
+    latencies submit -> result in s, wall s from the first submit to the
+    last result). Each latency ends where the batcher resolves the
+    future, not where this thread reads it."""
+    n = len(reqs)
+    sub, done, futs = [0.0] * n, [0.0] * n, []
+    t0 = time.perf_counter()
+    for i, (q, p) in enumerate(reqs):
+        if arrivals is not None:
+            wait = t0 + arrivals[i] - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+        sub[i] = time.perf_counter()
+        f = server.submit(q, p)
+        f.add_done_callback(
+            lambda _, i=i: done.__setitem__(i, time.perf_counter()))
+        futs.append(f)
+    res = [f.result(timeout=600) for f in futs]
+    return res, [d - s for s, d in zip(sub, done)], max(done) - sub[0]
+
+
+def record_batches(server, snapshot=None):
+    """Record each batch the server runs: its real rows n, params, the
+    padded queries it searched, the result and (``snapshot``: a callable)
+    the snapshot it read; and the launches the batch made, counted in the
+    batcher thread itself."""
+    from repro_torch.kernels import LAUNCHES
+    rec = []
+    run, search = server._run_batch, server._searcher
+
+    def run_batch(batch, params):
+        before = dict(LAUNCHES)
+        rec.append({"n": len(batch), "params": params})
+        out = run(batch, params)
+        rec[-1]["launches"] = {k: c - before[k] for k, c in LAUNCHES.items()
+                               if c != before[k]}
+        return out
+
+    def searcher(q, p):
+        r = rec[-1]
+        if snapshot is not None:
+            r["snap"] = snapshot()
+        res = search(q, p)
+        r.update(q=q, res=res)
+        return res
+
+    server._run_batch, server._searcher = run_batch, searcher
+    return rec
+
+
+def served_gate(torch, name, rec, results, direct):
+    """Every served row equals, bit for bit, its row of the recorded batch
+    (arrival order: one client, groups close in order), and every recorded
+    batch equals a direct search of the same padded batch at the same
+    params (``direct(r)``) -> the served rows as device tensors."""
+    import numpy as np
+    cat = lambda f: torch.cat([getattr(r["res"], f)[:r["n"]]  # noqa: E731
+                               for r in rec])
+    ids, scores, nc = cat("ids"), cat("scores"), cat("n_candidates")
+    if len(ids) != len(results):
+        raise AssertionError(f"{name}: {len(results)} results, "
+                             f"{len(ids)} recorded rows")
+    if not (np.array_equal(np.stack([r.ids for r in results]),
+                           ids.cpu().numpy())
+            and np.array_equal(np.stack([r.scores for r in results]),
+                               scores.cpu().numpy())
+            and np.array_equal([r.n_candidates for r in results],
+                               nc.cpu().numpy())):
+        raise AssertionError(f"{name}: a served row differs from its "
+                             f"batch's result")
+    for r in rec:
+        d = direct(r)
+        if not (torch.equal(d.ids, r["res"].ids)
+                and torch.equal(d.scores, r["res"].scores)
+                and torch.equal(d.n_candidates, r["res"].n_candidates)
+                and d.epoch == r["res"].epoch):
+            raise AssertionError(f"{name}: a batch of {r['n']} differs "
+                                 f"from a direct search of it")
+    log(f"{name}: {len(results)} served rows equal their batches' rows, "
+        f"and all {len(rec)} batches equal a direct search of the same "
+        f"padded batch, bit for bit")
+    return ids, scores, nc
+
+
+def server_cell(torch, dev, idx, store8, corpus, midx, plain_search, agree):
+    """The server cell: IRLIServer (max_batch 512, max_wait 2 ms, the probe
+    counter on) over the search cell's frozen index with the int8 store,
+    default SearchParams(m=5, tau=2, k=10, topC=1024, int8, auto), one
+    request in eight at m=10 (launch/serve.py's wide override). A burst of
+    N_BURST requests from one client thread, its first N_BARE without the
+    probe counter, paced requests (seeded Poisson arrivals at half the
+    burst's rate), then a server over the stream cell's MutableIRLIIndex
+    with inserts and a delete as barriers. Gates: served rows bit-equal to
+    direct searches of their padded batches and held to the plain search,
+    the probe counter's sum, the launches by batch, the epochs."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.search_api import PipelineCache, SearchParams
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve.server import IRLIServer
+
+    sp = SearchParams(m=M, tau=TAU, k=K, topC=TOPC, store_dtype="int8")
+    wide = sp.replace(m=WIDE_M)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def make_queries(n):
+        src = torch.randint(0, corpus.shape[0], (n,), generator=gen,
+                            device=dev)
+        q = corpus[src] + 0.05 * torch.randn((n, D), generator=gen,
+                                             device=dev)
+        return (q / q.norm(dim=1, keepdim=True)).cpu().numpy()
+
+    def mix(qs):
+        return [(q, wide if i % 8 == 0 else sp) for i, q in enumerate(qs)]
+
+    burst_q = make_queries(N_BURST)
+
+    # ---- the burst, counters from 0 ----
+    torch.cuda.synchronize()
+    server = IRLIServer(idx, params=sp, base=store8)
+    rec = record_batches(server)
+    reset_launches()
+    res, lat, wall = open_loop(server, mix(burst_q))
+    server.close()
+    launches = {n: c for n, c in LAUNCHES.items() if c}
+    st = server.stats
+    qps = N_BURST / wall
+    log(f"server burst: {N_BURST} requests (1 in 8 at m={WIDE_M}) in "
+        f"{wall:.3f} s -> {qps:.1f} queries/s; latency {percentiles(lat)}; "
+        f"{st['batches']} batches, pad_waste {st['pad_waste']}, param "
+        f"groups {st['param_groups']}, cache {st['cache']}")
+    probes = server.registry.vector("serve_bucket_probes", R * B).value
+    want = R * sum(p.m for _, p in mix(burst_q))
+    if float(probes.sum()) != float(want):
+        raise AssertionError(f"serve_bucket_probes sums to {probes.sum()}, "
+                             f"expected {want}")
+    # each batch: one irli_topk for the probe, then the fused kernel or
+    # the compact three; the batches' own counts sum to the run's
+    mega = {"irli_topk": 1, "mega_query": 1}
+    compact = {"irli_topk": 2, "freq_topc": 1, "quant_rerank": 1}
+    kinds = [r["launches"] for r in rec]
+    if any(k not in (mega, compact) for k in kinds):
+        raise AssertionError(f"server batches launched {kinds[:5]}...")
+    total = {}
+    for k in kinds:
+        for n, c in k.items():
+            total[n] = total.get(n, 0) + c
+    if total != launches or st["batches"] != len(rec):
+        raise AssertionError(f"server launches {launches}, by batch "
+                             f"{total}, {st['batches']} batches")
+    log(f"server burst launches {launches}: {kinds.count(mega)} fused and "
+        f"{kinds.count(compact)} compact batches, each with one irli_topk "
+        f"for the probe counter; serve_bucket_probes sums to "
+        f"{int(probes.sum())} = requests x R x m")
+    def hold(name, rec):
+        """Hold every served row of ``rec`` to the plain search: the rows
+        of one params and one snapshot (the frozen index where a batch
+        recorded none) in chunks of Q -> the largest score error."""
+        err, groups = 0.0, {}
+        for r in rec:
+            groups.setdefault((r["params"], id(r.get("snap"))),
+                              []).append(r)
+        for (p, _), rows in groups.items():
+            snap = rows[0].get("snap")
+            base, state = store8, None
+            if snap is not None:
+                base = dataclasses.replace(snap.store, exact=snap.vecs)
+                state = (snap.params, snap.members, snap.delta.members,
+                         snap.tombstone)
+            q = torch.cat([r["q"][:r["n"]] for r in rows])
+            got = [torch.cat([getattr(r["res"], f)[:r["n"]] for r in rows])
+                   for f in ("ids", "scores", "n_candidates")]
+            at = f" at epoch {snap.epoch}" if snap is not None else ""
+            for s in range(0, len(q), Q):
+                plain, exempt, mcut = plain_search(p, base, q[s:s + Q],
+                                                   state)
+                err = max(err, agree(
+                    f"{name} rows at m={p.m}{at} [{s}, "
+                    f"{min(s + Q, len(q))})",
+                    [g[s:s + Q] for g in got], plain, exempt, mcut))
+        return err
+
+    t_gate = time.perf_counter()
+    served_gate(torch, "server burst", rec, res,
+                lambda r: idx.search(r["q"], store8, r["params"]))
+    err = hold("server burst", rec)
+    log(f"server burst: gates took {time.perf_counter() - t_gate:.1f} s")
+
+    # ---- the burst's first N_BARE requests without the probe counter ----
+    server = IRLIServer(idx, params=sp, base=store8, probe_stats=False)
+    _, lat0, wall0 = open_loop(server, mix(burst_q[:N_BARE]))
+    server.close()
+    qps0 = N_BARE / wall0
+    log(f"server burst without the probe counter: its first {N_BARE} "
+        f"requests at {qps0:.1f} queries/s (with it {qps:.1f}: the "
+        f"probe's irli_topk a batch costs {1 - qps / qps0:.1%} of the wall "
+        f"time); latency {percentiles(lat0)}")
+
+    # ---- paced: Poisson arrivals at half the burst's rate ----
+    rng = np.random.default_rng(SEED)
+    arrivals = np.cumsum(rng.exponential(2.0 / qps, N_PACED))
+    server = IRLIServer(idx, params=sp, base=store8)
+    rec_p = record_batches(server)
+    res_p, lat_p, wall_p = open_loop(server, mix(make_queries(N_PACED)),
+                                     arrivals)
+    server.close()
+    log(f"server paced: {N_PACED} requests, Poisson arrivals at "
+        f"{qps / 2:.1f}/s, served in {wall_p:.3f} s; latency "
+        f"{percentiles(lat_p)}; {server.stats['batches']} batches")
+    served_gate(torch, "server paced", rec_p, res_p,
+                lambda r: idx.search(r["q"], store8, r["params"]))
+    err = max(err, hold("server paced", rec_p))
+    del rec_p, res_p
+
+    # ---- mutations as barriers, over the stream cell's index ----
+    n0 = midx.n_total
+    live = torch.nonzero(~midx.snapshot.tombstone[:n0]).flatten()
+    dead = live[torch.randperm(len(live), generator=gen,
+                               device=dev)[:N_MUT_DEL]].cpu().numpy()
+    mq = make_queries(N_MUT_Q)
+    new = torch.randn((4 * MUT_INSERT, D), generator=gen, device=dev)
+    new = (new / new.norm(dim=1, keepdim=True)).cpu().numpy()
+    e_start = midx.epoch
+    server = IRLIServer(midx, params=sp)
+    rec_m = record_batches(server, snapshot=lambda: midx.snapshot)
+    epochs = []
+    apply = server._apply_mutation
+
+    def apply_mutation(op, payload, fut):
+        apply(op, payload, fut)
+        epochs.append(midx.epoch)
+
+    server._apply_mutation = apply_mutation
+    futs, kinds, t0 = [], [], time.perf_counter()
+    for i in range(N_MUT_Q):
+        futs.append(server.submit(mq[i], sp))
+        kinds.append("query")
+        if (i + 1) % MUT_EVERY == 0:
+            j = (i + 1) // MUT_EVERY - 1
+            futs.append(server.insert(new[j * MUT_INSERT:
+                                          (j + 1) * MUT_INSERT]))
+            kinds.append("insert")
+            if j == 1:
+                futs.append(server.delete(dead))
+                kinds.append("delete")
+    out = [f.result(timeout=600) for f in futs]
+    wall_m = time.perf_counter() - t0
+    server.close()
+    mut_i, expect, got = 0, [], []
+    cur = e_start
+    for kind, o in zip(kinds, out):
+        if kind == "query":
+            expect.append(cur)
+            got.append(o.epoch)
+        else:
+            cur = epochs[mut_i]
+            mut_i += 1
+    if got != expect or any(b < a for a, b in zip(got, got[1:])):
+        bad = sum(a != b for a, b in zip(got, expect))
+        raise AssertionError(f"server mutations: {bad} queries served at "
+                             f"another epoch than the last mutation before "
+                             f"them left")
+    after = [o for k, o in zip(kinds, out) if k == "query"][2 * MUT_EVERY:]
+    if np.isin(np.stack([o.ids for o in after]), dead).any():
+        raise AssertionError("a deleted id came back after its delete")
+    log(f"server mutations: {N_MUT_Q} queries, {kinds.count('insert')} "
+        f"inserts of {MUT_INSERT} and a delete of {len(dead)} live ids as "
+        f"barriers, in {wall_m:.3f} s ({len(rec_m)} batches); every "
+        f"query's epoch is the index's epoch after the last mutation before "
+        f"it ({sorted(set(got))}), never going back; no deleted id returns")
+    cache = PipelineCache()
+
+    def at_snapshot(r):
+        s = r["snap"]
+        base = dataclasses.replace(s.store, exact=s.vecs)
+        return cache.search(r["params"], s.params, s.members, base, r["q"],
+                            s.delta.members, s.tombstone, epoch=s.epoch)
+
+    served_gate(torch, "server mutations", rec_m,
+                [o for k, o in zip(kinds, out) if k == "query"],
+                at_snapshot)
+    err = max(err, hold("server mutations", rec_m))
+    del rec_m, out, rec
+    torch.cuda.empty_cache()
+    return {"launches": launches, "err": err, "qps": qps}
+
+
+# ------------------------------------------------------------- the refit --
+def refit_cell(torch, dev) -> dict:
+    """The refit cell: a hash-partitioned index at the deep1b widths over
+    FIT_L labels (sigmoid_bce, batch FIT_BATCH, affinity chunk FIT_CHUNK),
+    wrapped in a MutableIRLIIndex (int8, capacity 2L, delta_len 208),
+    served through IRLIServer with a QueryLog, a ShadowAuditor over the
+    exact oracle and a DriftDetector; inserts and deletes through the
+    server; one OnlineRefitLoop cycle (rows inserted while it runs are the
+    swap's tail); then the artifact's checks and searches over it."""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.artifact import IndexArtifact
+    from repro_torch.checkpoint.checkpointer import CheckpointManager
+    from repro_torch.core.index import IRLIConfig, IRLIIndex
+    from repro_torch.core.search_api import SearchParams
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.online import refit as RF
+    from repro_torch.serve.server import IRLIServer
+    from repro_torch.stream import MutableIRLIIndex
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def unit(n):
+        v = torch.randn((n, D), generator=gen, device=dev)
+        return v / v.norm(dim=1, keepdim=True)
+
+    corpus = unit(FIT_L)
+    cfg = IRLIConfig(d=D, n_labels=FIT_L, n_buckets=B, n_reps=R, d_hidden=H,
+                     K=FIT_K, loss="sigmoid_bce", batch_size=FIT_BATCH,
+                     affinity_chunk=FIT_CHUNK, epochs_per_round=1, lr=1e-3,
+                     seed=SEED)
+    idx = IRLIIndex(cfg, device=dev)
+    idx.build_index()                                 # the hash partition
+    midx = MutableIRLIIndex(idx, corpus, capacity=2 * FIT_L,
+                            delta_len=DELTA_LEN, store_dtype="int8")
+    idx.opt_state = None                 # the refit round makes its own
+    torch.cuda.synchronize()
+    s0 = midx.snapshot
+    ml0 = int(s0.members.shape[-1])
+    log(f"refit setup: {time.perf_counter() - t0:.2f} s; L {FIT_L}, "
+        f"capacity {midx.capacity}, members {tuple(s0.members.shape)}, "
+        f"delta {tuple(s0.delta.members.shape)}, max load "
+        f"{int(s0.load.max())}")
+    del s0
+    sp = SearchParams(m=M, tau=TAU, k=K, topC=TOPC, store_dtype="int8")
+    reg = obs.MetricRegistry()
+    qlog = obs.QueryLog(capacity=8192, sample=1.0, registry=reg)
+    auditor = obs.ShadowAuditor(
+        midx.exact_oracle(K), sample=0.05, registry=reg,
+        searcher=lambda q: midx.search(q, sp).ids)
+    drift = obs.DriftDetector(obs.QuerySketch(D, 6, 0), registry=reg)
+    server = IRLIServer(midx, params=sp, registry=reg, qlog=qlog,
+                        auditor=auditor, drift=drift)
+    try:
+        src = torch.randint(0, FIT_L, (N_REFIT_Q,), generator=gen,
+                            device=dev)
+        qs = corpus[src] + 0.05 * torch.randn((N_REFIT_Q, D), generator=gen,
+                                              device=dev)
+        qs = (qs / qs.norm(dim=1, keepdim=True)).cpu().numpy()
+        t0 = time.perf_counter()
+        res, lat, wall = open_loop(server, [(q, sp) for q in qs])
+        log(f"refit serve: {N_REFIT_Q} queries in {wall:.3f} s "
+            f"({N_REFIT_Q / wall:.1f} queries/s), latency "
+            f"{percentiles(lat)}; query log {len(qlog)} rows, auditor "
+            f"sampled {int(reg.counter('quality_sampled_total').value)}")
+        pre_new = unit(REFIT_INSERT)
+        ins = server.insert(pre_new.cpu().numpy()).result(timeout=600)
+        dead = torch.randperm(FIT_L, generator=gen,
+                              device=dev)[:REFIT_DELETE]
+        n_dead = server.delete(dead.cpu().numpy()).result(timeout=600)
+        if n_dead != REFIT_DELETE or len(ins) != REFIT_INSERT:
+            raise AssertionError(f"refit cell: {len(ins)} inserted, "
+                                 f"{n_dead} deleted")
+        tail = unit(REFIT_INSERT)
+        tail_ids = []
+
+        class TailLoop(RF.OnlineRefitLoop):
+            """Rows that arrive while the cycle fits: inserted through the
+            server after the round, before the artifact is sealed, so the
+            swap re-places them under the new scorer."""
+
+            def _build_artifact(self, state, s, n, sketch_hist=None):
+                tail_ids.append(server.insert(
+                    tail.cpu().numpy()).result(timeout=600))
+                return super()._build_artifact(state, s, n, sketch_hist)
+
+        replicas_s = []
+        build_replicas = RF.build_replicas
+
+        def timed_replicas(*a, **kw):
+            t = time.perf_counter()
+            out = build_replicas(*a, **kw)
+            torch.cuda.synchronize()
+            replicas_s.append(time.perf_counter() - t)
+            return out
+
+        RF.build_replicas = timed_replicas
+        loop = TailLoop(midx, qlog, config=RF.RefitConfig(
+            rounds_per_cycle=1, epochs_per_round=1, min_queries=REFIT_MIN_Q,
+            hot_frac=REFIT_HOT), registry=reg, auditor=auditor, drift=drift)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            art = loop.run_cycle()
+        finally:
+            RF.build_replicas = build_replicas
+        torch.cuda.synchronize()
+        cycle_s = time.perf_counter() - t0
+        launches = {n: c for n, c in LAUNCHES.items() if c}
+        if art is None:
+            raise AssertionError(f"the refit cycle did not fire: the log "
+                                 f"holds {len(qlog)} rows")
+        live = art.load
+        log(f"refit cycle: {cycle_s:.3f} s (refit_cycle_seconds "
+            f"{reg.histogram('refit_cycle_seconds').snapshot()['sum']:.3f}),"
+            f" fit {reg.histogram('refit_fit_seconds').snapshot()['sum']:.3f}"
+            f" s, swap pause "
+            f"{midx.registry.histogram('stream_swap_seconds').snapshot()['sum']:.4f}"
+            f" s, build_replicas {sum(replicas_s):.3f} s; loss "
+            f"{reg.gauge('refit_loss').value:.5f}, re-assigned "
+            f"{int(reg.gauge('refit_n_reassigned').value)}; artifact "
+            f"v{art.version}: ML {art.members.shape[-1]} (the hash "
+            f"partition's {ml0}), "
+            f"live max load {int(live.max())} (mean "
+            f"{float(live.float().mean()):.2f}), replicas "
+            f"{None if art.replicas is None else tuple(art.replicas.shape)}"
+            f", {len(tail_ids[0])} tail rows re-placed; audited recall pre "
+            f"{reg.gauge('refit_audited_recall_pre').value:.4f} post "
+            f"{reg.gauge('refit_audited_recall_post').value:.4f}")
+        need = ("bce_logits", "irli_topk", "kchoice", "distance_topk")
+        if any(launches.get(n, 0) < 1 for n in need) \
+                or launches["kchoice"] < 3:
+            raise AssertionError(f"the refit cycle launched {launches}")
+        log(f"refit cycle launches {launches} (the round, the tail's "
+            f"insert and its re-placement, the audits and telemetry)")
+
+        # ---- the artifact ----
+        t = [time.perf_counter()]
+        art.verify()
+        t.append(time.perf_counter())
+        ckpt = Path(__file__).resolve().parent / "build" / "refit_artifact"
+        mgr = CheckpointManager(str(ckpt), keep=1)
+        art.save(mgr)
+        mgr.wait()
+        t.append(time.perf_counter())
+        back = IndexArtifact.restore(mgr, device=dev)
+        t.append(time.perf_counter())
+        if back.checksum != art.checksum:       # restore() verified it
+            raise AssertionError("the restored artifact's digest differs")
+        log(f"refit artifact: verify() passes; saved, restored, digest "
+            f"{art.checksum[:16]}... equal; verify {t[1] - t[0]:.2f} s, "
+            f"save {t[2] - t[1]:.2f} s, restore {t[3] - t[2]:.2f} s")
+        del back
+
+        # ---- serving over it ----
+        res = [server.submit(q, sp) for q in qs[:1024]]
+        res = [f.result(timeout=600) for f in res]
+        if {r.epoch for r in res} != {midx.epoch} or midx.epoch < \
+                art.version:
+            raise AssertionError(f"epochs after the swap "
+                                 f"{sorted({r.epoch for r in res})}, index "
+                                 f"{midx.epoch}, artifact v{art.version}")
+        if np.isin(np.stack([r.ids for r in res]), dead.cpu().numpy()).any():
+            raise AssertionError("a deleted id came back after the swap")
+        own = midx.search(tail, sp)
+        rate = float((own.ids[:, 0] == tail_ids[0].to(dev)).float().mean())
+        own = midx.search(pre_new, sp)
+        rate_pre = float((own.ids[:, 0] == ins.to(dev)).float().mean())
+        log(f"refit swap: {len(res)} later results at epoch {midx.epoch} "
+            f"(artifact v{art.version}); {rate:.4f} of the {REFIT_INSERT} "
+            f"tail inserts and {rate_pre:.4f} of the {REFIT_INSERT} rows "
+            f"inserted before the cycle return their own id at rank 0; no "
+            f"deleted id returns")
+        if rate < 0.99:
+            raise AssertionError(f"only {rate} of the tail inserts find "
+                                 f"themselves")
+        q = torch.from_numpy(qs[:Q]).to(dev)
+        for mode in ("compact", "auto"):
+            p = sp.replace(mode=mode)
+            a = midx.search(q, p)
+            b = midx.search(q, p, staged=True)
+            if not (torch.equal(a.ids, b.ids)
+                    and torch.equal(a.scores, b.scores)
+                    and torch.equal(a.n_candidates, b.n_candidates)):
+                raise AssertionError(f"staged {mode} differs from unstaged")
+        snap = obs.DEFAULT_REGISTRY.snapshot()
+        labels = {k.split('"')[1] for k in snap
+                  if k.startswith("serve_stage_seconds")}
+        want = {"scorer_logits", "top_m", "gather", "freq_topc", "mega"}
+        if not want <= labels:
+            raise AssertionError(f"staged labels {sorted(labels)}")
+        hot = midx.search(q, sp.replace(hot_replicas=True))
+        if hot.ids.shape != (Q, K) or int((hot.ids[:, 0] >= 0).sum()) == 0:
+            raise AssertionError("the hot-replica search returned nothing")
+        audit = auditor.run_audit()
+        drift_kl = drift.score()
+        log(f"refit: staged = unstaged bit for bit (compact and auto), "
+            f"labels {sorted(labels)}; hot_replicas search ran "
+            f"({int((hot.ids[:, 0] >= 0).sum())}/{Q} rows with a result); "
+            f"shadow audit live recall "
+            f"{'none sampled' if audit is None else round(audit['live_recall'], 4)}"
+            f", drift KL {drift_kl:.4f}")
+    finally:
+        server.close()
+    del midx, idx, server, art, corpus
+    torch.cuda.empty_cache()
+    return {"launches": launches}
 
 
 def main() -> int:
@@ -2389,14 +2951,32 @@ def main() -> int:
     record["mega_query"]["max_abs_err"] = max(
         record["mega_query"]["max_abs_err"], stream["search_err"])
 
-    # ------------------------------------------------------- 8. the fit --
+    # ---------------------------------------------------- 8. the server --
+    t_cell = time.perf_counter()
+    serve = server_cell(torch, dev, idx, store8, corpus, stream.pop("midx"),
+                        plain_search, agree)
+    log(f"server cell: {time.perf_counter() - t_cell:.1f} s")
+    record["mega_query"]["max_abs_err"] = max(
+        record["mega_query"]["max_abs_err"], serve["err"])
+    log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
+        f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
+    # ----------------------------------------------------- 9. the refit --
     del idx, members, params, w2, b2, corpus, store8
+    torch.cuda.empty_cache()
+    t_cell = time.perf_counter()
+    refit = refit_cell(torch, dev)
+    log(f"refit cell: {time.perf_counter() - t_cell:.1f} s")
+
+    # ------------------------------------------------------ 10. the fit --
     torch.cuda.empty_cache()
     fit = fit_cell(torch, dev, check_irli)
     # each kernel's launches on every path the script drives
     by_path = {}
     for path, counts in (("search", main_launches),
                          ("stream", stream["launches"]),
+                         ("server", serve["launches"]),
+                         ("refit", refit["launches"]),
                          ("fit", fit["launches"]),
                          ("dense search", fit["dense_launches"])):
         for n, c in counts.items():
@@ -2414,7 +2994,7 @@ def main() -> int:
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
-    # -------------------------------------------------- 9. the LM prefill --
+    # ------------------------------------------------- 11. the LM prefill --
     torch.cuda.empty_cache()
     lm = lm_cell(torch, dev)
     by_path["flash_attention"] = lm["launches"]
@@ -2424,7 +3004,7 @@ def main() -> int:
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
-    # ------------------------------------------------ 10. the recsys cell --
+    # ------------------------------------------------ 12. the recsys cell --
     torch.cuda.empty_cache()
     rec = recsys_cell(torch, dev, smi)
     by_path["embedding_bag"] = rec["launches"]

@@ -8,9 +8,9 @@ fit():    init partitions (2-universal hash) -> loop: train R scorers for
           corpus vectors; Def. 2) and XML mode (label sets; Def. 1).
 search(): Alg. 2 (top-m multiprobe + frequency filter + rerank), through
           the shared ``search_api.PipelineCache``.
+install_artifact(): the frozen index's swap to a sealed IndexArtifact.
 
-Not yet ported: the (data × rep) mesh fit (``mesh=``), the fit's metric
-registry (``registry=``) and ``install_artifact``.
+Not yet ported: the (data × rep) mesh fit (``mesh=``).
 """
 from __future__ import annotations
 
@@ -93,17 +93,14 @@ class IRLIIndex:
         re-assignments converge" stop), then ``build_index``. The index's
         params, optimizer state and assignment are updated in place. ``log``
         (anything with ``log(row, step=)``) gets one row a round: what
-        :meth:`_record_fit_round` returns. ``mesh`` and ``registry`` stand
-        in the reference's places and raise unless None: the mesh fit and
-        the fit gauges are not ported yet."""
+        :meth:`_record_fit_round` returns, which ``registry`` (a
+        MetricRegistry) also gets as ``fit_*`` gauges and counters.
+        ``mesh`` stands in the reference's place and raises unless None:
+        the mesh fit is not ported yet."""
         if mesh is not None:
             raise NotImplementedError(
                 "fit(mesh=...) is not ported yet (ROADMAP, the distributed "
                 "item: core/distributed.py and the mesh fit)")
-        if registry is not None:
-            raise NotImplementedError(
-                "fit(registry=...) is not ported yet (ROADMAP, the online "
-                "and obs item: the fit_* gauges)")
         cfg = self.cfg
         data = FitData.build(x_train, label_ids, label_mask, label_vecs,
                              n_labels=cfg.n_labels, chunk=cfg.affinity_chunk,
@@ -130,7 +127,7 @@ class IRLIIndex:
             stats.load_std.append(lstd)
             stats.train_loss.append(loss)
             stats.epoch_loss.append([float(v) for v in met["epoch_loss"]])
-            row = self._record_fit_round(rnd, met, dt)
+            row = self._record_fit_round(rnd, met, dt, registry)
             if log is not None:
                 log.log(row, step=rnd)
             if verbose:
@@ -141,10 +138,13 @@ class IRLIIndex:
         self.build_index()
         return stats
 
-    def _record_fit_round(self, rnd: int, met: dict, seconds: float) -> dict:
+    def _record_fit_round(self, rnd: int, met: dict, seconds: float,
+                          registry=None) -> dict:
         """One round's metrics as a flat row: loss, re-assignments and churn
         (re-assignments per (rep, label) slot), and the load-balance family
-        (std / min / max / KL-vs-uniform, the paper's §4 balance metric)."""
+        (std / min / max / KL-vs-uniform, the paper's §4 balance metric).
+        With a ``registry`` the row is mirrored as ``fit_*`` gauges, with
+        the ``fit_rounds_total`` counter and ``fit_round_seconds``."""
         cfg = self.cfg
         row = {"round": rnd, "seconds": seconds,
                "loss": float(met["loss"]),
@@ -155,6 +155,14 @@ class IRLIIndex:
         for key in ("grad_norm", "load_min", "load_max", "load_kl"):
             if key in met:
                 row[key] = float(met[key])
+        if registry is not None:
+            registry.counter("fit_rounds_total").inc()
+            registry.gauge("fit_round_seconds").set(seconds)
+            for key, val in row.items():
+                if key in ("round", "seconds"):
+                    continue
+                registry.gauge(f"fit_{key}" if not key.startswith("fit_")
+                               else key).set(val)
         return row
 
     def build_index(self):
@@ -185,7 +193,9 @@ class IRLIIndex:
         SearchResult with ids [Q, k] int32 (-1 pad), scores [Q, k] f32,
         n_candidates [Q] int32, epoch and the resolved mode. The pipeline
         comes from ``cache`` (default: ``search_api.DEFAULT_CACHE``).
-        ``staged=True`` raises until ``search_staged`` is ported. The bare
+        ``staged=True`` serves through the per-stage debug mode (each stage
+        fenced and timed into the cache's registry under
+        ``serve_stage_seconds{stage=...}``), bit-identical. The bare
         ``m=/tau=/k=/metric=/mode=/topC=`` kwargs are a deprecated shim
         returning the old ``(ids, n_candidates)`` tuple."""
         if self.index is None:
@@ -218,6 +228,49 @@ class IRLIIndex:
                                   device=self.device)
         return cache.search(params, self.params, self.index.members, base,
                             queries, epoch=self.epoch, staged=staged)
+
+    # ----------------------------------------------------- artifact swap --
+    def install_artifact(self, artifact) -> None:
+        """Swap in a sealed :class:`repro_torch.artifact.IndexArtifact`.
+
+        The frozen-index flavour of the swap: params, assignment and
+        members are replaced wholesale and ``epoch`` jumps to the artifact
+        version, so every later ``SearchResult.epoch`` names the artifact
+        that produced it. Stale versions (``version <= self.epoch``) are
+        rejected. Tombstoned rows are dropped from the rebuilt member
+        matrix; the corpus is not stored here (searches keep passing
+        ``base``). The artifact's tensors move to this index's device."""
+        from repro_torch.artifact import rebuild_members
+        cfg = self.cfg
+        md = artifact.meta_dict
+        for key, want in (("d", cfg.d), ("n_buckets", cfg.n_buckets),
+                          ("n_reps", cfg.n_reps)):
+            if key in md and int(md[key]) != int(want):
+                raise ValueError(
+                    f"artifact {key}={md[key]} != index {key}={want}")
+        if int(artifact.version) <= int(self.epoch):
+            raise ValueError(
+                f"stale artifact: version {artifact.version} <= serving "
+                f"epoch {self.epoch}")
+        L = cfg.n_labels
+        if int(artifact.n_total) < L:
+            raise ValueError(
+                f"artifact covers {artifact.n_total} labels < index "
+                f"n_labels={L}")
+        dev = self.device
+        assign = artifact.assign[:, :L].to(dev)
+        max_load = int(artifact.members.shape[-1])
+        members, load = rebuild_members(
+            assign, artifact.tombstone[:L].to(dev), B=cfg.n_buckets,
+            max_load=max_load)
+        # copies: a later fit() updates the index's params in place, and
+        # the sealed artifact must keep its content
+        self.params = {k: v.to(dev, copy=True)
+                       for k, v in artifact.params.items()}
+        self.assign = assign
+        self.index = PT.InvertedIndex(members=members, load=load,
+                                      max_load=max_load)
+        self.epoch = int(artifact.version)
 
     def as_searcher(self, base, cache: SA.PipelineCache | None = None
                     ) -> SA.Searcher:

@@ -359,29 +359,6 @@ class QueryPipeline:
                                kw.get("store_dtype", "fp32"))
         return cls(mode=mode, **kw)
 
-    # -------------------------------------------------------------- stages --
-    def top_m(self, params, queries):
-        """Top-m buckets per rep -> (bucket ids [R, Q, m] int32, probe keep
-        mask [R, Q, m] or None), through :func:`scorer_top_m`: on the card
-        the [R, Q, B] logits are never allocated, and the keep mask comes
-        from the kernel's log-sum-exp."""
-        adaptive = self.adaptive_m and self.probe_mass < 1.0
-        out = scorer_top_m(params, queries, self.m, lse=adaptive)
-        keep = (probe_keep_from_lse(out[0], out[2], self.probe_mass)
-                if adaptive else None)
-        return out[1], keep
-
-    def candidates(self, params, members, queries, delta_members=None,
-                   tombstone=None):
-        """Probe + gather: top-m buckets per rep -> flat candidate ids
-        [Q, R·m·(ML[+DL])] (pad -1), with delta union, tombstone masking
-        and (``adaptive_m``) per-query probe truncation."""
-        bidx, keep = self.top_m(params, queries)
-        cands = gather_members(members, bidx, delta_members, probe_keep=keep)
-        if tombstone is not None:
-            cands = mask_tombstones(cands, tombstone)
-        return cands
-
     def resolve_store(self, base):
         """Validate ``base`` against ``store_dtype``; return the
         QuantizedStore if one was passed, else None."""
@@ -402,28 +379,134 @@ class QueryPipeline:
         """Full serving path -> (ids [Q, k] int32 with -1 pad, scores [Q, k]
         float32, n_candidates [Q] int32). ``base`` is a raw [L, d] tensor or
         a QuantizedStore over the same rows."""
+        return self._run(lambda _, fn, *args: fn(self, *args), params,
+                         members, base, queries, delta_members, tombstone)
+
+    def search_staged(self, params, members, base, queries,
+                      delta_members=None, tombstone=None, *, registry=None):
+        """Per-stage debug mode of :meth:`search`: the same stage calls,
+        each fenced (``obs.trace``: a CUDA synchronise when its output lies
+        on the card) and timed into the ``serve_stage_seconds{stage=...}``
+        histogram of ``registry`` (default registry when None). Both run
+        :meth:`_run`, so the results are bit-identical.
+
+        The stage labels are the reference's. The [R, Q, B] logits are
+        never built (2.62 GB at Q = 1024 on the deep1b widths), so
+        ``scorer_logits`` times the scorer's first layer
+        (``scorer_hidden``) and ``top_m`` times the output GEMM and the
+        top-m together (one irli_topk launch on the card). ``mode="mega"``
+        is one stage, ``mega``: the ``ops.mega_search`` call, and it counts
+        ``serve_mega_dispatch_total``."""
+        from repro_torch import obs
+        reg = obs.get_registry(registry)
+
+        def timed(stage, fn, *args):
+            with obs.trace(reg, "serve_stage_seconds", stage=stage) as sp:
+                return sp.fence(fn(self, *args))
+
+        out = self._run(timed, params, members, base, queries, delta_members,
+                        tombstone)
+        if self.mode == "mega":
+            reg.counter("serve_mega_dispatch_total").inc()
+        return out
+
+    def _run(self, run, params, members, base, queries, delta_members,
+             tombstone):
+        """The serving path over the stage units below: ``run(stage, fn,
+        *args)`` calls ``fn(self, *args)`` for the stage named ``stage``,
+        and :meth:`search_staged`'s also times it."""
         store = self.resolve_store(base)
         if self.mode == "mega":
-            from repro_torch.kernels.mega_query.ops import mega_search
-            return mega_search(self, params, members, base, queries,
-                               delta_members, tombstone)
-        cands = self.candidates(params, members, queries, delta_members,
-                                tombstone)
+            return run("mega", _stage_mega, params, members, base, queries,
+                       delta_members, tombstone)
+        h = run("scorer_logits", _stage_hidden, params, queries)
+        bidx, keep = run("top_m", _stage_topm, params, h)
+        cands = run("gather", _stage_gather, members, bidx, keep,
+                    delta_members, tombstone)
         rows = store.codes if store is not None else base
         if self.mode == "compact":
-            cid, cnt = frequency_topC(cands, self.topC)
+            cid, cnt, n_cand = run("freq_topc", _stage_freq_topc, cands)
             if store is not None and store.dtype != "fp32":
-                from repro_torch.store.rerank import rerank_two_stage
-                ids, scores = rerank_two_stage(
-                    queries, store, cid, cnt, tau=self.tau, k=self.k,
-                    refine_k=self.refine_k, metric=self.metric)
+                cids = run("quant_rerank", _stage_quant_coarse, queries,
+                           store, cid, cnt)
+                ids, scores = run("refine", _stage_quant_refine, queries,
+                                  store, cids)
             else:
-                ids, scores = rerank_gathered(queries, rows, cid, cnt,
-                                              self.tau, self.k, self.metric)
-            n_cand = ((cid >= 0) & (cnt >= self.tau)).sum(dim=1)
-            return ids, scores, n_cand.to(torch.int32)
-        freq = candidate_frequencies_dense(cands, rows.shape[0])
-        mask = freq >= self.tau
-        scores, ids = rerank_topk(queries, rows, mask, k=self.k,
-                                  metric=_kernel_metric(self.metric))
-        return ids, scores, mask.sum(dim=1).to(torch.int32)
+                ids, scores = run("rerank", _stage_rerank_gathered, queries,
+                                  rows, cid, cnt)
+            return ids, scores, n_cand
+        freq = run("freq_dense", _stage_freq_dense, cands, rows)
+        return run("rerank", _stage_rerank_dense, queries, rows, freq)
+
+
+# ----------------------------------------------------------- stage units ----
+# One function per serving stage, ``fn(pipe, *args)``; QueryPipeline._run
+# composes them for both search() and search_staged().
+
+def _stage_mega(pipe: QueryPipeline, params, members, base, queries,
+                delta_members, tombstone):
+    from repro_torch.kernels.mega_query.ops import mega_search
+    return mega_search(pipe, params, members, base, queries, delta_members,
+                       tombstone)
+
+
+def _stage_hidden(pipe: QueryPipeline, params, queries):
+    del pipe                                      # uniform (pipe, *args) ABI
+    return scorer_hidden(params, queries).to(params["w2"].dtype)
+
+
+def _stage_topm(pipe: QueryPipeline, params, h):
+    """The output layer and the top-m as one irli_topk call -> (bucket ids
+    [R, Q, m] int32, probe keep mask [R, Q, m] or None): on the card the
+    [R, Q, B] logits are never allocated, and the keep mask comes from the
+    kernel's log-sum-exp."""
+    from repro_torch.kernels.irli_topk.ops import scorer_topk
+    adaptive = pipe.adaptive_m and pipe.probe_mass < 1.0
+    out = scorer_topk(h, params["w2"], params["b2"], m=pipe.m, lse=adaptive)
+    keep = (probe_keep_from_lse(out[0], out[2], pipe.probe_mass)
+            if adaptive else None)
+    return out[1], keep
+
+
+def _stage_gather(pipe: QueryPipeline, members, bidx, probe_keep,
+                  delta_members, tombstone):
+    del pipe
+    cands = gather_members(members, bidx, delta_members,
+                           probe_keep=probe_keep)
+    if tombstone is not None:
+        cands = mask_tombstones(cands, tombstone)
+    return cands
+
+
+def _stage_freq_topc(pipe: QueryPipeline, cands):
+    cid, cnt = frequency_topC(cands, pipe.topC)
+    n_cand = ((cid >= 0) & (cnt >= pipe.tau)).sum(dim=1)
+    return cid, cnt, n_cand.to(torch.int32)
+
+
+def _stage_rerank_gathered(pipe: QueryPipeline, queries, rows, cid, cnt):
+    return rerank_gathered(queries, rows, cid, cnt, pipe.tau, pipe.k,
+                           pipe.metric)
+
+
+def _stage_quant_coarse(pipe: QueryPipeline, queries, store, cid, cnt):
+    from repro_torch.store.rerank import coarse_stage
+    return coarse_stage(queries, store, cid, cnt, tau=pipe.tau, k=pipe.k,
+                        refine_k=pipe.refine_k, metric=pipe.metric)
+
+
+def _stage_quant_refine(pipe: QueryPipeline, queries, store, cids):
+    from repro_torch.store.rerank import refine_stage
+    return refine_stage(queries, store, cids, k=pipe.k, metric=pipe.metric)
+
+
+def _stage_freq_dense(pipe: QueryPipeline, cands, rows):
+    del pipe
+    return candidate_frequencies_dense(cands, rows.shape[0])
+
+
+def _stage_rerank_dense(pipe: QueryPipeline, queries, rows, freq):
+    mask = freq >= pipe.tau
+    scores, ids = rerank_topk(queries, rows, mask, k=pipe.k,
+                              metric=_kernel_metric(pipe.metric))
+    return ids, scores, mask.sum(dim=1).to(torch.int32)

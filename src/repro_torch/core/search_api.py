@@ -35,9 +35,9 @@ class SearchParams:
     refine_k: int = 0          # exact-refine depth k' (0 = auto: max(4k,32))
     adaptive_m: bool = False   # per-query probe count m(q)
     probe_mass: float = 1.0    # cumulative top-m mass per rep; 1.0 = all
-    hot_replicas: bool = False  # hot-bucket replica segments (none served
-    #                            by this slice: a no-op, as in the reference
-    #                            when the snapshot carries none)
+    hot_replicas: bool = False  # gather the snapshot's hot-bucket replica
+    #                            segments (repro_torch.online.policy) with
+    #                            the delta members; a no-op without them
 
     def __post_init__(self):
         for name in ("m", "tau", "k", "topC"):
@@ -248,14 +248,21 @@ class PipelineCache:
                epoch: int = 0, staged: bool = False) -> SearchResult:
         """Resolve params against this corpus/batch, fetch or build the
         pipeline, run it, and wrap the typed result. ``base`` is the raw
-        [L, d] corpus or a QuantizedStore over it. ``staged=True`` (the
-        reference's per-stage debug mode) is not ported yet and raises."""
+        [L, d] corpus or a QuantizedStore over it.
+
+        ``staged=True`` routes through the per-stage debug mode
+        (``QueryPipeline.search_staged``): the same calls, each stage
+        fenced and timed into this cache's registry under
+        ``serve_stage_seconds{stage=...}``. Results are bit-identical to
+        the unstaged path."""
         check_store("PipelineCache.search", params, base)
-        if staged:
-            raise NotImplementedError(
-                "staged=True (QueryPipeline.search_staged) is not ported "
-                "yet (ROADMAP, the online and obs item)")
         resolved = params.resolve(int(base.shape[0]), int(queries.shape[0]))
+        if staged:
+            ids, scores, n_cand = resolved.pipeline().search_staged(
+                scorer_params, members, base, queries, delta_members,
+                tombstone, registry=self.registry)
+            return SearchResult(ids=ids, scores=scores, n_candidates=n_cand,
+                                epoch=epoch, mode=resolved.mode)
         fn, fresh = self._lookup(resolved, base.shape[0], queries.shape[0])
         if fresh:
             from repro_torch import obs

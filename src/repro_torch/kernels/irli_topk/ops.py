@@ -1,5 +1,5 @@
 """The ONE dispatch site for the fused scorer GEMM + top-m (the query
-path's scorer stage, core/query.QueryPipeline.top_m). A CPU tensor takes the
+path's top_m stage, core/query._stage_topm). A CPU tensor takes the
 plain version (ref.py); a CUDA tensor launches the hand-written kernel
 (irli_topk.cu) or raises.
 """

@@ -56,14 +56,3 @@ def refine_stage(queries, store: QuantizedStore, cids, *, k: int,
         ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
         scores = torch.nn.functional.pad(scores, (0, pad), value=-torch.inf)
     return ids.to(torch.int32), scores
-
-
-def rerank_two_stage(queries, store: QuantizedStore, cand_ids, cand_counts,
-                     *, tau: int, k: int, refine_k: int = 0,
-                     metric: str = "angular"):
-    """queries [Q, d], cand_ids/cand_counts [Q, C] (the frequency_topC
-    output) -> (ids [Q, k] with -1 where no candidate survived, scores
-    [Q, k] exact similarities, -inf on pads)."""
-    cids = coarse_stage(queries, store, cand_ids, cand_counts, tau=tau,
-                        k=k, refine_k=refine_k, metric=metric)
-    return refine_stage(queries, store, cids, k=k, metric=metric)

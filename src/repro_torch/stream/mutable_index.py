@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 
 import torch
 
@@ -112,9 +113,12 @@ class MutableIRLIIndex:
     """Streaming wrapper around a fitted :class:`IRLIIndex`.
 
     Single writer, many readers: mutations (``insert``/``delete``/
-    ``compact``) serialize on an internal lock; searches read one snapshot
-    and may run from any thread. The state lives on ``device`` (default:
-    the index's). The snapshot shares the index's scorer tensors.
+    ``compact``/``install_artifact``) serialize on an internal lock;
+    searches read one snapshot and may run from any thread. The state lives
+    on ``device`` (default: the index's). The snapshot shares the index's
+    scorer tensors, which ``IRLIIndex.fit`` updates in place: refit a
+    wrapped index through an artifact install (repro_torch.online.refit,
+    whose rounds train copies).
     """
 
     def __init__(self, index, base_vecs, capacity: int | None = None,
@@ -404,6 +408,116 @@ class MutableIRLIIndex:
                 self._snapshot = new
             self.registry.counter("stream_compactions_total").inc()
             self._record_state_gauges()
+
+    # ------------------------------------------------------------ refit swap --
+    def _check_artifact(self, artifact) -> None:
+        meta = artifact.meta_dict
+        expect = {"d": self.cfg.d, "n_buckets": self.cfg.n_buckets,
+                  "n_reps": self.cfg.n_reps, "capacity": self.capacity,
+                  "loss": self.cfg.loss}
+        for key, want in expect.items():
+            if key in meta and meta[key] != want:
+                raise ValueError(
+                    f"install_artifact: config mismatch on {key}: artifact "
+                    f"has {meta[key]!r}, this index has {want!r}")
+
+    def install_artifact(self, artifact) -> None:
+        """Zero-downtime swap: publish a refit artifact as the serving
+        snapshot with one attribute store. Readers in flight finish on the
+        old snapshot; the next batch reads the new one (``result.epoch`` ==
+        artifact.version names which).
+
+        The payload tiers (vecs, quantized codes) come from the CURRENT
+        snapshot by reference: a refit never touches vector content, and
+        rows inserted while it ran live only there. Those tail rows (ids >=
+        artifact.n_total) are re-placed under the NEW scorer into fresh
+        delta segments inside the same swap (:meth:`_place_tail`: one
+        irli_topk and one kchoice launch on the card); deletes that
+        post-date the artifact keep masking through the carried-over
+        tombstone, and their load decrements are re-applied here. The card
+        is synchronised before the pointer flip, so the swap's device work
+        is done when readers see the new snapshot and
+        ``stream_swap_seconds`` times it.
+
+        Versions must advance: an artifact whose version does not exceed
+        the current epoch is stale and is rejected."""
+        cfg = self.cfg
+        B, R = cfg.n_buckets, cfg.n_reps
+        dev = self.device
+        with self._mu:
+            cur = self._snapshot
+            self._check_artifact(artifact)
+            if artifact.version <= cur.epoch:
+                raise ValueError(
+                    f"install_artifact: stale artifact version "
+                    f"{artifact.version} <= serving epoch {cur.epoch}")
+            t0 = time.perf_counter()
+            assign = artifact.assign.to(dev)
+            load = artifact.load.to(device=dev, dtype=torch.int32)
+            n_fit = int(artifact.n_total)
+            # deletes issued after the artifact was built: re-apply their
+            # load decrements (the sentinel B marks rows no list carries)
+            dead_new = cur.tombstone[:n_fit] & \
+                ~artifact.tombstone[:n_fit].to(dev)
+            if bool(dead_new.any()):
+                a = assign[:, :n_fit][:, dead_new].long()          # [R, nd]
+                dec = torch.zeros((R, B + 1), dtype=torch.int32, device=dev)
+                dec.scatter_add_(1, a, torch.ones_like(a, dtype=torch.int32))
+                load = load - dec[:, :B]
+            snap = StreamSnapshot(
+                params={k: v.to(dev) for k, v in artifact.params.items()},
+                members=artifact.members.to(dev),
+                delta=delta_init(*artifact.delta.members.shape, dev),
+                tombstone=cur.tombstone,
+                load=load, assign=assign, vecs=cur.vecs,
+                n_total=cur.n_total, epoch=int(artifact.version),
+                store=cur.store,
+                replicas=(artifact.replicas.to(dev)
+                          if artifact.replicas is not None else None))
+            live_tail = torch.nonzero(
+                ~cur.tombstone[n_fit:cur.n_total]).flatten() + n_fit
+            if live_tail.numel():
+                snap = self._place_tail(snap, live_tail.to(torch.int32))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)   # honest swap-pause timing
+            self._snapshot = snap
+            self.registry.histogram("stream_swap_seconds").observe(
+                time.perf_counter() - t0)
+            self.registry.counter("stream_swaps_total").inc()
+            self.registry.gauge("artifact_version").set(artifact.version)
+            self._record_state_gauges()
+
+    def _place_tail(self, snap: StreamSnapshot, ids: torch.Tensor
+                    ) -> StreamSnapshot:
+        """Re-place live rows the artifact has never seen (inserted during
+        the refit) under the artifact's NEW scorer: power-of-K against the
+        new loads, appended to the fresh delta (``_score_and_place``: one
+        irli_topk and one kchoice launch on the card). Falls back to an
+        immediate compaction when the tail alone overflows a segment."""
+        cfg = self.cfg
+        dev = self.device
+        n = int(ids.numel())
+        n_pad = 1 << max(0, (n - 1).bit_length())
+        rows = torch.cat([ids.long(), torch.zeros(n_pad - n,
+                                                  dtype=torch.int64,
+                                                  device=dev)])
+        valid = torch.arange(n_pad, device=dev) < n
+        buckets = _score_and_place(
+            snap.params, snap.load.to(torch.float32), snap.vecs[rows], valid,
+            B=cfg.n_buckets, K=cfg.K)[:, :n]                      # [R, n]
+        new_delta, ok = delta_append(snap.delta, buckets, ids)
+        dload = torch.zeros_like(snap.load).scatter_add_(
+            1, buckets.long(), torch.ones_like(buckets, dtype=torch.int32))
+        assign = snap.assign.clone()
+        assign[:, ids.long()] = buckets
+        snap = dataclasses.replace(snap, load=snap.load + dload,
+                                   assign=assign)
+        if bool(ok):
+            return dataclasses.replace(snap, delta=new_delta)
+        # assign already carries the tail: fold everything into the base
+        # members (the epoch bumps past the artifact version: still
+        # monotone)
+        return compaction.compact_snapshot(snap, cfg.n_buckets)
 
     # ------------------------------------------------------- checkpointing --
     def state_dict(self, snapshot: StreamSnapshot | None = None) -> dict:

@@ -143,10 +143,32 @@ def test_topk_stable_breaks_ties_like_lax_top_k(k):
 
 # ------------------------------------------------------------ search_api ---
 def test_staged_search_names_its_roadmap_item():
-    """staged=True (the reference's search_staged) is not ported: it raises
-    and names its ROADMAP item by name, not by a number that moves."""
+    """staged=True (the reference's search_staged) raised, naming its
+    ROADMAP item, until the online and obs item ported it: now the cache
+    serves it, bit-identical to the unstaged search, and times each stage
+    under the reference's labels in the cache's own registry."""
     from repro_torch.core.search_api import PipelineCache, SearchParams
-    with pytest.raises(NotImplementedError,
-                       match=r"\(ROADMAP, the online and obs item\)"):
-        PipelineCache().search(SearchParams(), None, None, torch.zeros(4, 2),
-                               torch.zeros(1, 2), staged=True)
+    from repro_torch.obs import MetricRegistry
+    g = torch.Generator().manual_seed(0)
+    R, B, d, H, L = 2, 8, 4, 8, 40
+    params = {"w1": torch.randn(R, d, H, generator=g),
+              "b1": torch.zeros(R, H),
+              "w2": torch.randn(R, H, B, generator=g),
+              "b2": torch.zeros(R, B)}
+    members = TP.build_inverted_index(
+        TP.hash_init(L, B, R, 0), B, 10).members
+    base = torch.randn(L, d, generator=g)
+    q = torch.randn(3, d, generator=g)
+    reg = MetricRegistry()
+    cache = PipelineCache(registry=reg)
+    sp = SearchParams(m=2, k=3, mode="compact")
+    a = cache.search(sp, params, members, base, q)
+    b = cache.search(sp, params, members, base, q, staged=True)
+    for x, y in ((a.ids, b.ids), (a.scores, b.scores),
+                 (a.n_candidates, b.n_candidates)):
+        assert torch.equal(x, y)
+    assert {k for k in reg.snapshot() if k.startswith(
+        "serve_stage_seconds")} == {
+        f'serve_stage_seconds{{stage="{s}"}}'
+        for s in ("scorer_logits", "top_m", "gather", "freq_topc",
+                  "rerank")}

@@ -703,8 +703,10 @@ def test_jax_fitted_index_continues_in_the_port_and_back():
 # ------------------------------------------------------ fit's signature ---
 def test_fit_parameters_are_the_references():
     """IRLIIndex.fit takes the reference's parameters in its order, so a
-    positional argument binds alike in both packages; mesh= and registry=
-    raise NotImplementedError naming their ROADMAP items unless None."""
+    positional argument binds alike in both packages; mesh= raises
+    NotImplementedError naming its ROADMAP item unless None, and a
+    registry passed positionally in registry='s place gets the fit_*
+    gauges."""
     import inspect
     want = inspect.signature(JIndex.fit).parameters
     got = inspect.signature(IRLIIndex.fit).parameters
@@ -713,14 +715,17 @@ def test_fit_parameters_are_the_references():
                                                  for p in want.values()]
     assert list(got).index("mesh") == 6 and list(got)[-1] == "log"
     cfg = IRLIConfig(d=4, n_labels=16, n_buckets=4, n_reps=1, d_hidden=8,
-                     rounds=1, epochs_per_round=1, batch_size=8)
+                     K=2, rounds=1, epochs_per_round=1, batch_size=8)
     idx = IRLIIndex(cfg, device="cpu")
     x = np.zeros((8, 4), np.float32)
     lab = np.zeros((8, 2), np.int32)
     with pytest.raises(NotImplementedError, match="the distributed item"):
         idx.fit(x, lab, mesh=object())
-    with pytest.raises(NotImplementedError, match="the online and obs item"):
-        idx.fit(x, lab, None, None, False, None, object())
+    from repro_torch.obs import MetricRegistry
+    reg = MetricRegistry()
+    idx.fit(x, lab, None, None, False, None, reg)
+    assert reg.counter("fit_rounds_total").value == 1
+    assert reg.get("fit_loss") is not None
 
 
 # ------------------------------------------------- the port stands alone ---

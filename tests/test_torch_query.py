@@ -446,6 +446,7 @@ def test_index_search_legacy_kwargs_and_default_cache():
                                                + before["misses"] + 1)
     with pytest.raises(TypeError, match="either SearchParams"):
         tidx.search(queries, base, SearchParams(), k=3)
-    with pytest.raises(NotImplementedError,
-                       match="the online and obs item"):
-        tidx.search(queries, base, SearchParams(), staged=True)
+    staged = tidx.search(queries, base, SearchParams(), staged=True)
+    plain = tidx.search(queries, base, SearchParams())
+    assert torch.equal(staged.ids, plain.ids)
+    assert torch.equal(staged.scores, plain.scores)

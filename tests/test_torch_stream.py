@@ -338,9 +338,11 @@ def test_legacy_kwargs_shim_warns_and_returns_the_old_tuple(fitted, data):
                                                      res.n_candidates)
     with pytest.raises(TypeError, match="either SearchParams"):
         tm.search(data.queries, SearchParams(), k=5)
-    with pytest.raises(NotImplementedError,
-                       match="the online and obs item"):
-        tm.search(data.queries, SearchParams(), staged=True)
+    staged = tm.search(data.queries, SearchParams(), staged=True)
+    plain = tm.search(data.queries, SearchParams())
+    assert torch.equal(staged.ids, plain.ids)
+    assert torch.equal(staged.scores, plain.scores)
+    assert staged.epoch == plain.epoch
 
 
 @pytest.mark.parametrize("dtype", ["int8", "bf16", "fp32"])
