@@ -59,6 +59,26 @@ widths, the LM prefill at gemma-7b's and DIEN's serve path at its own:
     and live maximum load, verify(), a save/restore with the digest equal,
     the epochs after the swap, >= 99% of the tail finding itself, no
     deleted id, staged = unstaged, a hot-replica search;
+  * the distributed cell (``dist_cell``, core/distributed.py): (a) an NCCL
+    process group of world size 1 in this process: ``launch/steps.
+    build_irli_serve`` and ``make_production_search`` over the search
+    cell's index, int8 store and queries, bit-equal to the compact search
+    (ids, n_candidates, scores) and timed beside it (the difference is the
+    merge's cost), then the fit cell's config over DIST_FIT_L = 32,768
+    labels, one round, through ``IRLIIndex.fit(mesh=)`` on a 1 x 1
+    ("data", "rep") mesh, bit-equal to the fit without one (assign,
+    losses, params, AdamW moments); (b) DIST_P = 4 gloo ranks spawned on
+    the one card (NCCL refuses two ranks on one device), each with
+    DIST_L = 500,000 rows of the same corpus under its own hash partition
+    (max_load 2·⌈DIST_L/B⌉ = 50), the replicated scorer and the same
+    queries: every rank's result equal to this process's loop over the
+    shards through ``shard_search_local`` merged by a stable sort on the
+    host (ids and n_candidates exactly, scores bit-equal); the ranks
+    time-share the card, so their times are correctness only; (c) in the
+    same ranks the fit on a 2 x 2 ("data", "rep") mesh at narrow widths (B
+    = 2000, R = 4, H = 256, NARROW_L = 8192 labels, 2 rounds), held to the
+    single-device fit here with tests/test_fit_engine.py's tolerances (loss
+    rtol 1e-4, assign match > 0.98, load_std rtol 0.05);
   * the fit (Alg. 1) through ``IRLIIndex.fit``, ANN mode, sigmoid_bce: per
     train step one bce_logits launch, per affinity label chunk one
     irli_topk launch, per round one kchoice launch; its round 1 again with
@@ -141,7 +161,9 @@ the per-kernel record (launches, error, times, bounds). Any failure raises
 and exits non-zero with no ``ok`` line; so does a run without a card, or
 from a directory that holds this file and nothing else of the repository.
 ``python3 chip_smoke.py --fit-recall L N`` runs only the fit cell's fit and
-recall, at L labels and N training queries, and prints them as JSON.
+recall, at L labels and N training queries, and prints them as JSON;
+``--distributed`` runs only the build, the search cell's index and the
+distributed cell.
 
 Widths (configs/irli_deep1b.py): D=96, B=20000, R=32, H=1024. Search, the
 serve_query cell: int8 block 32, m=5, tau=2, k=10, topC=1024, refine_k auto
@@ -172,7 +194,16 @@ cell's prompt length, batch 1) and [4, 2048] (a few short requests);
 tokens random from SEED; qwen3-4b's depth cut to 4 layers. The recsys
 cell: the reference's serve_p99 and serve_bulk cells
 (configs/recsys_common.py) for DIEN, at full width and batch, on one card
-in place of a mesh.
+in place of a mesh. The distributed cell: the serve_query cell's own
+production search (``build_irli_serve``, every chip a corpus shard) at
+world size 1 over its whole index, and cut from the reference's mesh to 4
+ranks on one card over quarters of that corpus (the card's one NVLink
+peer is itself: collectives across chips wait for a four-chip cell); the
+mesh fit at 32,768 labels, one round (1 x 1), and at narrow widths (2 x
+2: gloo would move a 1.3 GB w2 gradient a step at full width). Depth cut
+to keep the whole run near 400 s with this cell: the server cell's burst
+from 4,096 to N_BURST = 2,048 requests (its rate is the same at any
+count; its p50/p99 grow with it).
 """
 from __future__ import annotations
 
@@ -184,12 +215,15 @@ import sys
 import time
 from pathlib import Path
 
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.configs.irli_deep1b import (  # noqa: E402
+    B_BUCKETS as B, D, FIT_AFFINITY_CHUNK, FIT_K, HIDDEN as H, K_NEIGH, R,
+    STORE_BLOCK as BLOCK)
+
 SEED = 0
-D, B, R, H = 96, 20000, 32, 1024
 L = 2_000_000
 Q = 1024
 Q_SMALL = 64
-BLOCK = 32
 M, TAU, K, TOPC = 5, 2, 10, 1024
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 FP32_FLOPS = 67e12                 # H100 SXM fp32 outside the tensor cores
@@ -203,7 +237,7 @@ N_INSERT, INSERT_BATCH, N_DEL_BASE, N_DEL_NEW = 65_536, 4096, 90_000, 10_000
 DELTA_LEN = 208                    # default_delta_len(2·L, L, B)
 # the fit cell
 FIT_L = 131_072
-FIT_K, K_NEIGH, FIT_BATCH, FIT_ROUNDS, FIT_CHUNK = 10, 100, 4096, 2, 65_536
+FIT_BATCH, FIT_ROUNDS, FIT_CHUNK = 4096, 2, FIT_AFFINITY_CHUNK
 # a neighbours chunk (1024 queries, k = K_NEIGH, over FIT_L rows) may take no
 # longer than it did before the tile GEMM's redesign: 7.4278 ms on an H100
 # 80GB HBM3 at 700 W (PERF.md)
@@ -216,12 +250,20 @@ SOFT_L, SOFT_BATCH = 16_384, 1024
 # any count); the mutation phase's queries, an insert of MUT_INSERT rows
 # after every MUT_EVERY queries and a delete of N_MUT_DEL live ids after the
 # second insert
-N_BURST, N_BARE, N_PACED, WIDE_M = 4096, 1024, 512, 10
+N_BURST, N_BARE, N_PACED, WIDE_M = 2048, 1024, 512, 10
 N_MUT_Q, MUT_EVERY, MUT_INSERT, N_MUT_DEL = 4096, 1024, 4096, 10_000
 # the refit cell (over FIT_L labels): queries served, rows inserted before
 # the cycle and again while it runs (the swap's tail), ids deleted
 N_REFIT_Q, REFIT_INSERT, REFIT_DELETE = 4096, 4096, 1000
 REFIT_MIN_Q, REFIT_HOT = 1024, 0.005     # RefitConfig's min_queries, hot_frac
+# the distributed cell: (b) P = DIST_P gloo ranks on the card, each over
+# DIST_L = L / DIST_P rows of the search cell's corpus; (c) the 1 x 1 mesh
+# fit at deep1b widths over DIST_FIT_L labels (one round), and the 2 x 2
+# mesh fit across 4 gloo ranks at narrow widths over NARROW_L labels
+DIST_P = 4
+DIST_L = L // DIST_P
+DIST_FIT_L = 32_768
+NARROW_L, NARROW = 8192, dict(n_buckets=2000, n_reps=4, d_hidden=256)
 # the LM cell: [batch, prompt length] of each gemma-7b prefill
 LM_SHAPES = ((4, 2048), (1, 32768))
 QWEN_LAYERS = 4
@@ -343,6 +385,19 @@ def bce_grad_err(gk, gp, wt, scale, rows=8192) -> float:
         if bool(live.any()):
             err = max(err, float((d[live] / (scale * w[live, None])).max()))
     return err
+
+
+def serve_data(torch, dev):
+    """The search cell's corpus [L, D] (unit rows) and Q queries (noisy
+    copies of corpus rows, unit), from SEED on the card."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    corpus = torch.randn((L, D), generator=gen, device=dev)
+    corpus /= corpus.norm(dim=1, keepdim=True)
+    src = torch.randint(0, L, (Q,), generator=gen, device=dev)
+    queries = corpus[src] + 0.05 * torch.randn((Q, D), generator=gen,
+                                               device=dev)
+    queries /= queries.norm(dim=1, keepdim=True)
+    return corpus, queries
 
 
 def neighbours(torch, dev, base, q, k):
@@ -2319,6 +2374,397 @@ def refit_cell(torch, dev) -> dict:
     return {"launches": launches}
 
 
+# ------------------------------------------------------- the distributed --
+def shard_members(torch, dev, s: int):
+    """Shard s's own hash partition over its DIST_L rows (seed SEED + 1 +
+    s, max_load 2·⌈DIST_L/B⌉) -> members [R, B, ML]."""
+    from repro_torch.core import partition as PT
+    a = PT.hash_init(DIST_L, B, R, seed=SEED + 1 + s, device=dev)
+    return PT.build_inverted_index(a, B, max_load=2 * -(-DIST_L // B)
+                                   ).members
+
+
+def serve_scorer(torch, dev) -> dict:
+    """The search cell's scorer: IRLIIndex's own draw at seed SEED."""
+    from repro_torch.core.network import ScorerConfig, scorer_init
+    return scorer_init(ScorerConfig(d_in=D, d_hidden=H, n_buckets=B,
+                                    n_reps=R),
+                       torch.Generator(device=dev).manual_seed(SEED))
+
+
+def narrow_config(**over):
+    """The 2 x 2 mesh fit's config: the fit cell's at narrow widths (B =
+    2000, R = 4, H = 256) over NARROW_L labels, 2 rounds, batch 1024 and
+    an affinity chunk of 2048 (4 chunks: the data axis splits them)."""
+    return fit_config(NARROW_L, rounds=2, batch_size=1024,
+                      affinity_chunk=2048, **{**NARROW, **over})
+
+
+def dist_rank(rank: int, world: int, tmp: str, dev_type: str) -> None:
+    """One of the DIST_P gloo ranks on the card (spawned by dist_cell):
+    (b) its shard of the search cell's corpus through build_irli_serve and
+    make_production_search over a ("data", "model") = (DIST_P, 1) mesh;
+    (c) the narrow fit on a 2 x 2 ("data", "rep") mesh. Writes its results
+    to tmp/rank<rank>.pt, or its traceback to tmp/err<rank>.txt."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    try:
+        dev = torch.device(dev_type, 0 if dev_type == "cuda" else None)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(str(Path(tmp) / "store"), world),
+            rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=300))
+        out = {"search": dist_rank_search(torch, dev, world),
+               "fit": dist_rank_fit(torch, dev, world, tmp)}
+        torch.save(out, Path(tmp) / f"rank{rank}.pt")
+        dist.destroy_process_group()
+    except BaseException:
+        (Path(tmp) / f"err{rank}.txt").write_text(traceback.format_exc())
+        raise
+
+
+def dist_rank_search(torch, dev, world: int) -> dict:
+    from repro_torch.core.distributed import (axis_group,
+                                              make_production_search)
+    from repro_torch.core.search_api import SearchParams
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_irli_serve
+    from repro_torch.store.quantized import encode
+
+    mesh = make_host_mesh(world, device_type=dev.type)
+    shard = axis_group(mesh, mesh.mesh_dim_names).index
+    corpus, queries = serve_data(torch, dev)
+    store = encode(corpus[shard * DIST_L:(shard + 1) * DIST_L].contiguous(),
+                   "int8", BLOCK)
+    del corpus
+    params = {"scorer": serve_scorer(torch, dev),
+              "members": shard_members(torch, dev, shard),
+              "base_codes": store.codes, "base_scales": store.scales}
+    sp = SearchParams(m=M, tau=TAU, k=K, topC=TOPC, store_dtype="int8")
+    search = make_production_search(mesh, sp)
+    step = build_irli_serve(mesh, M, TAU, K, store_dtype="int8",
+                            store_block=BLOCK)
+    batch = {"queries": queries}
+    torch.cuda.synchronize()
+    reset_launches()
+    out = step(params, batch)
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in LAUNCHES.items() if c}
+    res = search(params["scorer"], params["members"], store, queries)
+    ms = time_ms(torch, lambda: step(params, batch), n=5, warmup=1)
+    return {"shard": shard, "peak_gb": torch.cuda.max_memory_allocated()
+            / 1e9 if dev.type == "cuda" else 0.0, "ids": out["ids"].cpu(),
+            "scores": out["scores"].cpu(), "res_ids": res.ids.cpu(),
+            "res_scores": res.scores.cpu(),
+            "n_candidates": res.n_candidates.cpu(), "launches": launches,
+            "ms": ms}
+
+
+def dist_rank_fit(torch, dev, world: int, tmp: str) -> dict:
+    from repro_torch.core.index import IRLIIndex
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_fit_mesh
+
+    mesh = make_fit_mesh(world, rep_axis=2, device_type=dev.type)
+    data = torch.load(Path(tmp) / "narrow.pt")
+    base, labels = data["base"].to(dev), data["labels"].to(dev)
+    idx = IRLIIndex(narrow_config(), device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    st = idx.fit(base, labels, label_vecs=base, mesh=mesh)
+    torch.cuda.synchronize()
+    return {"loss": st.train_loss, "epoch_loss": st.epoch_loss,
+            "load_std": st.load_std, "n_reassigned": st.n_reassigned,
+            "assign": idx.assign.cpu(), "launches": {
+                n: c for n, c in LAUNCHES.items() if c},
+            "seconds": time.perf_counter() - t0}
+
+
+def spawn_ranks(fn, world: int, tmp: str, dev_type: str,
+                timeout: float) -> None:
+    """Run fn(rank, world, tmp, dev_type) in ``world`` processes started with the
+    spawn method (the card is initialised here already); raise with their
+    tracebacks if any fails or outlives ``timeout`` s. Every process is
+    stopped before this returns."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=fn, args=(r, world, tmp, dev_type))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    text = "\n".join(f.read_text() for f in sorted(Path(tmp).glob("err*")))
+    if text or hung or any(p.exitcode for p in procs):
+        raise AssertionError(f"distributed ranks {hung} outlived {timeout} "
+                             f"s; exit codes {[p.exitcode for p in procs]}"
+                             f"\n{text}")
+
+
+def dist_cell(torch, dev, idx, store8, queries) -> dict:
+    """The distributed cell (core/distributed.py, launch/steps.
+    build_irli_serve, the mesh fit):
+    (a) an NCCL process group of world size 1 in this process:
+        build_irli_serve / make_production_search over the search cell's
+        index, int8 store and queries, bit-equal to the compact search
+        (ids, n_candidates, scores), both timed (the difference is the
+        merge's cost); then the fit cell's config over DIST_FIT_L labels,
+        one round, through IRLIIndex.fit with a 1 x 1 ("data", "rep")
+        mesh, bit-equal to the same fit without one (assign, losses,
+        params);
+    (b) DIST_P gloo ranks spawned on the one card (NCCL refuses two ranks
+        on one device), each holding DIST_L rows of the same corpus with
+        its own hash partition, the replicated scorer and the same
+        queries: all ranks return the same result, equal to this
+        process's loop over the shards through shard_search_local merged
+        by a stable sort on the host (ids and n_candidates exactly, scores
+        bit-equal); the ranks time-share the card, so their times are
+        correctness only;
+    (c) in the same ranks, the narrow fit on a 2 x 2 mesh, held to the
+        single-device fit in this process with tests/test_fit_engine.py's
+        tolerances (loss rtol 1e-4, assign match > 0.98, load_std rtol
+        0.05)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import shard_search_local
+    from repro_torch.core.index import IRLIIndex
+    from repro_torch.core.search_api import SearchParams
+    from repro_torch.data.synthetic import clustered_vectors
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_fit_mesh, make_host_mesh
+    from repro_torch.launch.steps import build_irli_serve
+    from repro_torch.core.distributed import make_production_search
+    from repro_torch.store.quantized import QuantizedStore
+
+    t_cell = time.perf_counter()
+    compact = SearchParams(m=M, tau=TAU, k=K, topC=TOPC, store_dtype="int8",
+                           mode="compact")
+    launches = {}
+    tmp = tempfile.mkdtemp(prefix="irli_dist_")
+    # ------------------------------------- (a) world size 1, over NCCL --
+    t0 = time.perf_counter()
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(
+        str(Path(tmp) / "solo_store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, device_type=dev.type)
+        log(f"distributed (a): {backend} group of world size 1 and a "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} mesh in "
+            f"{time.perf_counter() - t0:.2f} s")
+        params = {"scorer": idx.params, "members": idx.index.members,
+                  "base_codes": store8.codes, "base_scales": store8.scales}
+        step = build_irli_serve(mesh, M, TAU, K, store_dtype="int8",
+                                store_block=BLOCK)
+        search = make_production_search(mesh, compact)
+        batch = {"queries": queries}
+        want = idx.search(queries, store8, compact)
+        search(idx.params, idx.index.members, store8, queries)
+        torch.cuda.synchronize()
+        reset_launches()
+        out = step(params, batch)
+        torch.cuda.synchronize()
+        launches["serve"] = {n: c for n, c in LAUNCHES.items() if c}
+        if launches["serve"] != {"irli_topk": 1, "freq_topc": 1,
+                                 "quant_rerank": 1}:
+            raise AssertionError(f"build_irli_serve launched "
+                                 f"{launches['serve']}")
+        res = search(idx.params, idx.index.members, store8, queries)
+        for name, got in (("build_irli_serve", (out["ids"], out["scores"],
+                                                want.n_candidates)),
+                          ("make_production_search",
+                           (res.ids, res.scores, res.n_candidates))):
+            if not (torch.equal(got[0], want.ids)
+                    and torch.equal(got[1], want.scores)
+                    and torch.equal(got[2], want.n_candidates)):
+                raise AssertionError(f"{name} at world size 1 is not "
+                                     f"bit-equal to the compact search")
+        log(f"distributed (a) make_production_search and build_irli_serve "
+            f"at L={L}, Q={Q} "
+            f"(int8, m={M}, tau={TAU}, k={K}, topC={TOPC}): ids, "
+            f"n_candidates and scores bit-equal to the compact search; "
+            f"launches {launches['serve']}")
+        serve_ms = compact_ms = 0.0
+        for _ in range(2):                       # interleaved, twice
+            compact_ms += time_ms(torch, lambda: idx.search(
+                queries, store8, compact), n=10) / 2
+            serve_ms += time_ms(torch, lambda: step(params, batch),
+                                n=10) / 2
+        from repro_torch.core.distributed import (_merge_across_shards,
+                                                  axis_group)
+        grp = axis_group(mesh, mesh.mesh_dim_names)
+        merge_ms = time_ms(torch, lambda: _merge_across_shards(
+            want.ids, want.scores, want.n_candidates, K, grp), n=20)
+        log(f"distributed (a) times: build_irli_serve {serve_ms:.4f} ms, "
+            f"the compact search {compact_ms:.4f} ms (difference "
+            f"{serve_ms - compact_ms:.4f} ms); the merge alone (one NCCL "
+            f"all-gather of [{Q}, {2 * K}] int32 + one all-reduce of "
+            f"[{Q}] int32 + the stable top-{K}) {merge_ms:.4f} ms")
+
+        # the 1 x 1 mesh fit at deep1b widths, bit-equal
+        fbase = clustered_vectors(n_base=DIST_FIT_L, n_queries=1, d=D,
+                                  seed=SEED)[0]
+        fbase = torch.from_numpy(fbase).to(dev)
+        flabels = neighbours(torch, dev, fbase, fbase, K_NEIGH)
+        cfg = fit_config(DIST_FIT_L, rounds=1)
+        fits, secs = [], []
+        for fmesh in (None, make_fit_mesh(1, device_type=dev.type)):
+            fidx = IRLIIndex(cfg, device=dev)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            st = fidx.fit(fbase, flabels, label_vecs=fbase, mesh=fmesh)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            fits.append((fidx, st, {n: c for n, c in LAUNCHES.items()
+                                    if c}))
+        (one, s1, l1), (two, s2, l2) = fits
+        launches["fit 1x1"] = l2
+        steps = -(-DIST_FIT_L // FIT_BATCH)
+        fwant = {"bce_logits": steps, "irli_topk": -(-DIST_FIT_L // FIT_CHUNK),
+                 "kchoice": 1}
+        if l2 != fwant:
+            raise AssertionError(f"the 1 x 1 mesh fit launched {l2}, "
+                                 f"expected {fwant}")
+        same = (torch.equal(one.assign, two.assign)
+                and s1.train_loss == s2.train_loss
+                and s1.epoch_loss == s2.epoch_loss
+                and all(torch.equal(one.params[k], two.params[k])
+                        for k in one.params)
+                and all(torch.equal(one.opt_state[m][k],
+                                    two.opt_state[m][k])
+                        for m in ("m", "v") for k in one.params))
+        if not same or l1 != l2:
+            raise AssertionError(f"the 1 x 1 mesh fit is not bit-equal to "
+                                 f"the single-device fit: losses "
+                                 f"{s1.train_loss} / {s2.train_loss}, "
+                                 f"launches {l1} / {l2}")
+        log(f"distributed (c) 1 x 1 NCCL mesh fit at deep1b widths, "
+            f"{DIST_FIT_L} labels, 1 round of {steps} steps: assign, losses ({s2.train_loss}), params and AdamW "
+            f"moments bit-equal to the single-device fit; "
+            f"{secs[1]:.3f} s against {secs[0]:.3f} s; launches {l2}")
+        del fits, one, two, fbase, flabels
+    finally:
+        dist.destroy_process_group()
+
+    # ----------------------------------------- (b) + (c) on gloo ranks --
+    nbase, _, _ = clustered_vectors(n_base=NARROW_L, n_queries=1, d=D,
+                                    seed=SEED + 7)
+    nbase = torch.from_numpy(nbase).to(dev)
+    nlabels = neighbours(torch, dev, nbase, nbase, K_NEIGH)
+    torch.save({"base": nbase.cpu(), "labels": nlabels.cpu()},
+               Path(tmp) / "narrow.pt")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spawn_ranks(dist_rank, DIST_P, tmp, dev.type, timeout=400)
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(Path(tmp) / f"rank{r}.pt") for r in range(DIST_P)]
+
+    # this process's loop over the shards, merged on the host
+    ids, scores, ncand = [], [], 0
+    for s in range(DIST_P):
+        rows = slice(s * DIST_L, (s + 1) * DIST_L)
+        st = QuantizedStore("int8", BLOCK, store8.codes[rows],
+                            store8.scales[rows])
+        r = shard_search_local(idx.params, shard_members(torch, dev, s), st,
+                               queries, compact, q_chunk=Q)
+        ids.append(torch.where(r.ids >= 0, r.ids + s * DIST_L, r.ids).cpu())
+        scores.append(r.scores.cpu())
+        ncand = ncand + r.n_candidates.cpu()
+    ids, scores = torch.cat(ids, 1), torch.cat(scores, 1)
+    order = torch.sort(scores, dim=1, descending=True, stable=True
+                       ).indices[:, :K]
+    want_ids, want_scores = ids.gather(1, order), scores.gather(1, order)
+    for rk in ranks:
+        got = rk["search"]
+        for a, b in ((got["ids"], want_ids), (got["scores"], want_scores),
+                     (got["res_ids"], want_ids),
+                     (got["res_scores"], want_scores),
+                     (got["n_candidates"], ncand)):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"distributed (b): rank of shard {got['shard']} differs "
+                    f"from the host merge of the shard loop")
+    slaunch = {}
+    for rk in ranks:
+        for n, c in rk["search"]["launches"].items():
+            slaunch[n] = slaunch.get(n, 0) + c
+    launches["serve, 4 ranks"] = slaunch
+    if slaunch != {"irli_topk": DIST_P, "freq_topc": DIST_P,
+                   "quant_rerank": DIST_P}:
+        raise AssertionError(f"the ranks' searches launched {slaunch}")
+    log(f"distributed (b) {DIST_P} gloo ranks on the card (spawned, "
+        f"{ranks_s:.1f} s in all with (c)), {DIST_L} rows each: every rank's "
+        f"build_irli_serve and make_production_search result bit-equal to "
+        f"the host merge of shard_search_local over the {DIST_P} shards "
+        f"(ids, n_candidates, scores); survivors/query mean "
+        f"{float(ncand.float().mean()):.1f}; peak device memory a rank "
+        f"{[round(rk['search']['peak_gb'], 3) for rk in ranks]} GB "
+        f"(torch's allocator, without the CUDA context); launches "
+        f"{slaunch}; the ranks "
+        f"time-share one card, so their step times "
+        f"{[round(rk['search']['ms'], 4) for rk in ranks]} ms are "
+        f"correctness only, not speed")
+
+    # (c) the 2 x 2 fit against the single-device fit here
+    ref = IRLIIndex(narrow_config(), device=dev)
+    t0 = time.perf_counter()
+    rst = ref.fit(nbase, nlabels, label_vecs=nbase)
+    ref_s = time.perf_counter() - t0
+    fl = {}
+    for rk in ranks:
+        got = rk["fit"]
+        if got["loss"] != ranks[0]["fit"]["loss"] or not torch.equal(
+                got["assign"], ranks[0]["fit"]["assign"]):
+            raise AssertionError("distributed (c): the 2 x 2 fit's ranks "
+                                 "disagree")
+        for n, c in got["launches"].items():
+            fl[n] = fl.get(n, 0) + c
+    launches["fit 2x2, 4 ranks"] = fl
+    got = ranks[0]["fit"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got["loss"],
+                                                       rst.train_loss))
+    ep_rel = max(abs(a - b) / abs(b) for ga, ra in zip(got["epoch_loss"],
+                                                       rst.epoch_loss)
+                 for a, b in zip(ga, ra))
+    match = float((got["assign"] == ref.assign.cpu()).float().mean())
+    std_rel = max(abs(a - b) / b for a, b in zip(got["load_std"],
+                                                 rst.load_std))
+    log(f"distributed (c) 2 x 2 gloo mesh fit (B={NARROW['n_buckets']}, "
+        f"R={NARROW['n_reps']}, H={NARROW['d_hidden']}, {NARROW_L} labels, "
+        f"2 rounds): losses {got['loss']} against {rst.train_loss} (largest "
+        f"relative difference {loss_rel:.3g}, epochs {ep_rel:.3g}), assign "
+        f"match {match:.4f}, load_std {got['load_std']} against "
+        f"{rst.load_std} (rel {std_rel:.3g}); {got['seconds']:.2f} s on the "
+        f"ranks (correctness only) against {ref_s:.2f} s alone; launches "
+        f"{fl}")
+    if not (loss_rel <= 1e-4 and ep_rel <= 1e-4 and match > 0.98
+            and std_rel <= 0.05 and len(got["loss"]) == len(rst.train_loss)):
+        raise AssertionError("distributed (c): the 2 x 2 mesh fit is off "
+                             "the single-device fit's tolerances")
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"distributed cell: {time.perf_counter() - t_cell:.1f} s")
+    return {"launches": launches, "serve_ms": serve_ms,
+            "compact_ms": compact_ms, "merge_ms": merge_ms}
+
+
 def main() -> int:
     import argparse
 
@@ -2327,10 +2773,12 @@ def main() -> int:
     ap.add_argument("--fit-recall", nargs=2, type=int, metavar=("L", "N"),
                     help="only the fit cell's fit and recall, at L labels "
                          "and N training queries (N = L: the paper's mode)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="only the build, the search cell's index and the "
+                         "distributed cell")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch  # noqa: F401  (sets allow_tf32=False)
     if args.fit_recall:
         log(f"nvidia-smi: {nvidia_smi('name,power.limit')}")
@@ -2380,13 +2828,7 @@ def main() -> int:
 
     # -------------------------------------------------------------- data --
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    corpus = torch.randn((L, D), generator=gen, device=dev)
-    corpus /= corpus.norm(dim=1, keepdim=True)
-    src = torch.randint(0, L, (Q,), generator=gen, device=dev)
-    queries = corpus[src] + 0.05 * torch.randn((Q, D), generator=gen,
-                                               device=dev)
-    queries /= queries.norm(dim=1, keepdim=True)
+    corpus, queries = serve_data(torch, dev)
     store8 = encode(corpus, "int8", BLOCK)
     store16 = encode(corpus, "bf16", BLOCK)
     cfg = IRLIConfig(d=D, n_labels=L, n_buckets=B, n_reps=R, d_hidden=H,
@@ -2402,6 +2844,11 @@ def main() -> int:
         f"w2 {w2.numel() * 4 / 1e9:.2f} GB, int8 codes+scales "
         f"{store8.nbytes() / 1e6:.0f} MB, max bucket load "
         f"{int(idx.index.load.max())}")
+    if args.distributed:
+        del store16
+        out = dist_cell(torch, dev, idx, store8, queries)
+        print(json.dumps({"distributed": out}), flush=True)
+        return 0
 
     # ----------------------------------- 3. kernels against plain versions --
     record = {}
@@ -2962,13 +3409,18 @@ def main() -> int:
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
     # ----------------------------------------------------- 9. the refit --
-    del idx, members, params, w2, b2, corpus, store8
+    del members, params, w2, b2, corpus
     torch.cuda.empty_cache()
     t_cell = time.perf_counter()
     refit = refit_cell(torch, dev)
     log(f"refit cell: {time.perf_counter() - t_cell:.1f} s")
 
-    # ------------------------------------------------------ 10. the fit --
+    # ----------------------------------------------- 10. the distributed --
+    torch.cuda.empty_cache()
+    distributed = dist_cell(torch, dev, idx, store8, queries)
+    del idx, store8
+
+    # ------------------------------------------------------ 11. the fit --
     torch.cuda.empty_cache()
     fit = fit_cell(torch, dev, check_irli)
     # each kernel's launches on every path the script drives
@@ -2977,6 +3429,8 @@ def main() -> int:
                          ("stream", stream["launches"]),
                          ("server", serve["launches"]),
                          ("refit", refit["launches"]),
+                         *((f"distributed {part}", c) for part, c in
+                           distributed["launches"].items()),
                          ("fit", fit["launches"]),
                          ("dense search", fit["dense_launches"])):
         for n, c in counts.items():
@@ -2994,7 +3448,7 @@ def main() -> int:
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
-    # ------------------------------------------------- 11. the LM prefill --
+    # ------------------------------------------------- 12. the LM prefill --
     torch.cuda.empty_cache()
     lm = lm_cell(torch, dev)
     by_path["flash_attention"] = lm["launches"]
@@ -3004,7 +3458,7 @@ def main() -> int:
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
-    # ------------------------------------------------ 12. the recsys cell --
+    # ------------------------------------------------ 13. the recsys cell --
     torch.cuda.empty_cache()
     rec = recsys_cell(torch, dev, smi)
     by_path["embedding_bag"] = rec["launches"]

@@ -10,7 +10,9 @@ search(): Alg. 2 (top-m multiprobe + frequency filter + rerank), through
           the shared ``search_api.PipelineCache``.
 install_artifact(): the frozen index's swap to a sealed IndexArtifact.
 
-Not yet ported: the (data × rep) mesh fit (``mesh=``).
+``fit(mesh=)`` runs the rounds on a (data × rep) mesh of ranks
+(``launch/mesh.make_fit_mesh``), each rank on its rep rows, and gathers the
+reps on every rank at the end.
 """
 from __future__ import annotations
 
@@ -95,21 +97,29 @@ class IRLIIndex:
         (anything with ``log(row, step=)``) gets one row a round: what
         :meth:`_record_fit_round` returns, which ``registry`` (a
         MetricRegistry) also gets as ``fit_*`` gauges and counters.
-        ``mesh`` stands in the reference's place and raises unless None:
-        the mesh fit is not ported yet."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "fit(mesh=...) is not ported yet (ROADMAP, the distributed "
-                "item: core/distributed.py and the mesh fit)")
+
+        ``mesh``: a (data × rep) DeviceMesh (``launch/mesh.make_fit_mesh``)
+        runs the rounds across its ranks. Every rank calls ``fit`` with the
+        same index (same cfg and seed) and data; each trains and
+        re-partitions its rep rows, with the batch columns split over
+        "data" (``FitEngine.make_sharded_fit_round``). At the end every rank
+        gathers the R reps, so params, optimizer state and assign are whole
+        on each, as the reference's global arrays are (a mesh fit replaces
+        the index's assign and generator state at the end only, so ``log``
+        sees them as they were at entry)."""
         cfg = self.cfg
         data = FitData.build(x_train, label_ids, label_mask, label_vecs,
                              n_labels=cfg.n_labels, chunk=cfg.affinity_chunk,
                              device=self.device)
         engine = FitEngine(cfg, self.scorer_cfg)
-        round_fn = engine.make_fit_round(data)
         state = FitState(params=self.params, opt_state=self.opt_state,
                          assign=self.assign, rng=self.rng, round_idx=0,
                          epoch_idx=0)
+        if mesh is None:
+            round_fn = engine.make_fit_round(data)
+        else:
+            state = engine.shard_state(state, mesh)
+            round_fn = engine.make_sharded_fit_round(mesh, data, state)
         n = data.x.shape[0]
         stats = FitStats([], [], [], [], [])
         for rnd in range(cfg.rounds):
@@ -118,7 +128,8 @@ class IRLIIndex:
             state, met = round_fn(state, idx, w)
             met = {k: v.cpu() for k, v in met.items()}   # one host sync
             dt = time.perf_counter() - t0
-            self.assign, self.rng = state.assign, state.rng
+            if mesh is None:        # a mesh rank holds its rep rows only
+                self.assign, self.rng = state.assign, state.rng
             n_re = int(met["n_reassigned"])
             loss = float(met["loss"])
             lstd = float(met["load_std"])
@@ -135,6 +146,10 @@ class IRLIIndex:
                       f"reassigned={n_re} load_std={lstd:.2f}")
             if n_re == 0:
                 break
+        if mesh is not None:
+            state = engine.gather_state(state, mesh)
+        self.params, self.opt_state = state.params, state.opt_state
+        self.assign, self.rng = state.assign, state.rng
         self.build_index()
         return stats
 

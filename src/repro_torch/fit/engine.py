@@ -16,8 +16,27 @@ Port of the single-device parts of ``repro/fit/engine.py``.
 
 The reference compiles the round into one jitted program with donated
 state; here it is a plain Python function (no ``jit``) that runs eagerly
-and overwrites the state's tensors. The (data × rep) mesh round waits for
-the port of ``core/distributed.py``.
+and overwrites the state's tensors.
+
+Mesh version (``make_sharded_fit_round``): the reference's ``shard_map``
+over a ("data", "rep") mesh becomes one process a mesh position, each
+running the same round on its block (``_round_body`` with axes):
+  - batch COLUMNS split over "data": each data rank takes its contiguous
+    1/d_size of every batch's rows; the loss part and every gradient are
+    all-reduced over "data" (Σw, the loss's normaliser, is the row sum of
+    the replicated batch weights, which every rank holds whole);
+  - the R reps split over "rep": params, AdamW moments and assign hold
+    rows r0 to r0 + R_loc (``shard_state`` / ``gather_state``); the
+    global-norm clip's squared norm is all-reduced over "rep";
+  - the affinity's label chunks split over "data" when they divide, then
+    one all-gather of each of the [R_loc, L/d_size, K] values and ids;
+    otherwise every rank computes them all, as the reference falls back;
+  - the diagnostics summed over "rep" (n_reassigned, load_std, load_kl)
+    and load_min / load_max taken with MIN / MAX reductions;
+  - the insertion orders: every rank draws all R rows from the state's
+    generator and keeps its own, so a rank's rows are the single-device
+    engine's and the generator advances alike everywhere. A 1 × 1 mesh is
+    bit-equal to ``make_fit_round``.
 
 Random streams: the batch order is a pure function of (n, data_seed,
 round_idx), each epoch's permutation drawn from a ``torch.Generator``
@@ -32,9 +51,12 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import partition as PT
 from repro_torch.core import repartition as RP
+from repro_torch.core.distributed import (AxisGroup, all_gather_cat,
+                                          axis_group)
 from repro_torch.core.network import scorer_loss_parts
 from repro_torch.fit.affinity import (affinity_topk_ann_chunks,
                                       affinity_topk_xml_chunks, ann_chunks,
@@ -99,12 +121,47 @@ def _epoch_seed(data_seed: int, round_idx: int, epoch: int) -> int:
     return int(s.generate_state(1, np.uint64)[0] >> np.uint64(1))
 
 
-class FitEngine:
-    """The fit rounds for one (IRLIConfig, ScorerConfig), single device."""
+@dataclasses.dataclass(frozen=True)
+class MeshAxes:
+    """A (data × rep) fit mesh as one rank sees it: the two axes' groups
+    and this rank's rep rows r0 to r0 + R_loc of R."""
+    data: AxisGroup
+    rep: AxisGroup
+    R: int
+    R_loc: int
 
-    def __init__(self, cfg, scorer_cfg, *, clip_norm: float = 1.0):
+    @property
+    def r0(self) -> int:
+        return self.rep.index * self.R_loc
+
+
+def _map_reps(tree, fn):
+    """``fn`` on every tensor leaf with a leading rep axis (ndim >= 1) of a
+    nested dict; 0-d leaves (the AdamW step) kept as they are."""
+    if isinstance(tree, dict):
+        return {k: _map_reps(v, fn) for k, v in tree.items()}
+    return fn(tree) if tree.ndim >= 1 else tree
+
+
+def _sum_(t: torch.Tensor, grp: AxisGroup,
+          op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """All-reduce a tensor of any shape (0-d included) over ``grp``."""
+    flat = t.reshape(-1).contiguous()
+    dist.all_reduce(flat, op=op, group=grp.group)
+    return flat.reshape(t.shape)
+
+
+class FitEngine:
+    """The fit rounds for one (IRLIConfig, ScorerConfig): on one device
+    (``make_fit_round``) or on a (data × rep) mesh of ranks
+    (``make_sharded_fit_round``)."""
+
+    def __init__(self, cfg, scorer_cfg, *, data_axis: str = "data",
+                 rep_axis: str = "rep", clip_norm: float = 1.0):
         self.cfg = cfg
         self.scorer_cfg = scorer_cfg
+        self.data_axis = data_axis
+        self.rep_axis = rep_axis
         self.clip_norm = clip_norm
         self.opt = make_fit_optimizer(cfg)
 
@@ -137,32 +194,56 @@ class FitEngine:
 
     # ----------------------------------------------------------- affinity --
     @torch.no_grad()
-    def affinity_topk(self, params: dict, data: FitData):
-        """Streaming top-K affinity -> (vals, ids) [R, L, K]."""
+    def affinity_topk(self, params: dict, data: FitData,
+                      axes: MeshAxes | None = None):
+        """Streaming top-K affinity for the reps of ``params`` -> (vals,
+        ids) [R_loc, L, K]. On a mesh the label chunks are split over the
+        data axis when their count divides by it (each data rank scores a
+        contiguous 1/d_size of them, then one all-gather of the values and
+        one of the ids reassemble them: the same per-chunk computations as
+        the unsplit path); otherwise every rank computes them all."""
         cfg = self.cfg
         if data.label_vecs is not None:
             L = data.label_vecs.shape[0]
             xs, _ = ann_chunks(data.label_vecs, cfg.affinity_chunk)
-            vals, idxs = affinity_topk_ann_chunks(params, xs, cfg.K,
-                                                  cfg.loss)
+            n_chunks = xs.shape[0]
+
+            def reduce(lo, hi):
+                return affinity_topk_ann_chunks(params, xs[lo:hi], cfg.K,
+                                                cfg.loss)
         else:
             L = cfg.n_labels
-            vals, idxs = affinity_topk_xml_chunks(
-                params, data.x, data.xml_pairs, data.xml_chunk, cfg.K,
-                cfg.loss)
+            n_chunks = data.xml_pairs[0].shape[0]
+
+            def reduce(lo, hi):
+                return affinity_topk_xml_chunks(
+                    params, data.x, tuple(t[lo:hi] for t in data.xml_pairs),
+                    data.xml_chunk, cfg.K, cfg.loss)
+        d = axes.data if axes is not None else None
+        if d is not None and d.size > 1 and n_chunks % d.size == 0:
+            loc = n_chunks // d.size
+            vals, idxs = reduce(d.index * loc, (d.index + 1) * loc)
+            vals = all_gather_cat(vals, d.group, dim=1)
+            idxs = all_gather_cat(idxs, d.group, dim=1)
+        else:
+            vals, idxs = reduce(0, n_chunks)
         return vals[:, :L], idxs[:, :L]
 
     # ---------------------------------------------------------- train step -
     def train_step(self, params: dict, opt_state: dict,
                    assign: torch.Tensor, data: FitData, sel: torch.Tensor,
-                   wt: torch.Tensor):
+                   wt: torch.Tensor, axes: MeshAxes | None = None,
+                   wsum: float | None = None):
         """One batch, in place: params and opt_state take the AdamW step.
         sel [bs] int64 rows, wt [bs] f32 weights, both on the CPU ->
         (loss of the batch, 0-d tensor; Σw, a float; the pre-clip global
-        gradient norm, 0-d tensor)."""
+        gradient norm, 0-d tensor). On a mesh, ``sel``/``wt`` are this data
+        rank's columns, ``wsum`` the whole batch's Σw, the returned loss
+        this rank's part; the gradients are summed over "data" and the
+        norm's square over "rep"."""
         cfg, scfg = self.cfg, self.scorer_cfg
         dev = data.x.device
-        wsum = float(wt.sum())
+        wsum = float(wt.sum()) if wsum is None else wsum
         denom = scfg.n_reps * max(wsum, 1.0)
         sel_d = sel.to(dev)
         targets = PT.bucket_targets(assign, data.label_ids[sel_d],
@@ -178,32 +259,52 @@ class FitEngine:
             for k in keys:
                 params[k].requires_grad_(False)
         grads = dict(zip(keys, grads))
-        norm = torch.sqrt(global_norm_sq(grads))
+        if axes is None:
+            norm = torch.sqrt(global_norm_sq(grads))
+        else:
+            for k in keys:
+                dist.all_reduce(grads[k], group=axes.data.group)
+            norm = torch.sqrt(_sum_(global_norm_sq(grads), axes.rep))
         apply_clip(grads, norm, self.clip_norm)
         self.opt.update(params, grads, opt_state)
         return part.detach(), wsum, norm
 
     # ---------------------------------------------------------- round body -
     def round_body(self, state: FitState, idx: torch.Tensor,
-                   w: torch.Tensor, data: FitData, orders=None):
+                   w: torch.Tensor, data: FitData, orders=None,
+                   axes: MeshAxes | None = None):
         """One round: train, affinity, re-partition -> (state, metrics).
         ``state`` is updated in place and returned; metrics are 0-d device
         tensors (``epoch_loss`` and ``step_loss`` 1-d). ``orders`` [R, L]
-        injects the re-partition's insertion orders."""
+        injects the re-partition's insertion orders. With ``axes`` (a
+        mesh) ``state`` holds this rank's rep rows, ``idx``/``w`` and
+        ``orders`` are whole, and every metric is the mesh-wide value."""
         cfg = self.cfg
         R, B = self.scorer_cfg.n_reps, cfg.n_buckets
         E = cfg.epochs_per_round
         nb = idx.shape[0] // E
         assign = state.assign
         params, opt_state = state.params, state.opt_state
+        cols = slice(None)
+        if axes is not None:
+            d = axes.data
+            bs = idx.shape[1]
+            if bs % d.size:
+                raise ValueError(f"batch size {bs} not divisible by "
+                                 f"{self.data_axis}={d.size}")
+            cols = slice(d.index * (bs // d.size),
+                         (d.index + 1) * (bs // d.size))
         losses, wsums, norms = [], [], []
         for s in range(idx.shape[0]):
-            part, wsum, norm = self.train_step(params, opt_state, assign,
-                                               data, idx[s], w[s])
+            part, wsum, norm = self.train_step(
+                params, opt_state, assign, data, idx[s, cols], w[s, cols],
+                axes, wsum=float(w[s].sum()))
             losses.append(part)
             wsums.append(wsum)
             norms.append(norm)
         losses = torch.stack(losses)
+        if axes is not None:
+            losses = _sum_(_sum_(losses, axes.data), axes.rep)
         # per-epoch weighted means (weights = real rows per batch), then
         # the per-round mean of per-epoch means
         le = losses.reshape(E, nb)
@@ -212,26 +313,38 @@ class FitEngine:
         epoch_loss = (torch.sum(le * we, 1)
                       / torch.clamp(torch.sum(we, 1), min=1.0))
 
-        vals, idxs = self.affinity_topk(params, data)
+        vals, idxs = self.affinity_topk(params, data, axes)
         gen = state.generator()
         if orders is None and cfg.repartition_mode == "exact":
-            orders = RP.insertion_orders(R, idxs.shape[1], idxs.device, gen)
+            # all R rows on every rank: the stream advances alike
+            orders = RP.insertion_orders(R, idxs.shape[1], "cpu", gen)
+        if axes is not None and orders is not None \
+                and orders.shape[0] == R:
+            orders = orders[axes.r0:axes.r0 + axes.R_loc]
         new_assign = RP.repartition_topk(vals, idxs, B,
                                          cfg.repartition_mode, orders,
                                          slack=cfg.parallel_slack)
         del vals, idxs
         n_re = torch.sum(new_assign != assign)
         ld = PT.loads(new_assign, B).float()
-        lstd = torch.sum(torch.std(ld, dim=1, correction=0)) / R
+        std_sum = torch.sum(torch.std(ld, dim=1, correction=0))
         # the paper's load-balance summary of the NEW partition: bucket
         # min / max across reps and the mean per-rep KL(p || uniform)
         p = ld / torch.clamp(torch.sum(ld, dim=1, keepdim=True), min=1.0)
         kl = torch.where(p > 0, p * torch.log(p * B), torch.zeros_like(p))
+        kl_sum, lmin, lmax = torch.sum(kl), torch.min(ld), torch.max(ld)
+        if axes is not None:
+            n_re = _sum_(n_re, axes.rep)
+            std_sum, kl_sum = _sum_(torch.stack([std_sum, kl_sum]),
+                                    axes.rep)
+            lmin, neg_max = _sum_(torch.stack([lmin, -lmax]), axes.rep,
+                                  dist.ReduceOp.MIN)
+            lmax = -neg_max
         metrics = {"loss": torch.mean(epoch_loss), "epoch_loss": epoch_loss,
                    "step_loss": losses, "n_reassigned": n_re,
-                   "load_std": lstd, "grad_norm": torch.mean(torch.stack(
-                       norms)), "load_min": torch.min(ld),
-                   "load_max": torch.max(ld), "load_kl": torch.sum(kl) / R}
+                   "load_std": std_sum / R, "grad_norm": torch.mean(
+                       torch.stack(norms)), "load_min": lmin,
+                   "load_max": lmax, "load_kl": kl_sum / R}
         state.assign = new_assign
         state.rng = gen.get_state()
         state.round_idx += 1
@@ -244,3 +357,85 @@ class FitEngine:
         runs eagerly and updates the state in place."""
         return lambda state, idx, w, orders=None: self.round_body(
             state, idx, w, data, orders)
+
+    # --------------------------------------------------------- mesh round --
+    def mesh_axes(self, mesh) -> MeshAxes:
+        """This rank's view of a (data × rep) mesh
+        (``launch/mesh.make_fit_mesh``)."""
+        names = getattr(mesh, "mesh_dim_names", None)
+        if names is None:
+            raise TypeError(
+                f"mesh= takes a torch.distributed DeviceMesh with axes "
+                f"({self.data_axis!r}, {self.rep_axis!r}) (launch/mesh."
+                f"make_fit_mesh), got {type(mesh).__name__}")
+        if self.data_axis not in names or self.rep_axis not in names:
+            raise ValueError(f"the fit mesh needs axes {self.data_axis!r} "
+                             f"and {self.rep_axis!r}, got {names}")
+        d = axis_group(mesh, self.data_axis)
+        r = axis_group(mesh, self.rep_axis)
+        R = self.scorer_cfg.n_reps
+        if R % r.size:
+            raise ValueError(f"n_reps={R} not divisible by "
+                             f"{self.rep_axis}={r.size}")
+        return MeshAxes(d, r, R, R // r.size)
+
+    def shard_state(self, state: FitState, mesh) -> FitState:
+        """This rank's rep rows of a whole state: params, AdamW moments and
+        assign (copies; the state itself when the rep axis has size 1)."""
+        ax = self.mesh_axes(mesh)
+        if ax.rep.size == 1:
+            return state
+        rows = slice(ax.r0, ax.r0 + ax.R_loc)
+
+        def take(t):
+            return t[rows].clone()
+
+        return FitState(params=_map_reps(state.params, take),
+                        opt_state=_map_reps(state.opt_state, take),
+                        assign=take(state.assign), rng=state.rng,
+                        round_idx=state.round_idx,
+                        epoch_idx=state.epoch_idx)
+
+    def gather_state(self, state: FitState, mesh) -> FitState:
+        """The whole state on every rank from each rank's rep rows: one
+        all-gather over "rep" a leaf (the state itself when the rep axis
+        has size 1)."""
+        ax = self.mesh_axes(mesh)
+        if ax.rep.size == 1:
+            return state
+
+        def whole(t):
+            return all_gather_cat(t, ax.rep.group, dim=0)
+
+        return FitState(params=_map_reps(state.params, whole),
+                        opt_state=_map_reps(state.opt_state, whole),
+                        assign=whole(state.assign), rng=state.rng,
+                        round_idx=state.round_idx,
+                        epoch_idx=state.epoch_idx)
+
+    def make_sharded_fit_round(self, mesh, data: FitData, state: FitState):
+        """The mesh round: fit_round(state, idx, w, orders=None) ->
+        (state, metrics), called by every rank of ``mesh`` in lockstep with
+        the same ``idx``/``w`` (and ``orders``, if injected) and its own
+        rep rows as ``state`` (``shard_state``); ``state`` here is that
+        template, checked for its row count. Updates in place, as
+        ``make_fit_round``."""
+        ax = self.mesh_axes(mesh)
+        if state.assign.shape[0] != ax.R_loc:
+            raise ValueError(
+                f"the mesh round takes this rank's {ax.R_loc} rep rows, got "
+                f"{state.assign.shape[0]}: shard_state(state, mesh) first")
+        return lambda state, idx, w, orders=None: self.round_body(
+            state, idx, w, data, orders, ax)
+
+    def sharded_step_fn(self, mesh, data: FitData, state: FitState):
+        """The mesh round over dict states (``FitState.as_dict``), for a
+        Trainer: step(state_dict, {"idx", "w"}) -> (state_dict,
+        metrics)."""
+        round_fn = self.make_sharded_fit_round(mesh, data, state)
+
+        def step(sd, batch):
+            ns, m = round_fn(FitState.from_dict(sd), batch["idx"],
+                             batch["w"])
+            return ns.as_dict(), m
+        return step

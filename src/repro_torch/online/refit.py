@@ -44,9 +44,12 @@ anchors the DriftDetector on it after the swap, and reports its own
 effectiveness as the shadow-audited recall delta across the version swap
 (``refit_audited_recall_pre``/``_post``/``_delta``).
 
-Not ported: the ("data", "rep") mesh rounds (``mesh=`` raises, naming the
-distributed item) and the reference's static-contract fixtures, which wait
-for the port of ``analysis/``. The round's random stream is a
+``mesh=`` (a ("data", "rep") DeviceMesh, ``launch/mesh.make_fit_mesh``)
+runs the cycle's rounds through ``FitEngine.make_sharded_fit_round``:
+every rank runs the cycle in lockstep over the same index and query log,
+fits its rep rows, and gathers the reps before sealing the artifact. Not
+ported: the reference's static-contract fixtures, which wait for the port
+of ``analysis/``. The round's random stream is a
 ``torch.Generator`` seeded ``seed + round counter`` where the reference
 seeds ``jax.random.PRNGKey``; parity tests inject the reference's batch
 order and insertion orders.
@@ -159,10 +162,6 @@ class OnlineRefitLoop:
         # share the SERVER's registry so the loop sees serve_bucket_probes
         self.registry = obs.get_registry(registry)
         self.manager = manager
-        if mesh is not None:
-            raise NotImplementedError(
-                "OnlineRefitLoop(mesh=...) is not ported yet (ROADMAP, the "
-                "distributed item: core/distributed.py and the mesh fit)")
         self.mesh = mesh
         # quality wiring (all optional; docs/quality.md): the ShadowAuditor
         # scores the swap delta, the DriftDetector arms on_drift and gets
@@ -237,7 +236,11 @@ class OnlineRefitLoop:
             rng=rc.seed + self._round_counter,
             rounds=rc.rounds_per_cycle,
             epochs_per_round=rc.epochs_per_round)
-        round_fn = engine.make_fit_round(data)
+        if self.mesh is None:
+            round_fn = engine.make_fit_round(data)
+        else:
+            state = engine.shard_state(state, self.mesh)
+            round_fn = engine.make_sharded_fit_round(self.mesh, data, state)
         nq = int(x.shape[0])
         t_fit = time.perf_counter()
         for _ in range(rc.rounds_per_cycle):
@@ -248,6 +251,8 @@ class OnlineRefitLoop:
             reg.counter("refit_rounds_total").inc()
             reg.gauge("refit_loss").set(float(met["loss"]))
             reg.gauge("refit_n_reassigned").set(int(met["n_reassigned"]))
+        if self.mesh is not None:
+            state = engine.gather_state(state, self.mesh)
         reg.histogram("refit_fit_seconds").observe(
             time.perf_counter() - t_fit)
 

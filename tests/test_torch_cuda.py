@@ -1298,3 +1298,62 @@ def test_dien_serve_on_the_card_launches_two_bags(card):
         PR.bag_lookup_reduce = kernel_bag
     assert prob.shape == (64,) and torch.isfinite(prob).all()
     torch.testing.assert_close(prob, plain, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------- the distributed merge --
+@pytest.mark.parametrize("store_dtype", ["fp32", "int8"])
+def test_world_size_one_production_search_is_the_compact_search(
+        card, tmp_path, store_dtype):
+    """One rank over NCCL: make_production_search and build_irli_serve on
+    the card (irli_topk, freq_topc, quant_rerank for int8) are bit-equal to
+    the compact search (ids, scores, n_candidates)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import make_production_search
+    from repro_torch.core.index import IRLIConfig, IRLIIndex
+    from repro_torch.core.search_api import SearchParams
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_irli_serve
+
+    rng = np.random.default_rng(4)
+    L, D = 20_000, 32
+    base = torch.from_numpy(rng.normal(size=(L, D)).astype(np.float32)).to(
+        card)
+    q = torch.from_numpy(rng.normal(size=(64, D)).astype(np.float32)).to(
+        card)
+    idx = IRLIIndex(IRLIConfig(d=D, n_labels=L, n_buckets=200, n_reps=4,
+                               d_hidden=64), device=card)
+    idx.build_index()
+    payload = base if store_dtype == "fp32" else encode(base, "int8", 8)
+    sp = SearchParams(m=4, tau=1, k=10, topC=512, mode="compact",
+                      store_dtype=store_dtype)
+    want = idx.search(q, payload, sp)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_host_mesh(1, device_type="cuda")
+        reset_launches()
+        got = make_production_search(mesh, sp)(idx.params, idx.index.members,
+                                               payload, q)
+        torch.cuda.synchronize()
+        assert LAUNCHES["irli_topk"] == 1 and LAUNCHES["freq_topc"] == 1
+        assert LAUNCHES["quant_rerank"] == (store_dtype == "int8")
+        params = {"scorer": idx.params, "members": idx.index.members}
+        if store_dtype == "fp32":
+            params["base"] = base
+        else:
+            params.update(base_codes=payload.codes,
+                          base_scales=payload.scales)
+        out = build_irli_serve(mesh, 4, 1, 10, store_dtype=store_dtype,
+                               store_block=8)(params, {"queries": q})
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got.ids, want.ids)
+    assert torch.equal(got.scores, want.scores)
+    assert torch.equal(got.n_candidates, want.n_candidates)
+    want = idx.search(q, payload, sp.replace(topC=1024))
+    assert torch.equal(out["ids"], want.ids)
+    assert torch.equal(out["scores"], want.scores)

@@ -701,12 +701,12 @@ def test_jax_fitted_index_continues_in_the_port_and_back():
 
 
 # ------------------------------------------------------ fit's signature ---
-def test_fit_parameters_are_the_references():
+def test_fit_parameters_are_the_references(tmp_path):
     """IRLIIndex.fit takes the reference's parameters in its order, so a
-    positional argument binds alike in both packages; mesh= raises
-    NotImplementedError naming its ROADMAP item unless None, and a
-    registry passed positionally in registry='s place gets the fit_*
-    gauges."""
+    positional argument binds alike in both packages; mesh= takes a fit
+    mesh (on a one-rank gloo group, a 1 x 1 mesh fits bit for bit as no
+    mesh does; anything else raises TypeError), and a registry passed
+    positionally in registry='s place gets the fit_* gauges."""
     import inspect
     want = inspect.signature(JIndex.fit).parameters
     got = inspect.signature(IRLIIndex.fit).parameters
@@ -719,8 +719,17 @@ def test_fit_parameters_are_the_references():
     idx = IRLIIndex(cfg, device="cpu")
     x = np.zeros((8, 4), np.float32)
     lab = np.zeros((8, 2), np.int32)
-    with pytest.raises(NotImplementedError, match="the distributed item"):
-        idx.fit(x, lab, mesh=object())
+    from repro_torch.launch.mesh import make_fit_mesh
+    from torch_dist_ranks import one_rank_group
+    twin = IRLIIndex(cfg, device="cpu")
+    with one_rank_group(tmp_path):
+        idx.fit(x, lab, mesh=make_fit_mesh(1, device_type="cpu"))
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            idx.fit(x, lab, mesh=object())
+    twin.fit(x, lab)
+    assert torch.equal(idx.assign, twin.assign)
+    assert all(torch.equal(idx.params[k], twin.params[k]) for k in KEYS)
+    idx = IRLIIndex(cfg, device="cpu")
     from repro_torch.obs import MetricRegistry
     reg = MetricRegistry()
     idx.fit(x, lab, None, None, False, None, reg)

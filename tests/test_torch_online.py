@@ -421,10 +421,12 @@ def test_refit_cycle_matches_reference_with_injected_orders(fitted, data,
         assert hot.epoch == 1
 
 
-def test_searches_during_a_cycle_are_bit_equal_until_the_swap(fitted, data):
+def test_searches_during_a_cycle_are_bit_equal_until_the_swap(fitted, data,
+                                                              tmp_path):
     """The rounds train copies: searches before the swap keep the old
     scorer bit for bit, and the index's own scorer tensors are never
-    written."""
+    written. The same cycle on a 1 x 1 fit mesh (a one-rank gloo group)
+    seals the same artifact, bit for bit."""
     _, tm = _pair(fitted, data)
     qs = data.queries
     sp = SearchParams(**SP)
@@ -448,8 +450,19 @@ def test_searches_during_a_cycle_are_bit_equal_until_the_swap(fitted, data):
     assert torch.equal(fitted[1].params["w2"], w2)
     assert not torch.equal(art.params["w2"], w2)
     assert tm.search(qs, sp).epoch == art.version == 1
-    with pytest.raises(NotImplementedError, match="the distributed item"):
-        OnlineRefitLoop(tm, qlog, mesh=object())
+    from repro_torch.launch.mesh import make_fit_mesh
+    from torch_dist_ranks import one_rank_group
+    _, tm2 = _pair(fitted, data)
+    qlog2 = TO.QueryLog(capacity=256)
+    qlog2.record(qs, before.ids)
+    with one_rank_group(tmp_path):
+        art2 = OnlineRefitLoop(
+            tm2, qlog2, config=RefitConfig(min_queries=1),
+            registry=tm2.registry,
+            mesh=make_fit_mesh(1, device_type="cpu")).run_cycle()
+    assert torch.equal(art2.assign, art.assign)
+    assert all(torch.equal(art2.params[k], art.params[k])
+               for k in art.params)
 
 
 def test_background_loop_starts_fires_and_stops(fitted, data):
