@@ -79,6 +79,21 @@ widths, the LM prefill at gemma-7b's and DIEN's serve path at its own:
     = 2000, R = 4, H = 256, NARROW_L = 8192 labels, 2 rounds), held to the
     single-device fit here with tests/test_fit_engine.py's tolerances (loss
     rtol 1e-4, assign match > 0.98, load_std rtol 0.05);
+  * the audit cell (``audit_cell``, analysis/ and launch/audit.py): (a)
+    every registered static contract at the reference's fixture sizes on
+    the card, the two mesh contracts in a world of 4 gloo ranks spawned on
+    it, every control tripped, the sightings a kernel keeps on chip
+    listed (each counted only when that kernel launched in the call),
+    query.mega_single_dispatch exactly one CUDA kernel (mega_query, by
+    torch.profiler) and its staged control more than one, the fit round's
+    backward in the op record; (b) the four seeded violations, each
+    detected; (c) at full width, the search cell's index and int8 store at
+    Q = AUDIT_Q = 1000 (the compact search: no [Q, L] table, no fp32 [L,
+    D] or [Q, C, D]; IRLIIndex.search at mode "auto" -> "mega": one
+    dispatch, one CUDA kernel) and the distributed cell's cut of the fit
+    (32,768 labels, one round, label chunks of 8,192): no [.., L, B], the
+    state overwritten in place. Each contract's verdict, peak intermediate
+    and time are logged;
   * the fit (Alg. 1) through ``IRLIIndex.fit``, ANN mode, sigmoid_bce: per
     train step one bce_logits launch, per affinity label chunk one
     irli_topk launch, per round one kchoice launch; its round 1 again with
@@ -163,7 +178,7 @@ from a directory that holds this file and nothing else of the repository.
 ``python3 chip_smoke.py --fit-recall L N`` runs only the fit cell's fit and
 recall, at L labels and N training queries, and prints them as JSON;
 ``--distributed`` runs only the build, the search cell's index and the
-distributed cell.
+distributed cell; ``--audit`` the build, that index and the audit cell.
 
 Widths (configs/irli_deep1b.py): D=96, B=20000, R=32, H=1024. Search, the
 serve_query cell: int8 block 32, m=5, tau=2, k=10, topC=1024, refine_k auto
@@ -2765,6 +2780,186 @@ def dist_cell(torch, dev, idx, store8, queries) -> dict:
             "compact_ms": compact_ms, "merge_ms": merge_ms}
 
 
+# ------------------------------------------------------------ the audit --
+AUDIT_Q = 1000                   # full width: no other size of the call
+AUDIT_FIT_CHUNK = 8192           # 4 label chunks of DIST_FIT_L
+
+
+def audit_report(r) -> None:
+    """Log one contract's verdict, peak intermediate and time; raise when
+    it failed or its control did not trip."""
+    from repro_torch.launch.audit import report_lines
+    for line in report_lines(r):
+        log(f"audit {line.strip()}")
+    if not r.passed or r.skipped:
+        raise AssertionError(f"contract {r.contract_id} failed on the card: "
+                             f"{r.to_dict()}")
+
+
+def one_kernel(r) -> tuple:
+    """The CUDA kernels that max_dispatches saw in a passed
+    query.mega_single_dispatch report, its call's and its control's (empty
+    when the control did not run); raises unless the call's are exactly one
+    mega_query kernel. A passed report holds a call the profiler did not
+    miss a kernel of."""
+    def seen(checks):
+        return next((c.kernels for c in checks
+                     if c.check.startswith("max_dispatches")), ())
+    call = seen(r.checks)
+    if not r.passed or len(call) != 1 or "mega_query" not in call[0]:
+        raise AssertionError(f"audit: the fused search ran {list(call)} on "
+                             f"the card, not exactly one mega_query kernel")
+    return call, seen(r.control_checks)
+
+
+def audit_cell(torch, dev, idx, store8, queries) -> dict:
+    """The audit cell (repro_torch/analysis, launch/audit.py):
+    (a) every registered contract at the reference's fixture sizes on the
+        card (the mesh contracts in one world of 4 gloo ranks spawned on
+        the card), each control tripped; the card-side sightings (an
+        intermediate a kernel keeps on chip, counted only when that
+        kernel launched in the call) listed; query.mega_single_dispatch
+        exactly one CUDA kernel, mega_query, and its staged control more
+        than one; the fit round's backward recorded by the op recorder;
+    (b) the four seeded violations, each detected on the card;
+    (c) at full width: the search cell's index and int8 store at Q =
+        AUDIT_Q (the compact search: query.compact_no_dense_table and
+        store.int8_no_fp32_payload; IRLIIndex.search at mode "auto", which
+        resolves to "mega": query.mega_single_dispatch, one launch), and
+        the distributed cell's cut of the fit (DIST_FIT_L labels, one
+        round, affinity chunk AUDIT_FIT_CHUNK so that chunk and L differ):
+        fit.round_no_dense_affinity and fit.round_donates_state. Controls
+        run at the toy size only."""
+    import dataclasses
+
+    from repro_torch.analysis import REGISTRY, contracts as C, load_all
+    from repro_torch.analysis import fixtures as FX
+    from repro_torch.core.index import IRLIIndex
+    from repro_torch.core.network import ScorerConfig
+    from repro_torch.core.query import QueryPipeline
+    from repro_torch.core.search_api import SearchParams
+    from repro_torch.data.synthetic import clustered_vectors
+    from repro_torch.fit.engine import FitData, FitEngine
+    from repro_torch.fit.state import FitState
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import audit as AU
+    from repro_torch.store.rerank import resolve_refine_k
+
+    t_cell = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_launches()
+    ids = load_all()
+    # ------------------------------------------- (a) the whole registry --
+    t0 = time.perf_counter()
+    reports = AU.audit_ids(ids, device=dev)
+    held = {}
+    for r in reports:
+        audit_report(r)
+        negative = any(c.kind in ("forbid_dims", "require_dtype_free",
+                                  "max_intermediate_bytes", "max_dispatches",
+                                  "require_donated")
+                       for c in REGISTRY.get(r.contract_id).checks)
+        if negative and r.control_ok is not True:
+            raise AssertionError(f"{r.contract_id}: its control did not "
+                                 f"trip: {r.control_detail}")
+        for c in r.checks:
+            if c.held_by:
+                held.setdefault(r.contract_id, []).append(
+                    f"{c.check} held on chip by {c.held_by}")
+    registry_s = time.perf_counter() - t0
+    log(f"audit (a): {len(reports)} contracts passed on the card in "
+        f"{registry_s:.1f} s, every control tripped; card-side sightings: "
+        f"{json.dumps(held)}")
+    mega, split = one_kernel(next(r for r in reports if r.contract_id ==
+                                  "query.mega_single_dispatch"))
+    log(f"audit (a): query.mega_single_dispatch's call ran CUDA kernels "
+        f"{list(mega)}; its staged control {len(split)} kernels")
+    if len(split) <= 1:
+        raise AssertionError("audit (a): the staged control of the fused "
+                             "search is not more than one kernel")
+    with C.on_device(dev):
+        fit = FX.fit_round().trace()
+    backward = sorted({r.op for r in fit.ops if "backward" in r.op})
+    log(f"audit (a): the fit round's op record holds {len(fit.ops)} op "
+        f"outputs, its backward ops included: {backward}")
+    if not backward:
+        raise AssertionError("audit (a): the op recorder saw no backward op "
+                             "of the fit round on the card")
+    del fit
+    # -------------------------------------------- (b) seeded violations --
+    t0 = time.perf_counter()
+    for name in sorted(AU.SEEDED):
+        r = AU.audit_seeded(name, device=dev)
+        bad = [f"{c.check}: {c.detail}" for c in r.checks if not c.passed]
+        log(f"audit (b): --seed-violation {name} detected on the card: "
+            f"{bad or r.control_detail}")
+        if r.passed:
+            raise AssertionError(f"audit (b): seeded violation {name} went "
+                                 f"undetected on the card")
+    seeded_s = time.perf_counter() - t0
+    # ------------------------------------------------- (c) full width --
+    t0 = time.perf_counter()
+    q = queries[:AUDIT_Q].contiguous()
+    kp = resolve_refine_k(0, K, TOPC)
+    pipe = QueryPipeline(m=M, tau=TAU, k=K, mode="compact", topC=TOPC,
+                         store_dtype="int8")
+    dims = {"Q": AUDIT_Q, "L": L, "C": TOPC, "D": D, "kp": kp, "k": K}
+    compact = C.Fixture(fn=lambda p, mem, s, qq: pipe.search(p, mem, s, qq),
+                        args=(idx.params, idx.index.members, store8, q),
+                        dims=dims)
+    auto = SearchParams(m=M, tau=TAU, k=K, topC=TOPC, store_dtype="int8",
+                        mode="auto")
+    fused = C.Fixture(fn=lambda qq: idx.search(qq, store8, auto).ids,
+                      args=(q,), dims=dims)
+    fbase = torch.from_numpy(clustered_vectors(
+        n_base=DIST_FIT_L, n_queries=1, d=D, seed=SEED)[0]).to(dev)
+    flabels = neighbours(torch, dev, fbase, fbase, K_NEIGH)
+    cfg = fit_config(DIST_FIT_L, rounds=1, affinity_chunk=AUDIT_FIT_CHUNK)
+    fidx = IRLIIndex(cfg, device=dev)
+    engine = FitEngine(cfg, ScorerConfig(d_in=D, d_hidden=H, n_buckets=B,
+                                         n_reps=R, loss=cfg.loss))
+    data = FitData.build(fbase, flabels, label_vecs=fbase,
+                         n_labels=DIST_FIT_L, chunk=AUDIT_FIT_CHUNK,
+                         device=dev)
+    state = FitState(params=fidx.params, opt_state=fidx.opt_state,
+                     assign=fidx.assign, rng=fidx.rng, round_idx=0,
+                     epoch_idx=0)
+    bidx, w = engine.round_batches(DIST_FIT_L, SEED, 0)
+    fit_fx = C.Fixture(
+        fn=lambda s, i, ww: engine.round_body(s, i, ww, data, None),
+        args=(state, bidx, w), donate_argnums=(0,),
+        dims={"L": DIST_FIT_L, "B": B, "chunk": AUDIT_FIT_CHUNK,
+              "K": FIT_K})
+    full = {}
+    for cid, fx in (("query.compact_no_dense_table", compact),
+                    ("store.int8_no_fp32_payload", compact),
+                    ("query.mega_single_dispatch", fused),
+                    ("fit.round_no_dense_affinity", fit_fx),
+                    ("fit.round_donates_state", fit_fx)):
+        contract = dataclasses.replace(REGISTRY.get(cid),
+                                       fixture=lambda fx=fx: fx)
+        r = contract.audit(run_control=False, device=dev)
+        audit_report(r)
+        if cid == "query.mega_single_dispatch":
+            fused_kernels, _ = one_kernel(r)
+        full[cid] = {"peak_bytes": r.peak_bytes, "peak": r.peak,
+                     "seconds": r.seconds,
+                     "held": [c.held_by for c in r.checks if c.held_by]}
+    full_s = time.perf_counter() - t0
+    log(f"audit (c) at full width (Q = {AUDIT_Q}, L = {L}; the fit at "
+        f"{DIST_FIT_L} labels, chunk {AUDIT_FIT_CHUNK}): "
+        f"{json.dumps(full)}; IRLIIndex.search (auto -> mega) ran "
+        f"{list(fused_kernels)}")
+    del compact, fused, fit_fx, state, fidx, data, fbase, flabels
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in LAUNCHES.items() if c}
+    log(f"audit cell: {time.perf_counter() - t_cell:.1f} s ((a) "
+        f"{registry_s:.1f} s, (b) {seeded_s:.1f} s, (c) {full_s:.1f} s); "
+        f"launches {launches}")
+    return {"launches": launches, "held": held, "full": full,
+            "seconds": time.perf_counter() - t_cell}
+
+
 def main() -> int:
     import argparse
 
@@ -2776,6 +2971,9 @@ def main() -> int:
     ap.add_argument("--distributed", action="store_true",
                     help="only the build, the search cell's index and the "
                          "distributed cell")
+    ap.add_argument("--audit", action="store_true",
+                    help="only the build, the search cell's index and the "
+                         "audit cell")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -2848,6 +3046,12 @@ def main() -> int:
         del store16
         out = dist_cell(torch, dev, idx, store8, queries)
         print(json.dumps({"distributed": out}), flush=True)
+        return 0
+    if args.audit:
+        del store16, corpus
+        torch.cuda.empty_cache()
+        out = audit_cell(torch, dev, idx, store8, queries)
+        print(json.dumps({"audit": out}), flush=True)
         return 0
 
     # ----------------------------------- 3. kernels against plain versions --
@@ -3418,9 +3622,13 @@ def main() -> int:
     # ----------------------------------------------- 10. the distributed --
     torch.cuda.empty_cache()
     distributed = dist_cell(torch, dev, idx, store8, queries)
+
+    # ----------------------------------------------------- 11. the audit --
+    torch.cuda.empty_cache()
+    audit = audit_cell(torch, dev, idx, store8, queries)
     del idx, store8
 
-    # ------------------------------------------------------ 11. the fit --
+    # ------------------------------------------------------ 12. the fit --
     torch.cuda.empty_cache()
     fit = fit_cell(torch, dev, check_irli)
     # each kernel's launches on every path the script drives
@@ -3431,6 +3639,7 @@ def main() -> int:
                          ("refit", refit["launches"]),
                          *((f"distributed {part}", c) for part, c in
                            distributed["launches"].items()),
+                         ("audit", audit["launches"]),
                          ("fit", fit["launches"]),
                          ("dense search", fit["dense_launches"])):
         for n, c in counts.items():
@@ -3448,7 +3657,7 @@ def main() -> int:
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
-    # ------------------------------------------------- 12. the LM prefill --
+    # ------------------------------------------------- 13. the LM prefill --
     torch.cuda.empty_cache()
     lm = lm_cell(torch, dev)
     by_path["flash_attention"] = lm["launches"]
@@ -3458,7 +3667,7 @@ def main() -> int:
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
-    # ------------------------------------------------ 13. the recsys cell --
+    # ------------------------------------------------ 14. the recsys cell --
     torch.cuda.empty_cache()
     rec = recsys_cell(torch, dev, smi)
     by_path["embedding_bag"] = rec["launches"]

@@ -25,9 +25,10 @@ rank a card) or gloo (several ranks on one card: NCCL refuses two ranks on
 one device; gloo in torch 2.11 takes CUDA tensors for ``all_gather`` and
 ``all_reduce``), on the CPU over gloo.
 
-Not ported here: the static-contract registrations (``:345-393``), which
-wait for the ``analysis/`` item; the merge's byte bound is held by
-``tests/test_torch_distributed.py``.
+The static contracts at the end of this module hold the per-shard search
+to the no-[Q, L] guarantee and the merge to its two collectives and their
+bytes (``python -m repro_torch.launch.audit`` audits the merge in a world
+of 4 ranks).
 """
 from __future__ import annotations
 
@@ -355,3 +356,56 @@ def make_production_search(mesh, params: SearchParams | None = None, *,
                             epoch=epoch, mode="compact")
 
     return search
+
+
+# ------------------------------------------------------- static contracts --
+# The collective schedule documented above (one all-gather of the packed
+# [Q, k] winners and one all-reduce of the [Q] survivor counts — nothing
+# else crosses shards) as a registered, byte-bounded invariant, plus the
+# per-shard no-[Q, L] proof.
+from repro_torch.analysis import contracts as _C  # noqa: E402
+
+
+def _local_compact_fixture():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.local_search_compact("compact")
+
+
+def _local_dense_control():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.local_search_compact("dense")
+
+
+def _production_fixture():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.production_search()
+
+
+_C.register(_C.Contract(
+    id="distributed.local_search_compact_no_dense_table",
+    site="repro_torch.core.distributed.local_search",
+    description="the per-shard serving path in compact mode never builds a "
+                "[Q, L_loc] table (dense mode is the control)",
+    fixture=_local_compact_fixture,
+    checks=[_C.forbid_dims("Q", "L"), _C.require_dims("Q", "C")],
+    control=_local_dense_control,
+))
+
+_C.register(_C.Contract(
+    id="distributed.production_merge_collectives",
+    site="repro_torch.core.distributed.make_production_search",
+    description="the sharded merge moves ONLY the tiny per-shard winners: "
+                "one all-gather of [Q, P, k] scores (f32) + ids (s32) and "
+                "one [Q] all-reduce of survivor counts — byte-exact bound, "
+                "no other collective kind",
+    fixture=_production_fixture,
+    checks=[_C.allowed_collectives({
+        # scores f32 + ids s32, each [Q, P, k] per rank
+        "all-gather": lambda fx: 2 * fx.dims["Q"] * fx.dims["P"]
+        * fx.dims["k"] * 4,
+        # the [Q] s32 sum of n_candidates (the reference's headroom for an
+        # int64 lowering)
+        "all-reduce": lambda fx: 8 * fx.dims["Q"],
+    })],
+    min_devices=2,
+))

@@ -273,13 +273,14 @@ class IRLIIndex:
                 f"artifact covers {artifact.n_total} labels < index "
                 f"n_labels={L}")
         dev = self.device
-        assign = artifact.assign[:, :L].to(dev)
+        assign = artifact.assign[:, :L].to(dev, copy=True)
         max_load = int(artifact.members.shape[-1])
         members, load = rebuild_members(
             assign, artifact.tombstone[:L].to(dev), B=cfg.n_buckets,
             max_load=max_load)
-        # copies: a later fit() updates the index's params in place, and
-        # the sealed artifact must keep its content
+        # copies (assign above too): a later fit() updates the index's
+        # params and assign in place, and the sealed artifact must keep its
+        # content
         self.params = {k: v.to(dev, copy=True)
                        for k, v in artifact.params.items()}
         self.assign = assign

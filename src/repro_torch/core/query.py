@@ -510,3 +510,66 @@ def _stage_rerank_dense(pipe: QueryPipeline, queries, rows, freq):
     scores, ids = rerank_topk(queries, rows, mask, k=pipe.k,
                               metric=_kernel_metric(pipe.metric))
     return ids, scores, mask.sum(dim=1).to(torch.int32)
+
+
+# ------------------------------------------------------- static contracts --
+# The compact path's scalability claim, as registered invariants: proven by
+# `python -m repro_torch.launch.audit`. Declared here, beside the entry
+# point; the toy fixtures live in repro_torch.analysis.fixtures and build
+# lazily at audit time.
+from repro_torch.analysis import contracts as _C  # noqa: E402
+
+
+def _compact_fixture():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.query_search("compact")
+
+
+def _compact_streaming_fixture():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.query_search("compact", streaming=True)
+
+
+def _dense_control():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.query_search("dense")
+
+
+_C.register(_C.Contract(
+    id="query.compact_no_dense_table",
+    site="repro_torch.core.query.QueryPipeline.search",
+    description="compact mode never materializes the [Q, L] count table "
+                "(the 100M-scale serving guarantee); dense mode is the "
+                "control that MUST build it",
+    fixture=_compact_fixture,
+    checks=[_C.forbid_dims("Q", "L"), _C.require_dims("Q", "C")],
+    control=_dense_control,
+))
+
+_C.register(_C.Contract(
+    id="query.compact_streaming_no_dense_table",
+    site="repro_torch.core.query.QueryPipeline.search (delta + tombstone)",
+    description="the streaming path (delta segments unioned, tombstones "
+                "dropped) keeps the same no-[Q, L] guarantee",
+    fixture=_compact_streaming_fixture,
+    checks=[_C.forbid_dims("Q", "L"), _C.require_dims("Q", "C")],
+    control=_dense_control,
+))
+
+
+def _audit_oracle_control():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.audit_oracle_control()
+
+
+_C.register(_C.Contract(
+    id="query.audit_oracle_off_hot_path",
+    site="repro_torch.core.query.exact_topk (ShadowAuditor ground truth)",
+    description="the serve pipeline contains no [Q, L] full-probe table — "
+                "the exact audit oracle runs strictly off the hot path, on "
+                "the sampled shadow window; the oracle's plain full-probe "
+                "scan is the control that MUST build the table",
+    fixture=_compact_fixture,
+    checks=[_C.forbid_dims("Q", "L")],
+    control=_audit_oracle_control,
+))

@@ -10,8 +10,7 @@ import threading
 import warnings
 from typing import Any, Protocol, runtime_checkable
 
-import torch
-
+from repro_torch.analysis.recompile import signature
 from repro_torch.core import query as Q
 from repro_torch.store.quantized import QuantizedStore, check_scales
 
@@ -136,26 +135,13 @@ def as_searcher(fn) -> Searcher:
 
 
 # ------------------------------------------------------------------- cache --
-def _signature(x):
-    """What a JAX trace specialises on, for one argument: the shapes and
-    dtypes of its tensors, its structure, None where nothing was passed."""
-    if x is None:
-        return None
-    if isinstance(x, torch.Tensor):
-        return tuple(x.shape), x.dtype
-    if isinstance(x, dict):
-        return tuple((k, _signature(v)) for k, v in sorted(x.items()))
-    if isinstance(x, QuantizedStore):
-        return ("store", x.dtype, x.block, _signature(x.codes),
-                _signature(x.scales), _signature(x.exact))
-    raise TypeError(f"unexpected search argument {type(x).__name__}")
-
-
 class _Entry:
     """One cache entry: the resolved pipeline, and the argument signatures
-    it has run on. The first run of each signature counts as a compile —
-    where the reference's ``jax.jit`` traces (a new delta/tombstone
-    presence, a member matrix resized by compaction)."""
+    it has run on. The first run of each signature
+    (``analysis.recompile.signature``: the shapes and dtypes of its
+    tensors, its structure, None where nothing was passed) counts as a
+    compile — where the reference's ``jax.jit`` traces (a new
+    delta/tombstone presence, a member matrix resized by compaction)."""
 
     def __init__(self, cache: "PipelineCache", pipe: Q.QueryPipeline):
         self._cache = cache
@@ -164,9 +150,8 @@ class _Entry:
 
     def __call__(self, scorer_params, members, base, queries,
                  delta_members=None, tombstone=None):
-        sig = tuple(_signature(a) for a in (scorer_params, members, base,
-                                            queries, delta_members,
-                                            tombstone))
+        sig = signature((scorer_params, members, base, queries,
+                         delta_members, tombstone))
         cache = self._cache
         with cache._lock:
             if sig not in self._seen:
@@ -328,3 +313,25 @@ def params_from_legacy_kwargs(surface: str, *, stacklevel: int = 3,
         f" k={filled['k']}, ...) instead",
         DeprecationWarning, stacklevel=stacklevel)
     return SearchParams(**filled)
+
+
+# ------------------------------------------------------- static contracts --
+# compiles exactly once per (resolved params, corpus, batch bucket) key —
+# audited over a sweep that repeats every key (repro_torch.launch.audit).
+from repro_torch.analysis import contracts as _C  # noqa: E402
+
+
+def _cache_sweep_fixture():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.pipeline_cache_sweep()
+
+
+_C.register(_C.Contract(
+    id="search.cache_compiles_once",
+    site="repro_torch.core.search_api.PipelineCache",
+    description="a SearchParams sweep with 4 distinct resolved keys, each "
+                "hit twice, runs exactly 4 argument signatures — more mean "
+                "cache-key drift (dtype drift, an unstable structure)",
+    fixture=_cache_sweep_fixture,
+    checks=[_C.max_trace_count(4)],
+))

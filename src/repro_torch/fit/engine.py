@@ -16,7 +16,9 @@ Port of the single-device parts of ``repro/fit/engine.py``.
 
 The reference compiles the round into one jitted program with donated
 state; here it is a plain Python function (no ``jit``) that runs eagerly
-and overwrites the state's tensors.
+and overwrites every tensor of the state in place (params, AdamW moments
+and step, assign, the generator state): the contract
+``fit.round_donates_state`` below holds it to that.
 
 Mesh version (``make_sharded_fit_round``): the reference's ``shard_map``
 over a ("data", "rep") mesh becomes one process a mesh position, each
@@ -345,8 +347,9 @@ class FitEngine:
                    "load_std": std_sum / R, "grad_norm": torch.mean(
                        torch.stack(norms)), "load_min": lmin,
                    "load_max": lmax, "load_kl": kl_sum / R}
-        state.assign = new_assign
-        state.rng = gen.get_state()
+        # the state is donated: every tensor leaf is overwritten in place
+        state.assign.copy_(new_assign)
+        state.rng.copy_(gen.get_state())
         state.round_idx += 1
         state.epoch_idx += E
         return state, metrics
@@ -381,10 +384,14 @@ class FitEngine:
 
     def shard_state(self, state: FitState, mesh) -> FitState:
         """This rank's rep rows of a whole state: params, AdamW moments and
-        assign (copies; the state itself when the rep axis has size 1)."""
+        assign, and the generator state (copies; params and moments are the
+        state's own when the rep axis has size 1). The rounds overwrite
+        the result in place, so the caller's assign and generator state
+        stay as they were until ``gather_state``."""
         ax = self.mesh_axes(mesh)
         if ax.rep.size == 1:
-            return state
+            return dataclasses.replace(state, assign=state.assign.clone(),
+                                       rng=state.rng.clone())
         rows = slice(ax.r0, ax.r0 + ax.R_loc)
 
         def take(t):
@@ -392,7 +399,7 @@ class FitEngine:
 
         return FitState(params=_map_reps(state.params, take),
                         opt_state=_map_reps(state.opt_state, take),
-                        assign=take(state.assign), rng=state.rng,
+                        assign=take(state.assign), rng=state.rng.clone(),
                         round_idx=state.round_idx,
                         epoch_idx=state.epoch_idx)
 
@@ -439,3 +446,88 @@ class FitEngine:
                              batch["w"])
             return ns.as_dict(), m
         return step
+
+
+# ------------------------------------------------------- static contracts --
+# The round's scalability and state-handling invariants, as registered
+# contracts (audited by repro_torch.launch.audit): no [.., L, B] dense
+# affinity, the state overwritten in place (the reference's donation), one
+# argument signature a round structure, and a bounded collective schedule
+# on the ("data", "rep") mesh path.
+from repro_torch.analysis import contracts as _C  # noqa: E402
+
+
+def _fit_round_fixture():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.fit_round()
+
+
+def _fit_dense_control():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.fit_round_dense_control()
+
+
+def _fit_sweep_fixture():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.fit_round_sweep()
+
+
+def _sharded_round_fixture():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.sharded_fit_round()
+
+
+_C.register(_C.Contract(
+    id="fit.round_no_dense_affinity",
+    site="repro_torch.fit.engine.FitEngine.make_fit_round",
+    description="the whole train+affinity+re-partition round never "
+                "materializes [.., L, B] (the 100M-label guarantee); the "
+                "streamed [R, chunk, B] block (held on chip by irli_topk on "
+                "the card) and the running [R, L, K] carry must BOTH be "
+                "sighted (non-vacuity); the seed-style dense path is the "
+                "control",
+    fixture=_fit_round_fixture,
+    checks=[
+        _C.forbid_dims("L", "B"),
+        _C.require_dims("chunk", "B", on_chip="irli_topk"),
+        _C.require_dims("L", "K"),
+    ],
+    control=_fit_dense_control,
+))
+
+_C.register(_C.Contract(
+    id="fit.round_donates_state",
+    site="repro_torch.fit.engine.FitEngine.make_fit_round "
+         "(state overwritten in place)",
+    description="every FitState tensor leaf holds, after the round, the "
+                "storage of a leaf of the returned state (no second copy "
+                "of the state); the control runs the round on cloned "
+                "leaves and must alias none of the originals",
+    fixture=_fit_round_fixture,
+    checks=[_C.require_donated()],
+))
+
+_C.register(_C.Contract(
+    id="fit.round_compiles_once",
+    site="repro_torch.fit.engine.FitEngine.make_fit_round",
+    description="two rounds over fresh same-structure states run one "
+                "argument signature — a second means the state or batch "
+                "structure drifted between rounds",
+    fixture=_fit_sweep_fixture,
+    checks=[_C.max_trace_count(1)],
+))
+
+_C.register(_C.Contract(
+    id="fit.sharded_round_collectives",
+    site="repro_torch.fit.engine.FitEngine.make_sharded_fit_round",
+    description="the (data x rep) mesh round speaks only all-reduce (grad "
+                "sums, scalar diagnostics) and all-gather (split-affinity "
+                "reassembly) within a generous byte ceiling — no "
+                "all-to-all / reduce-scatter / point-to-point may appear "
+                "on the fit path",
+    fixture=_sharded_round_fixture,
+    checks=[_C.allowed_collectives({
+        "all-reduce": 1 << 24, "all-gather": 1 << 24,
+    })],
+    min_devices=4,
+))

@@ -221,3 +221,34 @@ def rerank_topk(queries, base, mask, *, k: int, metric: str = "dot"):
         vals, ids = distance_topk(queries, base, mask, k=k, metric=metric)
     return vals, torch.where(torch.isfinite(vals), ids,
                              torch.full_like(ids, -1))
+
+
+# ------------------------------------------------------- static contracts --
+from repro_torch.analysis import contracts as _C  # noqa: E402
+
+
+def _dist_fixture():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.distance_topk_fixture()
+
+
+def _dist_naive_control():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.distance_topk_fixture(naive=True)
+
+
+_C.register(_C.Contract(
+    id="kernels.distance_topk.no_pairwise_broadcast",
+    site="repro_torch.kernels.distance_topk.ops.rerank_topk",
+    description="the masked rerank scores via pairwise_sim's expansion "
+                "form — no [Q, L, D] difference tensor (the naive "
+                "broadcast-l2 control materializes one); the [Q, L] "
+                "similarity table itself is this op's contract and must "
+                "be sighted (held on chip by distance_topk on the card)",
+    fixture=_dist_fixture,
+    checks=[
+        _C.forbid_dims("Q", "L", "D"),
+        _C.require_dims("Q", "L", on_chip="distance_topk"),
+    ],
+    control=_dist_naive_control,
+))

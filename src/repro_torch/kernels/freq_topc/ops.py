@@ -171,3 +171,28 @@ def frequent_topc(cands: torch.Tensor, *, C: int):
     if not on_card(cands):
         return freq_topc_ref(cands, C=C)
     return freq_topc(cands, C=C)
+
+
+# ------------------------------------------------------- static contracts --
+from repro_torch.analysis import contracts as _C  # noqa: E402
+
+
+def _freq_fixture():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.freq_topc_fixture()
+
+
+def _freq_dense_control():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.freq_topc_fixture(dense=True)
+
+
+_C.register(_C.Contract(
+    id="kernels.freq_topc.no_dense_histogram",
+    site="repro_torch.kernels.freq_topc.ops.frequent_topc",
+    description="FrequentOnes top-C counts candidates by sort + run-length, "
+                "never via a [Q, L] histogram (the control builds one)",
+    fixture=_freq_fixture,
+    checks=[_C.forbid_dims("Q", "L"), _C.require_dims("Q", "C")],
+    control=_freq_dense_control,
+))

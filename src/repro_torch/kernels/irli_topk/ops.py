@@ -147,3 +147,33 @@ def scorer_topk(h, w2, b2, *, m: int, lse: bool = False):
     if not on_card(h, w2, b2):
         return irli_topk_ref(h, w2, b2, m=m, lse=lse)
     return irli_topk(h, w2, b2, m=m, lse=lse)
+
+
+# ------------------------------------------------------- static contracts --
+from repro_torch.analysis import contracts as _C  # noqa: E402
+
+
+def _irli_fixture():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.irli_topk_fixture()
+
+
+def _irli_naive_control():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.irli_topk_fixture(naive=True)
+
+
+_C.register(_C.Contract(
+    id="kernels.irli_topk.no_onehot_select",
+    site="repro_torch.kernels.irli_topk.ops.scorer_topk",
+    description="fused scoring + top-m selects with a top-k over the "
+                "[Q, B] logits (held on chip by irli_topk on the card) — "
+                "never a [Q, m, B] one-hot stack (the naive control builds "
+                "one)",
+    fixture=_irli_fixture,
+    checks=[
+        _C.forbid_dims("Q", "B", "m"),
+        _C.require_dims("Q", "B", on_chip="irli_topk"),
+    ],
+    control=_irli_naive_control,
+))

@@ -296,7 +296,8 @@ def mega_search(pipe, params, members, base, queries, delta_members=None,
             params, members, base, queries, delta_members, tombstone,
             m=pipe.m, tau=pipe.tau, topC=pipe.topC, k=pipe.k,
             refine_k=pipe.refine_k, metric=pipe.metric,
-            adaptive_m=pipe.adaptive_m, probe_mass=pipe.probe_mass)
+            adaptive_m=pipe.adaptive_m, probe_mass=pipe.probe_mass,
+            chunk=resolve_refine_k(pipe.refine_k, pipe.k, pipe.topC))
     if not _kernel_eligible(pipe, params, members, base, queries,
                             delta_members, tombstone):
         return dataclasses.replace(pipe, mode="compact").search(
@@ -307,3 +308,41 @@ def mega_search(pipe, params, members, base, queries, delta_members=None,
         tau=pipe.tau, topC=pipe.topC, k=pipe.k, refine_k=pipe.refine_k,
         metric=pipe.metric, adaptive_m=pipe.adaptive_m,
         probe_mass=pipe.probe_mass)
+
+
+# ------------------------------------------------------- static contracts --
+# The fused path's reason to exist, as a registered invariant: mode="mega"
+# is ONE dispatch (on the card one CUDA kernel, mega_query) with the
+# compact memory guarantees inside. The control is the per-stage split of
+# the same search, which MUST trip the counters.
+from repro_torch.analysis import contracts as _C  # noqa: E402
+
+
+def _mega_fixture():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.mega_store_search()
+
+
+def _split_control():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.mega_split_control()
+
+
+_C.register(_C.Contract(
+    id="query.mega_single_dispatch",
+    site="repro_torch.kernels.mega_query.ops.mega_search",
+    description="mode='mega' is exactly one dispatch — one CUDA kernel on "
+                "the card, no per-stage kernel round-trips — and inside it "
+                "the compact guarantees hold: no [Q, L] count table, no "
+                "fp32 [L, D] store decode, the [Q, C] candidates held on "
+                "chip by mega_query on the card. The control is the staged "
+                "split of the same search, which MUST trip the counters",
+    fixture=_mega_fixture,
+    checks=[
+        _C.max_dispatches(1),
+        _C.forbid_dims("Q", "L"),
+        _C.require_dtype_free("float32", "L", "D"),
+        _C.require_dims("Q", "C", on_chip="mega_query"),
+    ],
+    control=_split_control,
+))

@@ -20,10 +20,13 @@ from repro_torch.store.rerank import refine_stage, resolve_refine_k
 def mega_search_ref(params, members, base, queries, delta_members=None,
                     tombstone=None, *, m: int, tau: int, topC: int, k: int,
                     refine_k: int = 0, metric: str = "angular",
-                    adaptive_m: bool = False, probe_mass: float = 1.0):
+                    adaptive_m: bool = False, probe_mass: float = 1.0,
+                    chunk: int | None = None):
     """-> (ids [Q, k] int32 with -1 pads, scores [Q, k] f32, n_candidates
     [Q] int32): the compact path. ``base`` is a raw fp32 [L, d] tensor or a
-    QuantizedStore; quantized stores run the coarse + refine rerank."""
+    QuantizedStore; quantized stores run the coarse + refine rerank, whose
+    coarse stage dequantizes ``chunk`` candidates a query at a time
+    (``quant_rerank_ref``; None: all at once)."""
     store = base if isinstance(base, QuantizedStore) else None
     logits = scorer_logits(params, queries)
     vals, bidx = topk_stable(logits, m)
@@ -36,7 +39,8 @@ def mega_search_ref(params, members, base, queries, delta_members=None,
     if store is not None and store.dtype != "fp32":
         kp = resolve_refine_k(refine_k, k, topC)
         cids, _ = quant_rerank_ref(queries, store.codes, store.scales, cid,
-                                   cnt, tau=tau, k=kp, metric=metric)
+                                   cnt, tau=tau, k=kp, metric=metric,
+                                   chunk=chunk)
         ids, scores = refine_stage(queries, store, cids, k=k, metric=metric)
     else:
         rows = store.codes if store is not None else base

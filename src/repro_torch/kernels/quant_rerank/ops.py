@@ -151,11 +151,48 @@ def quant_rerank(queries, codes, scales, cand_ids, cand_counts, *, tau: int,
 
 
 def quant_coarse_topk(queries, codes, scales, cand_ids, cand_counts, *,
-                      tau: int, k: int, metric: str = "angular"):
+                      tau: int, k: int, metric: str = "angular",
+                      chunk: int | None = None):
     """Coarse top-k' over quantized code rows -> (ids [Q, k'] with -1 pads,
-    coarse scores [Q, k']). ``scales=None`` means scale-less (bf16) codes."""
+    coarse scores [Q, k']). ``scales=None`` means scale-less (bf16) codes.
+    On the CPU the plain version dequantizes ``chunk`` candidates a query
+    at a time (None: k of them; an fp32 working set of [Q, chunk, D], as
+    the reference's chunked path); the kernel on the card holds no
+    dequantized row in device memory and takes no chunk."""
     if not on_card(queries, codes, scales, cand_ids, cand_counts):
         return quant_rerank_ref(queries, codes, scales, cand_ids,
-                                cand_counts, tau=tau, k=k, metric=metric)
+                                cand_counts, tau=tau, k=k, metric=metric,
+                                chunk=k if chunk is None else chunk)
     return quant_rerank(queries, codes, scales, cand_ids, cand_counts,
                         tau=tau, k=k, metric=metric)
+
+
+# ------------------------------------------------------- static contracts --
+from repro_torch.analysis import contracts as _C  # noqa: E402
+
+
+def _quant_fixture():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.quant_rerank_fixture()
+
+
+def _quant_fullwidth_control():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.quant_rerank_fixture(chunk=80)   # chunk = C: full-width dequant
+
+
+_C.register(_C.Contract(
+    id="kernels.quant_rerank.coarse_dequant_bounded",
+    site="repro_torch.kernels.quant_rerank.ops.quant_coarse_topk",
+    description="the coarse stage's fp32 dequant working set is [Q, chunk, "
+                "D] (on the card the kernel holds it on chip), never the "
+                "full [Q, C, D] candidate width (the control runs the plain "
+                "version with chunk=C and must materialize it)",
+    fixture=_quant_fixture,
+    checks=[
+        _C.forbid_dims("Q", "C", "D", dtype="float32"),
+        _C.require_dims("Q", "chunk", "D", dtype="float32",
+                        on_chip="quant_rerank"),
+    ],
+    control=_quant_fullwidth_control,
+))

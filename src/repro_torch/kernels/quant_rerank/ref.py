@@ -14,19 +14,29 @@ from repro_torch.store.quantized import dequant_gathered
 
 
 def quant_rerank_ref(queries, codes, scales, cand_ids, cand_counts, *,
-                     tau: int, k: int, metric: str = "angular"):
+                     tau: int, k: int, metric: str = "angular",
+                     chunk: int | None = None):
     """-> (ids [Q, k] int32 with -1 pads, scores [Q, k] f32, -inf on pads).
-    ``scales=None`` means scale-less (bf16) codes. Gathers all C candidate
-    rows at once: a [Q, C, D] fp32 intermediate."""
-    k = min(k, cand_ids.shape[1])
+    ``scales=None`` means scale-less (bf16) codes. Dequantizes ``chunk``
+    candidate rows a query at a time (the reference's chunked path: an fp32
+    working set of [Q, chunk, D]); ``chunk=None`` gathers all C at once, a
+    [Q, C, D] fp32 intermediate (the reference's oracle). Each score is the
+    same sum either way."""
+    C = cand_ids.shape[1]
+    k = min(k, C)
     block = codes.shape[1] // scales.shape[1] if scales is not None else 0
-    deq = dequant_gathered(codes, scales, cand_ids.clamp_min(0).long(),
-                           block)                            # [Q, C, D] f32
+    step = C if chunk is None else max(1, min(chunk, C))
     q = queries[:, None, :]
-    if metric == "l2":
-        sim = -((q - deq) ** 2).sum(dim=-1)
-    else:
-        sim = (q * deq).sum(dim=-1)
+    parts = []
+    for s in range(0, C or 1, step):          # C = 0: one empty chunk
+        deq = dequant_gathered(codes, scales,
+                               cand_ids[:, s:s + step].clamp_min(0).long(),
+                               block)                    # [Q, chunk, D] f32
+        if metric == "l2":
+            parts.append(-((q - deq) ** 2).sum(dim=-1))
+        else:
+            parts.append((q * deq).sum(dim=-1))
+    sim = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     valid = (cand_ids >= 0) & (cand_counts >= tau)
     sim = torch.where(valid, sim, torch.full_like(sim, -torch.inf))
     vals, pos = topk_stable(sim, k)

@@ -47,9 +47,10 @@ effectiveness as the shadow-audited recall delta across the version swap
 ``mesh=`` (a ("data", "rep") DeviceMesh, ``launch/mesh.make_fit_mesh``)
 runs the cycle's rounds through ``FitEngine.make_sharded_fit_round``:
 every rank runs the cycle in lockstep over the same index and query log,
-fits its rep rows, and gathers the reps before sealing the artifact. Not
-ported: the reference's static-contract fixtures, which wait for the port
-of ``analysis/``. The round's random stream is a
+fits its rep rows, and gathers the reps before sealing the artifact. The
+static contracts at the end of this module hold the refit round to the
+no-[.., L, B] guarantee and the swap to no copy of the vector payload
+(``repro_torch.launch.audit``). The round's random stream is a
 ``torch.Generator`` seeded ``seed + round counter`` where the reference
 seeds ``jax.random.PRNGKey``; parity tests inject the reference's batch
 order and insertion orders.
@@ -404,3 +405,67 @@ class OnlineRefitLoop:
         if self._thread is not None:
             self._thread.join(timeout=60)
             self._thread = None
+
+
+# ------------------------------------------------------- static contracts --
+# The refit round must stay [.., L, B]-free (the live corpus can be 100M
+# rows) and the swap's device work must never copy the [capacity, d]
+# payload. Fixtures live in analysis/fixtures.py.
+from repro_torch.analysis import contracts as _C  # noqa: E402
+
+
+def _refit_round_fixture():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.online_refit_round()
+
+
+def _refit_dense_control():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.online_refit_dense_control()
+
+
+def _swap_fixture():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.online_swap_no_copy()
+
+
+def _swap_control():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.online_swap_copy_control()
+
+
+_C.register(_C.Contract(
+    id="online.refit_round_no_dense_affinity",
+    site="repro_torch.online.refit.make_refit_round",
+    description="the incremental refit round over drained serve traffic "
+                "streams query->bucket affinity in label chunks (held on "
+                "chip by irli_topk on the card) — it never materializes "
+                "[.., L, B] even though the label set is the live corpus; "
+                "the seed-style dense re-partition is the control",
+    fixture=_refit_round_fixture,
+    checks=[
+        _C.forbid_dims("L", "B"),
+        _C.require_dims("chunk", "B", on_chip="irli_topk"),
+        _C.require_dims("L", "K"),
+    ],
+    control=_refit_dense_control,
+))
+
+_C.register(_C.Contract(
+    id="online.swap_no_index_copy",
+    site="repro_torch.stream.mutable_index.MutableIRLIIndex."
+         "install_artifact",
+    description="the swap's only device work (member-matrix rebuild, "
+                "artifact.rebuild_members) never materializes a "
+                "[capacity, d] copy of the vector payload and stays under "
+                "a small intermediate budget — vecs/codes move between "
+                "artifact and snapshot by reference; a variant that "
+                "touches the payload is the control",
+    fixture=_swap_fixture,
+    checks=[
+        _C.forbid_dims("cap", "d"),
+        _C.require_dims("cap"),
+        _C.max_intermediate_bytes(1 << 19),
+    ],
+    control=_swap_control,
+))

@@ -101,7 +101,7 @@ def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict):
         del upd
         if base is not p:
             p.copy_(base)
-    state["step"] = step
+    state["step"].copy_(step)                  # in place, as every leaf
     return params, state, {"grad_norm": gnorm, "lr": lr}
 
 

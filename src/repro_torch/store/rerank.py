@@ -56,3 +56,37 @@ def refine_stage(queries, store: QuantizedStore, cids, *, k: int,
         ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
         scores = torch.nn.functional.pad(scores, (0, pad), value=-torch.inf)
     return ids.to(torch.int32), scores
+
+
+# ------------------------------------------------------- static contracts --
+# The memory contract of the two-stage rerank, as a registered invariant
+# (audited by repro_torch.launch.audit).
+from repro_torch.analysis import contracts as _C  # noqa: E402
+
+
+def _int8_fixture():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.store_search("int8")
+
+
+def _fp32_control():
+    from repro_torch.analysis import fixtures as _FX
+    return _FX.store_search("fp32")
+
+
+_C.register(_C.Contract(
+    id="store.int8_no_fp32_payload",
+    site="repro_torch.store.rerank.coarse_stage + refine_stage "
+         "(QueryPipeline.search's two-stage rerank)",
+    description="with store_dtype='int8' the search holds no fp32 [L, D] "
+                "(full decode) and no fp32 [Q, C, D] (full-width gather); "
+                "fp32 appears only at the [Q, k', D] refine. The fp32 store "
+                "is the control that DOES gather full width",
+    fixture=_int8_fixture,
+    checks=[
+        _C.require_dtype_free("float32", "L", "D"),
+        _C.forbid_dims("Q", "C", "D", dtype="float32"),
+        _C.require_dims("Q", "kp", "D", dtype="float32"),
+    ],
+    control=_fp32_control,
+))

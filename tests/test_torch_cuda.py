@@ -1357,3 +1357,103 @@ def test_world_size_one_production_search_is_the_compact_search(
     want = idx.search(q, payload, sp.replace(topC=1024))
     assert torch.equal(out["ids"], want.ids)
     assert torch.equal(out["scores"], want.scores)
+
+
+# ------------------------------------------------- the static contracts --
+def test_registry_audited_on_the_card(card):
+    """Every registered contract at the reference's fixture sizes on the
+    card (the mesh contracts in a spawned world of 4 gloo ranks on it),
+    every control tripped, the card-side sightings held by a kernel that
+    launched in the call."""
+    from repro_torch.analysis import REGISTRY, load_all
+    from repro_torch.launch.audit import audit_ids
+    held = {}
+    for r in audit_ids(load_all(), device=card):
+        assert r.passed and not r.skipped, r.to_dict()
+        assert r.control_ok is not False, r.to_dict()
+        if any(c.negative for c in REGISTRY.get(r.contract_id).checks):
+            assert r.control_ok is True, r.to_dict()
+        held.update({r.contract_id: c.held_by for c in r.checks
+                     if c.held_by})
+    assert held == {
+        "fit.round_no_dense_affinity": "irli_topk",
+        "online.refit_round_no_dense_affinity": "irli_topk",
+        "kernels.irli_topk.no_onehot_select": "irli_topk",
+        "kernels.quant_rerank.coarse_dequant_bounded": "quant_rerank",
+        "query.mega_single_dispatch": "mega_query"}
+
+
+def test_mega_fixture_is_one_kernel_and_its_control_many(card):
+    """query.mega_single_dispatch at the reference's toy geometry: one
+    CUDA kernel, mega_query, and no memcpy; the staged split of the same
+    search dispatches irli_topk, freq_topc and quant_rerank among many
+    kernels."""
+    from repro_torch.analysis import fixtures as FX
+    from repro_torch.analysis.contracts import on_device
+    from repro_torch.analysis.contracts import max_dispatches
+    with on_device(card):
+        fx, ctl = FX.mega_store_search(), FX.mega_split_control()
+        assert max_dispatches(1).run(fx).passed
+        assert not max_dispatches(1).run(ctl).passed
+        mega, split = fx.trace(), ctl.trace()
+    assert len(mega.kernels) == 1 and "mega_query" in mega.kernels[0]
+    assert mega.copies == [] and mega.launches == {"mega_query": 1}
+    assert not mega.unseen() and not split.unseen()
+    assert mega.sites == ["mega_query.mega_search"]
+    assert len(split.kernels) > 1
+    assert split.launches == {"irli_topk": 1, "freq_topc": 1,
+                              "quant_rerank": 1}
+
+
+def test_a_blind_profiler_fails_the_single_launch_proof(card, monkeypatch):
+    """With no lead-in kernel seen, the prefix the profiler drops from a
+    window may hold kernels of the call: max_dispatches calls that record
+    blind and fails it, though mega_query itself was seen."""
+    from repro_torch.analysis import fixtures as FX
+    from repro_torch.analysis import trace as TR
+    from repro_torch.analysis.contracts import max_dispatches, on_device
+    monkeypatch.setattr(TR, "LEAD_IN", 0)
+    with on_device(card):
+        fx = FX.mega_store_search()
+        r = max_dispatches(1).run(fx)
+    assert fx.trace().lead_in == 0
+    assert not r.passed and "BLIND" in r.detail, r.detail
+
+
+def test_seeded_split_dispatch_detected_on_the_card(card):
+    from repro_torch.launch.audit import audit_seeded
+    r = audit_seeded("split_dispatch", device=card)
+    assert not r.passed
+    assert "CUDA kernel" in r.checks[0].detail
+
+
+def test_backward_and_collectives_recorded_on_the_card(card, tmp_path):
+    """The autograd engine's device thread runs the backward under the
+    caller's dispatch mode; gloo's collectives on CUDA tensors appear as
+    c10d ops."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.analysis import trace as TR
+    from repro_torch.analysis.collectives import CollectiveRecorder
+    w = torch.randn(16, 40, device=card, requires_grad=True)
+    x = torch.randn(6, 16, device=card)
+
+    def step(ww):
+        (x @ ww).relu().sum().backward()
+        return ww.grad
+    ops = {r.op for r in TR.record_call(step, (w,), device=card).ops}
+    assert "aten.threshold_backward.default" in ops
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=60))
+    try:
+        t = torch.arange(6, dtype=torch.float32, device=card)
+        with CollectiveRecorder() as rec:
+            parts = [torch.empty_like(t)]
+            dist.all_gather(parts, t)
+            dist.all_reduce(t)
+    finally:
+        dist.destroy_process_group()
+    assert rec.calls == [("all_gather", 24), ("all_reduce", 24)]

@@ -517,6 +517,26 @@ def test_refit_on_a_2x2_mesh_matches_the_single_device_loop(runs):
                                    rtol=1e-3, atol=1e-5, err_msg=k)
 
 
+def test_mesh_fit_replaces_assign_and_rng_at_the_end_only(solo):
+    """fit(mesh=) on a 1 x 1 mesh: the rounds overwrite the sharded state
+    in place, so the index's assign and generator state stay as they were
+    at entry until the fit ends (what ``log`` sees each round)."""
+    data = TR.fit_data()
+    idx = IRLIIndex(TR.fit_cfg(), device="cpu")
+    assign0, rng0 = idx.assign.clone(), idx.rng.clone()
+    seen = []
+
+    class Log:
+        def log(self, row, step):
+            seen.append((torch.equal(idx.assign, assign0),
+                         torch.equal(idx.rng, rng0)))
+
+    idx.fit(data.train_queries, data.train_gt, label_vecs=data.base,
+            mesh=TM.make_fit_mesh(1, device_type="cpu"), log=Log())
+    assert seen and all(a and r for a, r in seen), seen
+    assert not torch.equal(idx.assign, assign0)
+
+
 def test_one_by_one_mesh_is_bit_equal(solo):
     """A 1 × 1 mesh: fit(mesh=), the engine rounds and the refit cycle are
     bit-equal to the single-device ones (assign, losses, params)."""

@@ -21,12 +21,6 @@ from pathlib import Path
 
 import numpy as np
 
-COLLECTIVES = ("all_gather", "all_gather_into_tensor", "all_reduce",
-               "broadcast", "reduce", "reduce_scatter",
-               "reduce_scatter_tensor", "all_to_all", "all_to_all_single",
-               "gather", "scatter", "send", "recv", "isend", "irecv",
-               "barrier", "all_gather_object", "broadcast_object_list")
-
 
 def _entry(fn, rank: int, world: int, tmp: str):
     import torch
@@ -98,52 +92,15 @@ def _save(tmp, name: str, rank: int, out: dict) -> None:
 
 
 # ------------------------------------------------------------ the search --
-class Recorder:
-    """Wraps every collective of ``torch.distributed`` and records (name,
-    bytes received) a call."""
-
-    def __init__(self):
-        self.calls: list = []
-        self._saved: dict = {}
-
-    def __enter__(self):
-        import torch.distributed as dist
-        for name in COLLECTIVES:
-            fn = getattr(dist, name, None)
-            if fn is None:
-                continue
-            self._saved[name] = fn
-
-            def wrap(*a, _fn=fn, _name=name, **kw):
-                self.calls.append((_name, _bytes(_name, a, kw)))
-                return _fn(*a, **kw)
-            setattr(dist, name, wrap)
-        return self
-
-    def __exit__(self, *exc):
-        import torch.distributed as dist
-        for name, fn in self._saved.items():
-            setattr(dist, name, fn)
-
-
-def _bytes(name: str, a, kw) -> int:
-    import torch
-    out = a[0] if a else kw.get("tensor_list", kw.get("tensor"))
-    if isinstance(out, (list, tuple)):
-        return sum(t.numel() * t.element_size() for t in out
-                   if isinstance(t, torch.Tensor))
-    if isinstance(out, torch.Tensor):
-        return out.numel() * out.element_size()
-    return -1
-
-
 def search_ranks(rank: int, world: int, tmp: str) -> None:
     """P = 8 ranks over a (4, 2) ("data", "model") mesh: the production
     search (fp32, int8), the distributed search over "data" with distinct
     scorers, build_irli_serve (int8), the collectives of one production
-    search, and a tie between shards."""
+    search (the package's collective record), and a tie between
+    shards."""
     import torch
 
+    from repro_torch.analysis.collectives import CollectiveRecorder
     from repro_torch.core.distributed import (axis_group,
                                               make_distributed_search,
                                               make_production_search)
@@ -165,7 +122,7 @@ def search_ranks(rank: int, world: int, tmp: str) -> None:
     search = make_production_search(mesh, sp)
     r = search(scorer, members, base, q)
     out["prod_fp32"] = (r.ids, r.scores, r.n_candidates, r.mode, r.epoch)
-    with Recorder() as rec:
+    with CollectiveRecorder() as rec:
         search(scorer, members, base, q)
     out["collectives"] = rec.calls
     store = QuantizedStore("int8", int(z["block"]), _t(z["codes"][shard]),
