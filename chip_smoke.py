@@ -101,6 +101,32 @@ widths, the LM prefill at gemma-7b's and DIEN's serve path at its own:
     against the kernel fit's round 1; then one round of a softmax_bce fit
     (the paper's loss: no bce_logits); recall@10 of the fitted index
     against exact search, above the hash partition's;
+  * the train cell (``train_cell``, after the fit): (a) the fault-tolerant
+    ``Trainer`` (train/trainer.py) over ``launch/steps.
+    build_irli_fit_parts`` at the fit cell's config with R cut to TRAIN_R
+    = 4, TRAIN_ROUNDS = 3 rounds of 1 epoch, a checkpoint every 2:
+    uninterrupted, then crashed before round 2 (``fail_at_step``) and
+    resumed from its checkpoint, assign, params and the last round's loss
+    bit-equal to the uninterrupted run; the round times (after
+    ``torch.cuda.synchronize``), each checkpoint's write and the restore
+    seconds and its bytes; one bce_logits launch a train step, one
+    irli_topk an affinity chunk, one kchoice a round; (b) the mesh Trainer
+    on DIST_P gloo ranks on the card (the distributed cell's ranks, which
+    run it after their own work; ``--train`` spawns its own) at that
+    cell's narrow widths: 3 rounds on a 2 x 2 ("data", "rep") mesh, then
+    crashed on 2 x 2 and resumed on 1 x 4 from the whole-state checkpoint,
+    held to the uninterrupted run with the mesh fit's tolerances (last
+    loss rtol 1e-4, assign match > 0.98, params rtol 1e-3); (c)
+    ``build_retrieval_serve`` at DIEN's ``retrieval_cand`` (query [1,
+    36], item table [1,048,576, 36] fp32, k = 100): one distance_topk
+    launch ("dot"), held to its plain version, timed beside it,
+    torch.topk over torch.mm and its byte bound; (d) ``launch/obs_smoke.
+    main(device="cuda")``, whose own asserts hold every metric family;
+    (e) each TMA kernel (mega_query, irli_topk, distance_topk,
+    flash_attention) launched 20 times from a new thread that never set a
+    device, after 300 launches of its toy call and 1,000 of irli_topk's
+    here, bit-equal to this thread's results (kernels/tma.cuh binds the
+    thread's CUDA context before it encodes a tensor map);
   * the LM prefill cell (``lm_cell``): ``launch/steps.build_lm_prefill``
     over gemma-7b at full width and full depth (28 layers, d 3072, 16
     heads x 256, d_ff 24576, vocab 256,000, bf16, random weights from
@@ -178,7 +204,8 @@ from a directory that holds this file and nothing else of the repository.
 ``python3 chip_smoke.py --fit-recall L N`` runs only the fit cell's fit and
 recall, at L labels and N training queries, and prints them as JSON;
 ``--distributed`` runs only the build, the search cell's index and the
-distributed cell; ``--audit`` the build, that index and the audit cell.
+distributed cell; ``--audit`` the build, that index and the audit cell;
+``--train`` the build and the train cell.
 
 Widths (configs/irli_deep1b.py): D=96, B=20000, R=32, H=1024. Search, the
 serve_query cell: int8 block 32, m=5, tau=2, k=10, topC=1024, refine_k auto
@@ -216,9 +243,15 @@ ranks on one card over quarters of that corpus (the card's one NVLink
 peer is itself: collectives across chips wait for a four-chip cell); the
 mesh fit at 32,768 labels, one round (1 x 1), and at narrow widths (2 x
 2: gloo would move a 1.3 GB w2 gradient a step at full width). Depth cut
-to keep the whole run near 400 s with this cell: the server cell's burst
-from 4,096 to N_BURST = 2,048 requests (its rate is the same at any
-count; its p50/p99 grow with it).
+to keep the whole run under 460 s with the train cell: the server cell's
+burst from 4,096 to N_BURST = 1,024 requests (2,048 until the train cell
+came), the first N_BARE = 512 of them without the probe counter (its
+rate is the same at any count; its p50/p99 grow with it). The train
+cell: the fit cell's config with R cut from 32 to TRAIN_R = 4 (R counts
+independent repetitions, the fit's depth: a round then takes about 2 s
+and a checkpoint, w2 and its two AdamW moments, about 1 GB, where R = 32
+takes 16 s and 7.9 GB), 3 rounds of 1 epoch (of 5 and 5); (b) at the
+narrow widths above, 8,192 labels.
 """
 from __future__ import annotations
 
@@ -265,7 +298,7 @@ SOFT_L, SOFT_BATCH = 16_384, 1024
 # any count); the mutation phase's queries, an insert of MUT_INSERT rows
 # after every MUT_EVERY queries and a delete of N_MUT_DEL live ids after the
 # second insert
-N_BURST, N_BARE, N_PACED, WIDE_M = 2048, 1024, 512, 10
+N_BURST, N_BARE, N_PACED, WIDE_M = 1024, 512, 512, 10
 N_MUT_Q, MUT_EVERY, MUT_INSERT, N_MUT_DEL = 4096, 1024, 4096, 10_000
 # the refit cell (over FIT_L labels): queries served, rows inserted before
 # the cycle and again while it runs (the swap's tail), ids deleted
@@ -2436,7 +2469,8 @@ def dist_rank(rank: int, world: int, tmp: str, dev_type: str) -> None:
             rank=rank, world_size=world,
             timeout=datetime.timedelta(seconds=300))
         out = {"search": dist_rank_search(torch, dev, world),
-               "fit": dist_rank_fit(torch, dev, world, tmp)}
+               "fit": dist_rank_fit(torch, dev, world, tmp),
+               "trainer": train_rank_work(torch, dev, world, tmp)}
         torch.save(out, Path(tmp) / f"rank{rank}.pt")
         dist.destroy_process_group()
     except BaseException:
@@ -2542,7 +2576,9 @@ def dist_cell(torch, dev, idx, store8, queries) -> dict:
         mesh, bit-equal to the same fit without one (assign, losses,
         params);
     (b) DIST_P gloo ranks spawned on the one card (NCCL refuses two ranks
-        on one device), each holding DIST_L rows of the same corpus with
+        on one device; the same ranks then run the train cell's (b),
+        ``train_rank_work``, whose results this cell returns as
+        "trainer_ranks"), each holding DIST_L rows of the same corpus with
         its own hash partition, the replicated scorer and the same
         queries: all ranks return the same result, equal to this
         process's loop over the shards through shard_search_local merged
@@ -2678,12 +2714,9 @@ def dist_cell(torch, dev, idx, store8, queries) -> dict:
         dist.destroy_process_group()
 
     # ----------------------------------------- (b) + (c) on gloo ranks --
-    nbase, _, _ = clustered_vectors(n_base=NARROW_L, n_queries=1, d=D,
-                                    seed=SEED + 7)
-    nbase = torch.from_numpy(nbase).to(dev)
-    nlabels = neighbours(torch, dev, nbase, nbase, K_NEIGH)
-    torch.save({"base": nbase.cpu(), "labels": nlabels.cpu()},
-               Path(tmp) / "narrow.pt")
+    narrow_data(torch, dev, tmp)
+    narrow = torch.load(Path(tmp) / "narrow.pt")
+    nbase, nlabels = narrow["base"].to(dev), narrow["labels"].to(dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2777,7 +2810,8 @@ def dist_cell(torch, dev, idx, store8, queries) -> dict:
     shutil.rmtree(tmp, ignore_errors=True)
     log(f"distributed cell: {time.perf_counter() - t_cell:.1f} s")
     return {"launches": launches, "serve_ms": serve_ms,
-            "compact_ms": compact_ms, "merge_ms": merge_ms}
+            "compact_ms": compact_ms, "merge_ms": merge_ms,
+            "trainer_ranks": [rk["trainer"] for rk in ranks]}
 
 
 # ------------------------------------------------------------ the audit --
@@ -2960,6 +2994,387 @@ def audit_cell(torch, dev, idx, store8, queries) -> dict:
             "seconds": time.perf_counter() - t_cell}
 
 
+# ------------------------------------------------------------ the train --
+# the train cell: (a) the Trainer over build_irli_fit_parts at the fit
+# cell's config with R cut from 32 to TRAIN_R (R counts independent
+# repetitions, the fit's depth), TRAIN_ROUNDS rounds of 1 epoch, a
+# checkpoint every TRAIN_EVERY rounds, a crash before round TRAIN_FAIL; (b)
+# the mesh Trainer at the narrow widths on DIST_P gloo ranks; (c) DIEN's
+# retrieval_cand; (e) THREAD_CALLS calls of each TMA kernel from a new
+# thread after THREAD_MAIN of its own and THREAD_IRLI irli_topk launches
+TRAIN_R, TRAIN_ROUNDS, TRAIN_EVERY, TRAIN_FAIL = 4, 3, 2, 2
+THREAD_MAIN, THREAD_IRLI, THREAD_CALLS = 300, 1000, 20
+TMA_KERNELS = ("mega_query", "irli_topk", "distance_topk", "flash_attention")
+
+
+def train_config(**over):
+    """The train cell's config: the fit cell's (fit_config(FIT_L)) with R =
+    TRAIN_R and TRAIN_ROUNDS rounds."""
+    return fit_config(FIT_L, n_reps=TRAIN_R, rounds=TRAIN_ROUNDS, **over)
+
+
+def trainer_for(torch, dev, cfg, base, labels, ckpt, fail_at=None,
+                mesh=None):
+    """A Trainer over build_irli_fit_parts(cfg, base, labels, label_vecs=
+    base) writing to ckpt (TRAIN_ROUNDS rounds, a checkpoint every
+    TRAIN_EVERY)."""
+    from repro_torch.launch.steps import build_irli_fit_parts
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    parts = build_irli_fit_parts(cfg, base, labels, label_vecs=base,
+                                 mesh=mesh, device=dev)
+    return Trainer(TrainerConfig(total_steps=TRAIN_ROUNDS,
+                                 checkpoint_every=TRAIN_EVERY,
+                                 fail_at_step=fail_at), *parts, str(ckpt),
+                   device=dev, sharded=parts.sharded)
+
+
+def crash_and_resume(torch, make, resume_make=None) -> tuple:
+    """make(fail_at) -> a Trainer. Runs one that fails before round
+    TRAIN_FAIL, then resumes with (resume_make or make)(None) -> (the
+    resumed Trainer, its run's output)."""
+    from repro_torch.train.trainer import SimulatedFailure
+    try:
+        make(TRAIN_FAIL).run()
+    except SimulatedFailure:
+        pass
+    else:
+        raise AssertionError("fail_at_step raised no SimulatedFailure")
+    tr = (resume_make or make)(None)
+    if not (tr.resumed and tr.start_step == TRAIN_FAIL):
+        raise AssertionError(f"the Trainer did not resume at round "
+                             f"{TRAIN_FAIL}: {tr.resumed}, {tr.start_step}")
+    return tr, tr.run()
+
+
+def train_rank_work(torch, dev, world: int, tmp: str) -> dict:
+    """The train cell's (b) on one of DIST_P gloo ranks (the distributed
+    cell's ranks, or ``train_rank``'s): the mesh Trainer at the narrow
+    config over tmp/narrow.pt, TRAIN_ROUNDS rounds uninterrupted on a 2 x
+    2 ("data", "rep") mesh, then crashed before round TRAIN_FAIL on 2 x 2
+    and resumed on 1 x 4 -> each run's losses and whole final state."""
+    from repro_torch.launch.mesh import make_fit_mesh
+    t0 = time.perf_counter()
+    data = torch.load(Path(tmp) / "narrow.pt")
+    base, labels = data["base"].to(dev), data["labels"].to(dev)
+    cfg = narrow_config()
+    m22 = make_fit_mesh(world, rep_axis=2, device_type=dev.type)
+    full = trainer_for(torch, dev, cfg, base, labels,
+                       Path(tmp) / "full", mesh=m22)
+    fout = full.run()
+    m14 = make_fit_mesh(world, rep_axis=world, device_type=dev.type)
+    res, rout = crash_and_resume(
+        torch, lambda f: trainer_for(torch, dev, cfg, base, labels,
+                                     Path(tmp) / "crash", f, m22),
+        lambda f: trainer_for(torch, dev, cfg, base, labels,
+                              Path(tmp) / "crash", f, m14))
+    out = {}
+    for name, tr, o in (("full", full, fout), ("resumed", res, rout)):
+        whole = tr.sharded.gather(tr.state)
+        out[name] = {"loss": [m["loss"] for m in o["metrics"]],
+                     "assign": whole["assign"].cpu(),
+                     "params": {k: v.cpu() for k, v in
+                                whole["params"].items()},
+                     "rows": int(tr.state["assign"].shape[0])}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def train_rank(rank: int, world: int, tmp: str, dev_type: str) -> None:
+    """One of the DIST_P gloo ranks ``--train`` spawns for the train
+    cell's (b) (``train_rank_work``). Writes its results to
+    tmp/train<rank>.pt, or its traceback to tmp/err<rank>.txt."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    try:
+        dev = torch.device(dev_type, 0 if dev_type == "cuda" else None)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(str(Path(tmp) / "store"), world),
+            rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=300))
+        out = train_rank_work(torch, dev, world, tmp)
+        torch.save(out, Path(tmp) / f"train{rank}.pt")
+        dist.destroy_process_group()
+    except BaseException:
+        (Path(tmp) / f"err{rank}.txt").write_text(traceback.format_exc())
+        raise
+
+
+def narrow_data(torch, dev, tmp: str) -> None:
+    """The narrow mesh runs' ANN data and labels (clustered_ann's recipe,
+    NARROW_L x D from SEED + 7, K_NEIGH exact neighbours on the card) ->
+    tmp/narrow.pt, which the spawned ranks load."""
+    from repro_torch.data.synthetic import clustered_vectors
+    nbase, _, _ = clustered_vectors(n_base=NARROW_L, n_queries=1, d=D,
+                                    seed=SEED + 7)
+    nbase = torch.from_numpy(nbase).to(dev)
+    nlabels = neighbours(torch, dev, nbase, nbase, K_NEIGH)
+    torch.save({"base": nbase.cpu(), "labels": nlabels.cpu()},
+               Path(tmp) / "narrow.pt")
+
+
+def tma_case(torch, dev, kernel):
+    """(fn, args) of one TMA kernel's toy call (tests/test_torch_cuda.py's
+    thread test): the analysis fixtures for mega_query (R = 2, Q = 6),
+    irli_topk and distance_topk, a bf16 flash_attention [1, 2, 256, 64]."""
+    from repro_torch.analysis import fixtures as FX
+    from repro_torch.analysis.contracts import on_device
+    from repro_torch.kernels.flash_attention import ops as faops
+    with on_device(dev):
+        if kernel == "flash_attention":
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            return faops.flash_attention, tuple(
+                torch.randn(1, 2, 256, 64, device=dev, generator=g)
+                .bfloat16() for _ in range(3))
+        fx = {"mega_query": FX.mega_store_search,
+              "irli_topk": FX.irli_topk_fixture,
+              "distance_topk": FX.distance_topk_fixture}[kernel]()
+    return fx.fn, fx.args
+
+
+def thread_phase(torch, dev) -> dict:
+    """Each TMA kernel (TMA_KERNELS): THREAD_MAIN launches of its toy call
+    and THREAD_IRLI of irli_topk's in this thread, then THREAD_CALLS of the
+    same call from a new thread that never sets a device (its first CUDA
+    call is the launch): every result bit-equal to this thread's. Before
+    kernels/tma.cuh bound the thread's context first, mega_query and
+    irli_topk returned cudaError 1 there and flash_attention 801."""
+    import threading
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    def flat(r):
+        return [r] if isinstance(r, torch.Tensor) else [
+            t for x in r for t in flat(x)]
+
+    irli_fn, irli_args = tma_case(torch, dev, "irli_topk")
+    out = {}
+    for kernel in TMA_KERNELS:
+        fn, args = tma_case(torch, dev, kernel)
+        want = flat(fn(*args))
+        for _ in range(THREAD_MAIN):
+            fn(*args)
+        for _ in range(THREAD_IRLI):
+            irli_fn(*irli_args)
+        torch.cuda.synchronize()
+        reset_launches()
+        got = {}
+
+        def worker():
+            try:
+                got["calls"] = [flat(fn(*args)) for _ in range(THREAD_CALLS)]
+                torch.cuda.synchronize()
+            except Exception as e:  # noqa: BLE001  (raised below)
+                got["err"] = e
+
+        t = threading.Thread(target=worker)
+        t.start()
+        t.join(timeout=120)
+        if t.is_alive() or "err" in got:
+            raise AssertionError(f"{kernel} from a new thread: "
+                                 f"{got.get('err', 'hung')!r}")
+        equal = all(torch.equal(a, b) for call in got["calls"]
+                    for a, b in zip(call, want))
+        if not equal or LAUNCHES[kernel] != THREAD_CALLS:
+            raise AssertionError(f"{kernel} from a new thread: bit-equal "
+                                 f"{equal}, launches {LAUNCHES[kernel]}")
+        out[kernel] = LAUNCHES[kernel]
+    log(f"train cell (e): a new thread that set no device, after "
+        f"{THREAD_MAIN} launches of each kernel's toy call and {THREAD_IRLI} "
+        f"of irli_topk's here, launched each {THREAD_CALLS} times, every "
+        f"result bit-equal to this thread's: {out}")
+    return out
+
+
+def retrieval_phase(torch, dev) -> dict:
+    """(c) build_retrieval_serve at DIEN's retrieval_cand: query [1, 36]
+    against the item table [N_CANDIDATES, 36] fp32, k = 100 (random, from
+    SEED, on the card): one distance_topk launch ("dot"), held to its plain
+    version (ids equal outside near ties at the k cut, scores to TOL),
+    timed beside the plain version, torch.topk over torch.mm and its byte
+    bound."""
+    from repro_torch.configs import recsys_common as RC
+    from repro_torch.configs.dien import RETRIEVAL_DIM
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.distance_topk.ref import distance_topk_ref
+    from repro_torch.launch.steps import build_retrieval_serve
+
+    shapes = RC.retrieval_shapes(RETRIEVAL_DIM)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    table = torch.randn(shapes["item_table"], generator=gen, device=dev)
+    query = torch.randn(shapes["query"], generator=gen, device=dev)
+    k = shapes["k"]
+    step = build_retrieval_serve(k)
+    params, batch = {"item_table": {"table": table}}, {"query": query}
+    torch.cuda.synchronize()
+    reset_launches()
+    out = step(params, batch)
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in LAUNCHES.items() if c}
+    if launches != {"distance_topk": 1}:
+        raise AssertionError(f"build_retrieval_serve launched {launches}")
+    every = torch.ones((1, table.shape[0]), dtype=torch.bool, device=dev)
+    err = dist_check(torch, "retrieval_cand (build_retrieval_serve)",
+                     out["scores"], out["ids"], query, table, every, k)
+    ms = time_ms(torch, lambda: step(params, batch))
+    plain = time_ms(torch, lambda: distance_topk_ref(query, table, every,
+                                                     k=k), n=5)
+    lib = time_ms(torch, lambda: torch.topk(torch.mm(query, table.T), k))
+    nbytes = table.numel() * 4 + query.numel() * 4 + k * 8
+    bound_ms, by = bound(2 * table.numel(), nbytes)
+    log(f"train cell (c) retrieval_cand: query {tuple(query.shape)} x item "
+        f"table {tuple(table.shape)} fp32, k={k}: build_retrieval_serve "
+        f"{ms:.4f} ms (one distance_topk launch), plain version "
+        f"{plain:.4f} ms, torch.topk(torch.mm) {lib:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({by}); max |err| {err:.3g}")
+    return {"launches": launches, "err": err, "ms": ms, "plain_ms": plain,
+            "library_ms": lib, "bound_ms": bound_ms}
+
+
+def train_cell(torch, dev, ranks=None) -> dict:
+    """The train cell (train/trainer.py, train/elastic.py, launch/steps.
+    build_irli_fit_parts and build_retrieval_serve, launch/obs_smoke):
+    (a) the Trainer over build_irli_fit_parts at the fit cell's config
+        (deep1b widths D = 96, H = 1024, B = 20,000; sigmoid_bce, K = 10,
+        ANN mode; L = N = FIT_L, batch FIT_BATCH) with R cut to TRAIN_R:
+        TRAIN_ROUNDS rounds of 1 epoch, a checkpoint every TRAIN_EVERY,
+        uninterrupted, then crashed before round TRAIN_FAIL and resumed:
+        assign, params and the last round's loss bit-equal; per round one
+        bce_logits launch a step, one irli_topk a label chunk, one kchoice;
+    (b) the mesh Trainer on DIST_P gloo ranks sharing the card at the
+        narrow widths (B = 2000, R = 4, H = 256, NARROW_L labels):
+        uninterrupted on 2 x 2, crashed and resumed on 1 x 4, the resumed
+        run held to the uninterrupted one with the mesh fit's tolerances
+        (last loss rtol 1e-4, assign match > 0.98, params rtol 1e-3).
+        ``ranks``: the distributed cell's ranks' train_rank_work results;
+        None spawns DIST_P ranks for it here (``--train``);
+    (c) retrieval_phase; (d) launch/obs_smoke.main(device="cuda"), its own
+        asserts; (e) thread_phase."""
+    import shutil
+    import tempfile
+
+    from repro_torch.data.synthetic import clustered_vectors
+    from repro_torch.fit.engine import FitEngine
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import obs_smoke
+
+    t_cell = time.perf_counter()
+    launches = {}
+    # ---------------------------------------------- (a) one card, R = 4 --
+    t0 = time.perf_counter()
+    base, _, _ = clustered_vectors(n_base=FIT_L, n_queries=1, d=D,
+                                   seed=SEED)
+    base = torch.from_numpy(base).to(dev)
+    labels = neighbours(torch, dev, base, base, K_NEIGH)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    cfg = train_config()
+    root = Path(__file__).resolve().parent / "build" / "train_cell"
+    shutil.rmtree(root, ignore_errors=True)
+    reset_launches()
+    full = trainer_for(torch, dev, cfg, base, labels, root / "full")
+    fout = full.run()
+    full_launch = {n: c for n, c in LAUNCHES.items() if c}
+    res, rout = crash_and_resume(torch, lambda f: trainer_for(
+        torch, dev, cfg, base, labels, root / "crash", f))
+    torch.cuda.synchronize()
+    launches["train"] = {n: c for n, c in LAUNCHES.items() if c}
+    steps = FitEngine(cfg, None).batch_plan(FIT_L)[0]
+    rounds = TRAIN_ROUNDS + TRAIN_FAIL + (TRAIN_ROUNDS - TRAIN_FAIL)
+    want = {"bce_logits": steps * rounds,
+            "irli_topk": -(-FIT_L // FIT_CHUNK) * rounds, "kchoice": rounds}
+    if launches["train"] != want:
+        raise AssertionError(f"the train cell launched {launches['train']}, "
+                             f"expected {want}")
+    same = (torch.equal(full.state["assign"], res.state["assign"])
+            and all(torch.equal(full.state["params"][n],
+                                res.state["params"][n])
+                    for n in full.state["params"])
+            and fout["metrics"][-1]["loss"] == rout["metrics"][-1]["loss"])
+    npz = root / "crash" / f"step_{TRAIN_ROUNDS - 1:012d}" / "arrays.npz"
+    nbytes = npz.stat().st_size
+    for m in fout["metrics"]:
+        log(f"train cell (a) round {m['step']}: {m['step_time_s']:.3f} s "
+            f"(after torch.cuda.synchronize), loss {m['loss']:.6f}, "
+            f"reassigned {m['n_reassigned']:.0f}, load std "
+            f"{m['load_std']:.4f}, max {m['load_max']:.0f}")
+    log(f"train cell (a) Trainer over build_irli_fit_parts, deep1b widths "
+        f"with R={TRAIN_R} (of {R}), L = N = {FIT_L}, batch {FIT_BATCH}, "
+        f"{TRAIN_ROUNDS} rounds of {steps} steps: data {data_s:.2f} s; "
+        f"checkpoint writes {[round(s, 3) for s in full.save_seconds]} s "
+        f"(uninterrupted) and {[round(s, 3) for s in res.save_seconds]} s "
+        f"(resumed), restore {res.restore_seconds:.3f} s, "
+        f"{nbytes} bytes of arrays.npz a checkpoint; crash before round "
+        f"{TRAIN_FAIL} and resume: assign, params and round "
+        f"{TRAIN_ROUNDS - 1}'s loss bit-equal to the uninterrupted run: "
+        f"{same}; launches {launches['train']} (uninterrupted "
+        f"{full_launch}); straggler "
+        f"rounds {fout['straggler_steps']}")
+    if not same:
+        raise AssertionError("the resumed fit differs from the "
+                             "uninterrupted one")
+    round_s = [m["step_time_s"] for m in fout["metrics"]]
+    del full, res, base, labels
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---------------------------------- (b) the mesh Trainer, 4 ranks --
+    where = "the distributed cell's ranks"
+    if ranks is None:
+        where = "ranks spawned here"
+        tmp = tempfile.mkdtemp(prefix="irli_train_")
+        narrow_data(torch, dev, tmp)
+        torch.cuda.synchronize()
+        spawn_ranks(train_rank, DIST_P, tmp, dev.type, timeout=300)
+        ranks = [torch.load(Path(tmp) / f"train{r}.pt")
+                 for r in range(DIST_P)]
+        shutil.rmtree(tmp, ignore_errors=True)
+    for rk in ranks[1:]:
+        for name in ("full", "resumed"):
+            if rk[name]["loss"] != ranks[0][name]["loss"] or not torch.equal(
+                    rk[name]["assign"], ranks[0][name]["assign"]):
+                raise AssertionError(f"train cell (b): the ranks' {name} "
+                                     f"runs disagree")
+    full, resumed = ranks[0]["full"], ranks[0]["resumed"]
+    loss_rel = abs(resumed["loss"][-1] - full["loss"][-1]) / abs(
+        full["loss"][-1])
+    match = float((resumed["assign"] == full["assign"]).float().mean())
+    prel = max(float(((resumed["params"][n] - full["params"][n]).abs()
+                      - 1e-3 * full["params"][n].abs()).max())
+               for n in full["params"])
+    log(f"train cell (b) mesh Trainer on {DIST_P} gloo ranks sharing the "
+        f"card (B={NARROW['n_buckets']}, R={NARROW['n_reps']}, "
+        f"H={NARROW['d_hidden']}, {NARROW_L} labels, {TRAIN_ROUNDS} rounds): "
+        f"rep rows a rank {full['rows']} on 2 x 2, {resumed['rows']} on "
+        f"1 x 4; last loss {resumed['loss'][-1]:.6f} resumed against "
+        f"{full['loss'][-1]:.6f} uninterrupted (rel {loss_rel:.3g}), assign "
+        f"match {match:.4f}, params |diff| - 1e-3|ref| at most {prel:.3g}; "
+        f"{ranks[0]['seconds']:.1f} s on {where} (correctness only)")
+    if not (loss_rel <= 1e-4 and match > 0.98 and prel <= 1e-5):
+        raise AssertionError("train cell (b): the resumed 1 x 4 run is off "
+                             "the uninterrupted 2 x 2 run's tolerances")
+    # --------------------------------------- (c) retrieval, (d), (e) --
+    retrieval = retrieval_phase(torch, dev)
+    launches["retrieval"] = retrieval.pop("launches")
+    t0 = time.perf_counter()
+    reset_launches()
+    obs_smoke.main(device="cuda")
+    torch.cuda.synchronize()
+    launches["obs_smoke"] = {n: c for n, c in LAUNCHES.items() if c}
+    log(f"train cell (d) launch/obs_smoke.main(device='cuda'): "
+        f"{time.perf_counter() - t0:.2f} s, every family asserted; "
+        f"launches {launches['obs_smoke']}")
+    threads = thread_phase(torch, dev)
+    log(f"train cell: {time.perf_counter() - t_cell:.1f} s")
+    return {"launches": launches, "round_s": round_s, "bytes": nbytes,
+            "retrieval": retrieval, "threads": threads}
+
+
 def main() -> int:
     import argparse
 
@@ -2974,6 +3389,8 @@ def main() -> int:
     ap.add_argument("--audit", action="store_true",
                     help="only the build, the search cell's index and the "
                          "audit cell")
+    ap.add_argument("--train", action="store_true",
+                    help="only the build and the train cell")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -3023,6 +3440,10 @@ def main() -> int:
         f"{' '.join(_build.NVCC_FLAGS)}: " + ", ".join(
             f"{_build.KERNELS_DIR / n / (n + '.cu')} -> {p}"
             for n, p in libs.items()))
+    if args.train:
+        out = train_cell(torch, dev)
+        print(json.dumps({"train": out}), flush=True)
+        return 0
 
     # -------------------------------------------------------------- data --
     t0 = time.perf_counter()
@@ -3657,7 +4078,19 @@ def main() -> int:
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
-    # ------------------------------------------------- 13. the LM prefill --
+    # ---------------------------------------------------- 13. the train --
+    torch.cuda.empty_cache()
+    train = train_cell(torch, dev, distributed.pop("trainer_ranks"))
+    for path, counts in train["launches"].items():
+        for n, c in counts.items():
+            by_path.setdefault(n, {})[path] = c
+    main_launches = {n: sum(paths.values()) for n, paths in by_path.items()}
+    record["distance_topk"]["max_abs_err"] = max(
+        record["distance_topk"]["max_abs_err"], train["retrieval"]["err"])
+    log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
+        f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
+    # ------------------------------------------------- 14. the LM prefill --
     torch.cuda.empty_cache()
     lm = lm_cell(torch, dev)
     by_path["flash_attention"] = lm["launches"]
@@ -3667,7 +4100,7 @@ def main() -> int:
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
-    # ------------------------------------------------ 14. the recsys cell --
+    # ------------------------------------------------ 15. the recsys cell --
     torch.cuda.empty_cache()
     rec = recsys_cell(torch, dev, smi)
     by_path["embedding_bag"] = rec["launches"]

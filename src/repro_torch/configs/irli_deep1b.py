@@ -3,8 +3,9 @@
 repetitions, hidden 1024. Port of ``repro/configs/irli_deep1b.py``'s
 constants and functions (``:23-79``, ``:138-151``), value for value.
 
-The reference's two cells (``train_scorers``, ``serve_query``) are
-``CellDef``/``ArchDef`` mesh machinery and wait for the launch item; the
+``rules()`` is the reference's ``_rules`` (``:93-100``): the R axis over
+"model". The reference's two cells (``train_scorers``, ``serve_query``)
+are ``CellDef``/``ArchDef`` mesh machinery and wait for ``dryrun``; the
 ``serve_query`` cell's step is ``launch/steps.build_irli_serve``, which is
 ported. ``fit_config()`` carries the FitEngine hyperparameters: full size
 for a deployment, ``reduced=True`` for the CPU tests.
@@ -35,6 +36,18 @@ FIT_ROUNDS = 5
 FIT_EPOCHS_PER_ROUND = 5
 FIT_BATCH = 1 << 15           # matches the train_scorers cell
 FIT_AFFINITY_CHUNK = 1 << 16  # label-chunk width of the streaming top-K
+
+
+def rules():
+    """The scorer's sharding rules: the R axis of w1 [R, d, H], b1 [R, H],
+    w2 [R, H, B] and b2 [R, B] over "model"."""
+    from repro_torch.models.module import ShardRules
+    return ShardRules([
+        (r"w1", ("model", None, None)),
+        (r"b1", ("model", None)),
+        (r"w2", ("model", None, None)),
+        (r"b2", ("model", None)),
+    ])
 
 
 def fit_config(*, reduced: bool = False):

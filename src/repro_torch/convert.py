@@ -45,9 +45,12 @@ def fit_state_from_reference(state: dict, *, seed: int = 0,
                              device: str | torch.device = "cuda"
                              ) -> FitState:
     """A port ``FitState`` from a reference FitState's ``as_dict()`` with
-    numpy leaves (``params``, ``opt``, ``assign``, ``round``, ``epoch``).
-    The reference's JAX key cannot become a ``torch.Generator``: the port's
-    random stream starts from ``seed`` instead."""
+    numpy leaves (``params``, ``opt``, ``assign``, ``round``, ``epoch``), as
+    the reference's Trainer checkpoints and restores it: params, AdamW
+    moments and step, assign and the round / epoch counters. The
+    reference's JAX key cannot become a ``torch.Generator``: the port's
+    random stream starts from ``seed`` instead (``FitState.as_dict()`` of
+    the result is the port Trainer's state)."""
     dev = resolve_device(device)
     out = FitState.create(_params(state["params"], dev),
                           opt_state_from_reference(state["opt"], dev),
@@ -58,18 +61,30 @@ def fit_state_from_reference(state: dict, *, seed: int = 0,
     return out
 
 
+def fit_state_to_reference(state: FitState) -> dict:
+    """A port ``FitState`` as numpy in the reference FitState's
+    ``as_dict()`` layout, without ``rng``: the generator state has no JAX
+    key, so the caller supplies one (``jax.random.PRNGKey``)."""
+    np32 = lambda t: t.detach().cpu().numpy()
+    opt = state.opt_state
+    return {"params": {k: np32(state.params[k]) for k in _PARAMS},
+            "opt": {"step": np.asarray(int(opt["step"]), np.int32),
+                    "m": {k: np32(opt["m"][k]) for k in _PARAMS},
+                    "v": {k: np32(opt["v"][k]) for k in _PARAMS}},
+            "assign": np32(state.assign).astype(np.int32),
+            "round": np.asarray(state.round_idx, np.int32),
+            "epoch": np.asarray(state.epoch_idx, np.int32)}
+
+
 def to_reference(index: IRLIIndex) -> dict:
     """The port index's fit state as numpy, in the reference's layout:
     ``{"params": {..}, "opt": {"step", "m", "v"}, "assign"}`` — what the
     reference's IRLIIndex holds as ``params``, ``opt_state`` and
     ``assign``."""
-    np32 = lambda t: t.detach().cpu().numpy()
-    opt = index.opt_state
-    return {"params": {k: np32(index.params[k]) for k in _PARAMS},
-            "opt": {"step": np.asarray(int(opt["step"]), np.int32),
-                    "m": {k: np32(opt["m"][k]) for k in _PARAMS},
-                    "v": {k: np32(opt["v"][k]) for k in _PARAMS}},
-            "assign": np32(index.assign).astype(np.int32)}
+    out = fit_state_to_reference(FitState(
+        params=index.params, opt_state=index.opt_state, assign=index.assign,
+        rng=index.rng, round_idx=0, epoch_idx=0))
+    return {k: out[k] for k in ("params", "opt", "assign")}
 
 
 def from_reference(cfg, *, params: dict, assign, members=None,

@@ -361,6 +361,14 @@ class FitEngine:
         return lambda state, idx, w, orders=None: self.round_body(
             state, idx, w, data, orders)
 
+    def step_fn(self, data: FitData):
+        """The single-device round over dict states (``FitState.as_dict``),
+        the step of ``repro_torch.train.trainer.Trainer`` (through
+        ``launch/steps.build_irli_fit_parts``): step(state_dict, {"idx",
+        "w"[, "orders"]}) -> (state_dict, metrics), the state updated in
+        place. ``orders`` [R, L] injects the insertion orders."""
+        return _dict_step(self.make_fit_round(data))
+
     # --------------------------------------------------------- mesh round --
     def mesh_axes(self, mesh) -> MeshAxes:
         """This rank's view of a (data × rep) mesh
@@ -436,16 +444,23 @@ class FitEngine:
             state, idx, w, data, orders, ax)
 
     def sharded_step_fn(self, mesh, data: FitData, state: FitState):
-        """The mesh round over dict states (``FitState.as_dict``), for a
-        Trainer: step(state_dict, {"idx", "w"}) -> (state_dict,
-        metrics)."""
-        round_fn = self.make_sharded_fit_round(mesh, data, state)
+        """The mesh round over dict states (``FitState.as_dict``) of this
+        rank's rep rows, the step of ``repro_torch.train.trainer.Trainer``
+        on a (data × rep) mesh (through ``launch/steps.
+        build_irli_fit_parts(mesh=)``, whose checkpoint hooks gather the
+        whole state and shard it again): step(state_dict, {"idx", "w"[,
+        "orders"]}) -> (state_dict, metrics), called by every rank in
+        lockstep."""
+        return _dict_step(self.make_sharded_fit_round(mesh, data, state))
 
-        def step(sd, batch):
-            ns, m = round_fn(FitState.from_dict(sd), batch["idx"],
-                             batch["w"])
-            return ns.as_dict(), m
-        return step
+
+def _dict_step(round_fn):
+    """A round over FitStates -> the same round over their dict views."""
+    def step(sd, batch):
+        ns, m = round_fn(FitState.from_dict(sd), batch["idx"], batch["w"],
+                         batch.get("orders"))
+        return ns.as_dict(), m
+    return step
 
 
 # ------------------------------------------------------- static contracts --

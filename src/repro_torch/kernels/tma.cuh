@@ -90,9 +90,28 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
+// The driver encodes a tensor map in the calling thread's current context,
+// and refuses when the thread has none. The runtime makes its primary
+// context current in a thread lazily, at the thread's first runtime call
+// that needs one: a thread whose first CUDA call is a launch of a TMA
+// kernel (a worker that never set a device, whose tensors come from the
+// caching allocator) has no context yet. cudaSetDevice makes the device's
+// primary context current at once; done once a thread.
+inline bool bind_context() {
+  thread_local bool bound = false;
+  if (!bound) {
+    int dev = 0;
+    bound = cudaGetDevice(&dev) == cudaSuccess &&
+            cudaSetDevice(dev) == cudaSuccess;
+  }
+  return bound;
+}
+
 // cuTensorMapEncodeTiled is a driver function: found at run time, so the
-// library links against the runtime alone.
+// library links against the runtime alone. nullptr when it is missing or
+// the calling thread cannot be given a context.
 inline EncodeTiled encode_tiled() {
+  if (!bind_context()) return nullptr;
   static const EncodeTiled fn = [] {
     void* f = nullptr;
     cudaDriverEntryPointQueryResult got;

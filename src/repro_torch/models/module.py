@@ -1,25 +1,40 @@
 """Parameter-tree helpers of the model families (LM, recsys).
 
-Port of the forward's part of ``repro/models/module.py``. The reference
-keeps params as nested dicts of arrays; the port keeps the same nesting as
+Port of ``repro/models/module.py``. The reference keeps params as nested
+dicts of arrays; the port keeps the same nesting as
 ``nn.ParameterDict`` (a dict of tensors) inside ``nn.ModuleDict`` /
 ``nn.ModuleList`` (:func:`as_module`), so ``p["q_proj"]["kernel"]`` reads
 as in the reference and the parameter names follow its paths
-(``layers.0.attn.q_proj.kernel``). The mesh machinery (``ShardRules``,
-``constrain``, ``constrain_first``) is not ported: without a mesh it is a
-no-op in the reference too.
+(``layers.0.attn.q_proj.kernel``).
+
+``ShardRules`` (reference ``:46-88``) maps "a/b/c" paths to a
+per-dimension spec: a tuple whose entries are an axis name, a tuple of
+axis names or None, where the reference has a ``PartitionSpec`` (``()``
+replicates, as ``P()`` does). Placement on a ``torch.distributed``
+DeviceMesh uses the port's own local shards (``train/elastic.
+reshard_tree``: each rank keeps its contiguous block of a dimension, the
+layout of the fit engine's ``shard_state``), not DTensor placements.
+``constrain`` and ``constrain_first`` are not ported: the port's mesh code
+places every tensor itself, and without a mesh they are no-ops in the
+reference too.
 """
 from __future__ import annotations
 
-from typing import Any
+import re
+from typing import Any, Callable, Sequence
 
 import torch
 from torch import nn
 
 from repro_torch.checkpoint.checkpointer import flatten_with_paths
 
-__all__ = ["as_module", "cast_floating", "device_of", "flatten_with_paths",
-           "param_bytes", "param_count"]
+__all__ = ["ShardRules", "Spec", "as_module", "cast_floating", "device_of",
+           "flatten_with_paths", "map_with_paths", "mesh_sizes",
+           "param_bytes", "param_count", "spec_axes", "tree_paths"]
+
+#: a per-dimension sharding spec: entry i names the mesh axis (or tuple of
+#: axes) dimension i is split over, None keeps it whole; () replicates
+Spec = tuple
 
 
 def as_module(tree: Any) -> nn.Module:
@@ -67,3 +82,77 @@ def cast_floating(params, dtype: torch.dtype):
     if isinstance(params, dict):
         return {k: cast_floating(v, dtype) for k, v in params.items()}
     return params.to(dtype) if params.is_floating_point() else params
+
+
+# ------------------------------------------------------- paths and rules --
+def tree_paths(tree: Any) -> list[str]:
+    """The "a/b/c" path of every leaf of a nested dict, keys sorted."""
+    return [p for p, _ in flatten_with_paths(tree)]
+
+
+def map_with_paths(fn: Callable[[str, Any], Any], tree: Any,
+                   prefix: str = "") -> Any:
+    """The same nesting with ``fn(path, leaf)`` at every leaf."""
+    if isinstance(tree, dict):
+        return {k: map_with_paths(fn, v, f"{prefix}{k}/")
+                for k, v in tree.items()}
+    return fn(prefix[:-1] if prefix.endswith("/") else prefix, tree)
+
+
+def mesh_sizes(mesh) -> dict[str, int]:
+    """{axis name: size} of a DeviceMesh (or of a plain dict of sizes)."""
+    if isinstance(mesh, dict):
+        return {str(k): int(v) for k, v in mesh.items()}
+    return {n: int(s) for n, s in zip(mesh.mesh_dim_names, mesh.mesh.shape)}
+
+
+def spec_axes(part) -> tuple[str, ...]:
+    """The axis names of one spec entry (a name or a tuple of names)."""
+    return (part,) if isinstance(part, str) else tuple(part)
+
+
+class ShardRules:
+    """Ordered path-regex -> spec rules for a param tree.
+
+    The FIRST matching rule wins. Anything unmatched is replicated (``()``);
+    ``strict=True`` raises instead, so every new param family must get an
+    explicit rule. A rule's spec may be given as any sequence; it is kept as
+    a tuple."""
+
+    def __init__(self, rules: Sequence[tuple[str, Sequence]],
+                 strict: bool = False):
+        self.rules = [(re.compile(pat), tuple(spec)) for pat, spec in rules]
+        self.strict = strict
+
+    def spec_for(self, path: str, ndim: int | None = None) -> Spec:
+        for pat, spec in self.rules:
+            if pat.search(path):
+                return spec
+        if self.strict:
+            raise ValueError(f"no sharding rule matches param {path!r}")
+        return ()
+
+    def specs(self, params: Any) -> Any:
+        """The spec tree of ``params`` (tensors, arrays, or anything with
+        ``ndim``)."""
+        return map_with_paths(
+            lambda p, v: self.spec_for(p, getattr(v, "ndim", None)), params)
+
+    def check_divisible(self, params: Any, mesh) -> list[str]:
+        """The problems (empty: every spec dimension divides by the mesh
+        axes it names) of ``params`` on ``mesh``."""
+        problems = []
+        sizes = mesh_sizes(mesh)
+        for path, leaf in flatten_with_paths(params):
+            for dim, part in enumerate(self.spec_for(path)):
+                if part is None:
+                    continue
+                names = spec_axes(part)
+                total = 1
+                for n in names:
+                    total *= sizes[n]
+                if dim >= leaf.ndim or leaf.shape[dim] % total != 0:
+                    problems.append(
+                        f"{path}: shape {tuple(leaf.shape)} dim {dim} not "
+                        f"divisible by {names}={total}")
+        return problems

@@ -1,13 +1,18 @@
-"""AdamW over the scorer's parameter dict, and global-norm clipping.
+"""AdamW and Adafactor over parameter dicts, global-norm clipping and the
+learning-rate schedules.
 
-Port of ``repro/optim/optimizers.py`` (the parts the fit runs). Parameters,
-gradients and moments are plain dicts of tensors, as in the reference's
+Port of ``repro/optim/optimizers.py``. Parameters, gradients and moments
+are plain (nested, for Adafactor) dicts of tensors, as in the reference's
 pytrees. ``torch.optim.AdamW`` is not used: the reference's ``b2`` is 0.95,
 its update is ``base - lr·(m̂/(√v̂ + eps) + wd·base)`` with the bias
 corrections taken from a float32 step, and its state is ``{"step", "m",
 "v"}``, which ``repro_torch.convert`` carries across both ways.
 
-The update runs in place (parameters and moments are overwritten), so the
+Adafactor keeps the reference's state layout: a leaf whose last two
+dimensions are both at least ``min_dim_factored`` (128) has the factored
+row and column moments ``{"vr", "vc"}``, any other leaf ``{"v"}``.
+
+The updates run in place (parameters and moments are overwritten), so the
 fit holds no second copy of the [R, H, B] weights or of their moments.
 """
 from __future__ import annotations
@@ -18,14 +23,36 @@ from typing import Callable
 
 import torch
 
+from repro_torch.checkpoint.checkpointer import flatten_with_paths
+
+
+# ---------------------------------------------------------------- schedules -
+def cosine_schedule(base_lr: float, warmup: int, total: int,
+                    min_frac: float = 0.1):
+    """lr(step) -> 0-d float32: linear warmup to ``base_lr`` over
+    ``warmup`` steps, then a cosine decay to ``min_frac·base_lr`` at
+    ``total``."""
+    def lr(step):
+        step = torch.as_tensor(step).to(torch.float32)
+        warm = base_lr * step / max(warmup, 1)
+        t = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = base_lr * (min_frac + (1 - min_frac) * 0.5
+                         * (1 + torch.cos(math.pi * t)))
+        return torch.where(step < warmup, warm, cos)
+    return lr
+
+
+def constant_schedule(base_lr: float):
+    return lambda step: torch.tensor(base_lr, dtype=torch.float32)
+
 
 # ------------------------------------------------------------------- utils --
 def global_norm_sq(tree: dict) -> torch.Tensor:
-    """Sum of squares over every leaf, in fp32, leaves in sorted key order
-    (the reference's pytree order)."""
+    """Sum of squares over every leaf of a (nested) dict, in fp32, leaves
+    in sorted key order (the reference's pytree order)."""
     total = None
-    for k in sorted(tree):
-        s = torch.sum(torch.square(tree[k].float()))
+    for _, leaf in flatten_with_paths(tree):
+        s = torch.sum(torch.square(leaf.float()))
         total = s if total is None else total + s
     return total
 
@@ -38,9 +65,16 @@ def apply_clip(grads: dict, norm, max_norm: float) -> dict:
     """Scale ``grads`` in place by min(1, max_norm / (norm + eps)) — the one
     copy of the clipping formula. Returns ``grads``."""
     scale = torch.clamp(max_norm / (torch.as_tensor(norm) + 1e-9), max=1.0)
-    for g in grads.values():
+    for _, g in flatten_with_paths(grads):
         g.mul_(scale.to(g.device, torch.float32).to(g.dtype))
     return grads
+
+
+def clip_by_global_norm(grads: dict, max_norm: float):
+    """-> (grads scaled in place to a global norm of at most ``max_norm``,
+    the norm before the clip)."""
+    norm = global_norm(grads)
+    return apply_clip(grads, norm, max_norm), norm
 
 
 # ------------------------------------------------------------------- AdamW --
@@ -105,6 +139,80 @@ def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict):
     return params, state, {"grad_norm": gnorm, "lr": lr}
 
 
+# --------------------------------------------------------------- Adafactor --
+@dataclasses.dataclass(frozen=True)
+class AdafactorConfig:
+    lr: Callable | float = 1e-2
+    decay: float = 0.8          # second-moment decay exponent (t^-decay)
+    eps: float = 1e-30
+    clip_threshold: float = 1.0
+    weight_decay: float = 0.0
+    min_dim_factored: int = 128
+
+
+def _factored(cfg: AdafactorConfig, p: torch.Tensor) -> bool:
+    return p.ndim >= 2 and min(p.shape[-2:]) >= cfg.min_dim_factored
+
+
+def adafactor_init(cfg: AdafactorConfig, params: dict) -> dict:
+    """{"step": host int32 0, "v": params' nesting with each leaf replaced
+    by {"vr" [..., rows], "vc" [..., cols]} (factored) or {"v"}}."""
+    def leaf_state(p):
+        if isinstance(p, dict):
+            return {k: leaf_state(v) for k, v in p.items()}
+        f32 = dict(dtype=torch.float32, device=p.device)
+        if _factored(cfg, p):
+            return {"vr": torch.zeros(p.shape[:-1], **f32),
+                    "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)}
+        return {"v": torch.zeros(p.shape, **f32)}
+    return {"step": torch.zeros((), dtype=torch.int32),
+            "v": leaf_state(params)}
+
+
+@torch.no_grad()
+def adafactor_update(cfg: AdafactorConfig, params: dict, grads: dict,
+                     state: dict):
+    """One Adafactor step, in place: ``params`` and the moments of
+    ``state`` are overwritten. Returns (params, state, {"lr"}), the
+    reference's triple."""
+    step = state["step"] + 1
+    t = step.float()
+    beta2 = float(1.0 - t ** (-cfg.decay))
+    lr = _lr_at(cfg.lr, step)
+    lr_f = float(lr)
+
+    def upd(p, g, s):
+        g32 = g.float()
+        g2 = torch.square(g32).add_(cfg.eps)
+        if "vr" in s:
+            vr, vc = s["vr"], s["vc"]
+            vr.mul_(beta2).add_(torch.mean(g2, dim=-1) * (1 - beta2))
+            vc.mul_(beta2).add_(torch.mean(g2, dim=-2) * (1 - beta2))
+            denom = ((vr / torch.mean(vr, dim=-1, keepdim=True))[..., None]
+                     * vc[..., None, :])
+        else:
+            denom = s["v"].mul_(beta2).add_(g2 * (1 - beta2))
+        u = g32 * torch.rsqrt(denom + cfg.eps)
+        # update clipping (RMS)
+        rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+        u = u / torch.clamp(rms / cfg.clip_threshold, min=1.0)
+        new = p.float() - lr_f * u
+        if cfg.weight_decay > 0:
+            new = new - lr_f * cfg.weight_decay * p.float()
+        p.copy_(new)
+
+    def walk(p, g, s):
+        if isinstance(p, dict):
+            for k in p:
+                walk(p[k], g[k], s[k])
+        else:
+            upd(p, g, s)
+
+    walk(params, grads, state["v"])
+    state["step"].copy_(step)
+    return params, state, {"lr": lr}
+
+
 # --------------------------------------------------------------- interface --
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
@@ -114,10 +222,14 @@ class Optimizer:
 
 
 def make_optimizer(kind: str, **kw) -> Optimizer:
-    """``make_optimizer("adamw", ...)``; the reference's other kinds are not
-    on the fit's path and are not ported."""
+    """``make_optimizer("adamw" | "adafactor", **config)``."""
     if kind == "adamw":
         cfg = AdamWConfig(**kw)
         return Optimizer(lambda p: adamw_init(cfg, p),
                          lambda p, g, s: adamw_update(cfg, p, g, s), "adamw")
-    raise ValueError(f"optimizer {kind!r} is not ported")
+    if kind == "adafactor":
+        cfg = AdafactorConfig(**kw)
+        return Optimizer(lambda p: adafactor_init(cfg, p),
+                         lambda p, g, s: adafactor_update(cfg, p, g, s),
+                         "adafactor")
+    raise ValueError(kind)

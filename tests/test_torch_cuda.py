@@ -1457,3 +1457,120 @@ def test_backward_and_collectives_recorded_on_the_card(card, tmp_path):
     finally:
         dist.destroy_process_group()
     assert rec.calls == [("all_gather", 24), ("all_reduce", 24)]
+
+
+# ------------------------------------------------ a launch from a new thread --
+def _tma_case(card, kernel):
+    """(fn, args) of one TMA kernel's toy call: the analysis fixtures for
+    mega_query (R = 2, Q = 6), irli_topk and distance_topk; a bf16
+    flash_attention at [1, 2, 256, 64]."""
+    from repro_torch.analysis import fixtures as FX
+    from repro_torch.analysis.contracts import on_device
+    from repro_torch.kernels.flash_attention import ops as faops
+    with on_device(card):
+        if kernel == "mega_query":
+            fx = FX.mega_store_search()
+        elif kernel == "irli_topk":
+            fx = FX.irli_topk_fixture()
+        elif kernel == "distance_topk":
+            fx = FX.distance_topk_fixture()
+        else:
+            g = torch.Generator(device=card).manual_seed(0)
+            qkv = [torch.randn(1, 2, 256, 64, device=card, generator=g)
+                   .bfloat16() for _ in range(3)]
+            return faops.flash_attention, tuple(qkv)
+    return fx.fn, fx.args
+
+
+def _flat(r):
+    return [r] if isinstance(r, torch.Tensor) else [t for x in r
+                                                    for t in _flat(x)]
+
+
+@pytest.mark.parametrize("kernel", ["mega_query", "irli_topk",
+                                    "distance_topk", "flash_attention"])
+def test_tma_kernel_launches_from_a_thread_that_set_no_device(card, kernel):
+    """The main thread makes 300 launches of the kernel and 1,000 of
+    irli_topk; then a new thread that never sets a device, whose first CUDA
+    call is the kernel's launch (its outputs come from the caching
+    allocator), runs the same call 20 times: every result bit-equal to the
+    main thread's. Such a thread has no current context until the runtime
+    binds one, and the driver refuses to encode a tensor map without one
+    (cudaError 1 from mega_query and irli_topk, 801 from flash_attention,
+    before kernels/tma.cuh's bind_context)."""
+    fn, args = _tma_case(card, kernel)
+    irli_fn, irli_args = _tma_case(card, "irli_topk")
+    want = _flat(fn(*args))
+    for _ in range(300):
+        fn(*args)
+    for _ in range(1000):
+        irli_fn(*irli_args)
+    torch.cuda.synchronize()
+    reset_launches()
+    out = {}
+
+    def worker():
+        try:
+            out["got"] = [_flat(fn(*args)) for _ in range(20)]
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001  (raised below, in pytest)
+            out["err"] = e
+
+    import threading
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive()
+    if "err" in out:
+        raise out["err"]
+    assert LAUNCHES[kernel] == 20
+    for got in out["got"]:
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# ------------------------------------------------------------ the Trainer --
+def test_trainer_crash_resume_is_bit_identical_on_the_card(card, tmp_path):
+    """The Trainer over build_irli_fit_parts on the card (sigmoid_bce, ANN,
+    the kernels on the fit's path): 3 rounds uninterrupted, then crashed
+    before round 2 and resumed from round 1's checkpoint; assign, params,
+    the generator state and round 2's loss bit-equal. Per round one
+    bce_logits launch a train step, one irli_topk an affinity chunk, one
+    kchoice."""
+    from repro_torch.core.index import IRLIConfig
+    from repro_torch.fit.engine import FitEngine
+    from repro_torch.launch.steps import build_irli_fit_parts
+    from repro_torch.train.trainer import (SimulatedFailure, Trainer,
+                                           TrainerConfig)
+    cfg = IRLIConfig(d=32, n_labels=2000, n_buckets=64, n_reps=4,
+                     d_hidden=64, K=4, rounds=3, epochs_per_round=2,
+                     batch_size=256, lr=2e-3, loss="sigmoid_bce",
+                     affinity_chunk=512, seed=0)
+    rng = np.random.default_rng(0)
+    base = rng.normal(size=(2000, 32)).astype(np.float32)
+    labels = rng.integers(0, 2000, (2000, 8)).astype(np.int32)
+
+    def trainer(name, fail_at=None):
+        parts = build_irli_fit_parts(cfg, base, labels, label_vecs=base,
+                                     device=card)
+        return Trainer(TrainerConfig(total_steps=3, checkpoint_every=2,
+                                     fail_at_step=fail_at), *parts,
+                       str(tmp_path / name), device=card)
+
+    reset_launches()
+    ref = trainer("ref")
+    out = ref.run()
+    steps = FitEngine(cfg, None).batch_plan(2000)[0]
+    assert {n: c for n, c in LAUNCHES.items() if c} == {
+        "bce_logits": 3 * steps, "irli_topk": 3 * 4, "kchoice": 3}
+    with pytest.raises(SimulatedFailure):
+        trainer("crash", fail_at=2).run()
+    res = trainer("crash")
+    assert res.resumed and res.start_step == 2
+    assert res.state["assign"].is_cuda and res.state["rng"].device.type \
+        == "cpu"
+    rout = res.run()
+    assert torch.equal(ref.state["assign"], res.state["assign"])
+    assert torch.equal(ref.state["rng"], res.state["rng"])
+    for k, v in ref.state["params"].items():
+        assert torch.equal(v, res.state["params"][k]), k
+    assert out["metrics"][2]["loss"] == rout["metrics"][0]["loss"]

@@ -42,6 +42,7 @@ from repro_torch.core import distributed as TD  # noqa: E402
 from repro_torch.core import partition as TP  # noqa: E402
 from repro_torch.core.index import IRLIIndex  # noqa: E402
 from repro_torch.core.search_api import SearchParams  # noqa: E402
+from repro_torch.fit.engine import FitEngine  # noqa: E402
 from repro_torch.launch import mesh as TM  # noqa: E402
 from repro_torch.launch.steps import build_irli_serve  # noqa: E402
 
@@ -597,3 +598,58 @@ def test_a_fit_without_a_mesh_updates_the_index_each_round():
             log=Log())
     assert len(seen) == 2 and not torch.equal(seen[0], start)
     assert torch.equal(seen[-1], idx.assign)
+
+
+# ------------------------------------------------- the Trainer on a mesh ----
+@pytest.fixture(scope="module")
+def train_runs(tmp_path_factory):
+    """One spawn of 4 ranks: elastic restore, and the mesh Trainer
+    (tests/torch_dist_ranks.train_ranks)."""
+    tmp = tmp_path_factory.mktemp("train")
+    TR.spawn(TR.train_ranks, 4, tmp)
+    return _load(tmp, "train", 4)
+
+
+def test_elastic_restore_splits_rows_on_a_2x2_mesh(train_runs):
+    """A whole checkpoint restored onto (data 2 × model 2): w1's 4 rows
+    split over "model" (rank at model index j keeps rows 2j, 2j+1), b1's 3
+    rows do not divide by 2 and stay whole, emb's 8 rows split over the
+    whole grid (block 2·data + model), a leaf without a rule whole."""
+    want = TR.elastic_tree()
+    for tree, step, at in (r["elastic"] for r in train_runs):
+        assert step == 5
+        j, blk = at["model"], 2 * at["data"] + at["model"]
+        p = tree["params"]
+        np.testing.assert_array_equal(p["w1"].numpy(),
+                                      want["params"]["w1"][2 * j:2 * j + 2])
+        np.testing.assert_array_equal(p["b1"].numpy(), want["params"]["b1"])
+        np.testing.assert_array_equal(p["emb"].numpy(),
+                                      want["params"]["emb"][2 * blk:
+                                                            2 * blk + 2])
+        assert int(tree["step"]) == 7
+    coords = sorted((r["elastic"][2]["data"], r["elastic"][2]["model"])
+                    for r in train_runs)
+    assert coords == [(0, 0), (0, 1), (1, 0), (1, 1)]
+
+
+def test_mesh_trainer_resumes_on_another_mesh_shape(train_runs):
+    """The Trainer over build_irli_fit_parts(mesh=): a 2 × 2 run writes
+    whole-state checkpoints (R = 4 rows, each rank holding 2); one crashed
+    at round 2 resumes from round 1's checkpoint on a 1 × 4 mesh (one rep a
+    rank) and ends where the uninterrupted 2 × 2 run does, to the mesh
+    fit's tolerances: round 2's loss rtol 1e-4, assign equal in > 98% of
+    slots, params rtol 1e-3."""
+    losses, assign, params, local = _same_on_every_rank(train_runs, "full")
+    (rlosses, rassign, rparams, rlocal, resumed, start, saved,
+     step) = _same_on_every_rank(train_runs, "resumed")
+    R, L = TR.fit_cfg().n_reps, TR.fit_cfg().n_labels
+    assert local == (2, L) and rlocal == (1, L) and saved == (R, L)
+    assert resumed and start == 2 and len(rlosses) == 1 and len(losses) == 3
+    assert assign.shape == rassign.shape == (R, L)
+    np.testing.assert_allclose(rlosses[0], losses[2], rtol=1e-4)
+    assert _assign_match(rassign, assign) > 0.98
+    for k in params:
+        np.testing.assert_allclose(rparams[k].numpy(), params[k].numpy(),
+                                   rtol=1e-3, atol=1e-5, err_msg=k)
+    S = FitEngine(TR.fit_cfg(), None).batch_plan(L)[0]
+    assert step == 3 * S

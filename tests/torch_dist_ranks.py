@@ -249,3 +249,85 @@ def fit_ranks(rank: int, world: int, tmp: str) -> None:
                      {k: v.clone() for k, v in state.params.items()})
     out["refit"] = refit_cycle(mesh)
     _save(tmp, "fit", rank, out)
+
+
+# --------------------------------------------------- the Trainer on a mesh --
+ELASTIC_RULES = [(r"w1", ("model", None, None)), (r"b1", ("model", None)),
+                 (r"emb", (("data", "model"), None)), (r".*", ())]
+
+
+def elastic_tree() -> dict:
+    """A whole checkpoint tree: w1 [4, 3, 2] (rows over "model"), b1
+    [3, 5] (3 rows: not divisible by "model" = 2, so replicated), emb
+    [8, 2] (rows over the whole ("data", "model") grid), step (no rule)."""
+    return {"params": {
+        "w1": np.arange(24, dtype=np.float32).reshape(4, 3, 2),
+        "b1": np.arange(15, dtype=np.float32).reshape(3, 5),
+        "emb": np.arange(16, dtype=np.float32).reshape(8, 2)},
+        "step": np.asarray(7, np.int32)}
+
+
+def train_ranks(rank: int, world: int, tmp: str) -> None:
+    """4 ranks: elastic_restore of a whole checkpoint onto a (data 2 ×
+    model 2) mesh; then the mesh Trainer over build_irli_fit_parts(mesh=)
+    at fit_cfg() for 3 rounds (a checkpoint every 2): uninterrupted on a
+    2 × 2 ("data", "rep") mesh, then crashed at round 2 on 2 × 2 and
+    resumed on 1 × 4."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.checkpointer import CheckpointManager
+    from repro_torch.launch.mesh import make_fit_mesh, make_host_mesh
+    from repro_torch.launch.steps import build_irli_fit_parts
+    from repro_torch.models.module import ShardRules
+    from repro_torch.train.elastic import elastic_restore
+    from repro_torch.train.trainer import (SimulatedFailure, Trainer,
+                                           TrainerConfig)
+
+    out = {}
+    el = str(Path(tmp) / "elastic")
+    if rank == 0:
+        CheckpointManager(el).save(5, elastic_tree())
+    dist.barrier()
+    mesh = make_host_mesh(world, model_axis=2, device_type="cpu")
+    tree, manifest = elastic_restore(el, mesh, ShardRules(ELASTIC_RULES),
+                                     device="cpu")
+    out["elastic"] = (tree, manifest["step"],
+                      {n: int(mesh.get_local_rank(n))
+                       for n in mesh.mesh_dim_names})
+
+    cfg, data = fit_cfg(), fit_data()
+
+    def trainer(mesh, name, fail_at=None):
+        parts = build_irli_fit_parts(cfg, data.train_queries, data.train_gt,
+                                     label_vecs=data.base, mesh=mesh,
+                                     device="cpu")
+        return Trainer(TrainerConfig(total_steps=3, checkpoint_every=2,
+                                     fail_at_step=fail_at), *parts,
+                       str(Path(tmp) / name), device="cpu",
+                       sharded=parts.sharded)
+
+    m22 = make_fit_mesh(world, rep_axis=2, device_type="cpu")
+    full = trainer(m22, "full")
+    fout = full.run()
+    whole = full.sharded.gather(full.state)
+    out["full"] = ([m["loss"] for m in fout["metrics"]],
+                   whole["assign"].clone(),
+                   {k: v.clone() for k, v in whole["params"].items()},
+                   tuple(full.state["assign"].shape))
+    try:
+        trainer(m22, "crash", fail_at=2).run()
+        raise AssertionError("no SimulatedFailure")
+    except SimulatedFailure:
+        pass
+    saved, _ = CheckpointManager(str(Path(tmp) / "crash")).restore(1)
+    m14 = make_fit_mesh(world, rep_axis=4, device_type="cpu")
+    res = trainer(m14, "crash")
+    rout = res.run()
+    whole = res.sharded.gather(res.state)
+    out["resumed"] = ([m["loss"] for m in rout["metrics"]],
+                      whole["assign"].clone(),
+                      {k: v.clone() for k, v in whole["params"].items()},
+                      tuple(res.state["assign"].shape), res.resumed,
+                      res.start_step, tuple(saved["assign"].shape),
+                      int(whole["opt"]["step"]))
+    _save(tmp, "train", rank, out)
