@@ -8,7 +8,9 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 It builds the nine hand-written kernels from the repository's .cu sources
 (one nvcc each, in parallel), holds each against its plain PyTorch version
 on the card, and drives the port's three index paths at the irli-deep1b
-widths, the LM prefill at gemma-7b's and DIEN's serve path at its own:
+widths, the LM prefill, decode and the IRLI vocabulary head at gemma-7b's,
+the MoE block at mixtral-8x7b's and llama4-maverick's, and DIEN's serve
+path at its own:
 
   * search (Alg. 2) through ``IRLIIndex.search``: the compact path
     (``mode="compact"``, int8 store: irli_topk, freq_topc and quant_rerank,
@@ -100,7 +102,12 @@ widths, the LM prefill at gemma-7b's and DIEN's serve path at its own:
     the plain versions in place of the three kernels (no launch), held
     against the kernel fit's round 1; then one round of a softmax_bce fit
     (the paper's loss: no bce_logits); recall@10 of the fitted index
-    against exact search, above the hash partition's;
+    against exact search, above the hash partition's; the partition
+    baselines (``baselines_phase``, core/baselines.py) on the fit's data:
+    k-means and LSH at B buckets and the random partition through their
+    query -> bucket rules, the candidate mask and recall@10 at m = 1, 4,
+    16 beside the fitted index's candidates, and balanced k-means at
+    BALANCED_L = 8,192 labels, BALANCED_B = 64 (its walk on the host);
   * the train cell (``train_cell``, after the fit): (a) the fault-tolerant
     ``Trainer`` (train/trainer.py) over ``launch/steps.
     build_irli_fit_parts`` at the fit cell's config with R cut to TRAIN_R
@@ -145,10 +152,47 @@ widths, the LM prefill at gemma-7b's and DIEN's serve path at its own:
     (``device_split``: the attention's share) and the prefill's FLOP
     bound; the kernel's time beside its bound, its plain version's and
     scaled_dot_product_attention's (TFLOP/s and the kernel/SDPA ratio).
-    Then qwen3-4b at full width, 4 of its 36 layers, at [4, 2048] (GQA, 32
-    heads over 8, head_dim 128), held and timed the same way. The bf16
-    kernel's registers, spill bytes (0, a gate) and shared memory at each
-    padded head_dim come first (``cudaFuncGetAttributes``);
+    Then, on gemma-7b's model, its decode (``decode_phase``:
+    ``build_lm_decode`` at B = DECODE_B over ``init_cache`` at context
+    DECODE_CTX, 15.0 GB; 16 steps from pos 0 held to the teacher-forced
+    forward, each step's logits within DECODE_TOL = 5e-2 relative L2 and
+    next tokens equal outside near ties; a step timed at pos DECODE_POS of
+    a cache filled with random bf16 values beside its byte bound, and
+    traced) and the IRLI vocabulary head (``head_phase``: V = 256,000
+    tokens, the hash partition at HEAD_B = 4096 buckets, HEAD_R = 4 reps,
+    max_load 125, a random softmax_bce scorer of width HEAD_H = 1024, m =
+    HEAD_M = 8: 4,000 candidates a query) on the [4, 2048] prefill's last
+    hidden state and the first decode step's: the probe one irli_topk
+    launch, held to top_buckets outside near ties at the m cut, the
+    candidate ids to the plain gather, every candidate logit to the full
+    head's (TOL), the greedy token to the full head's argmax over the
+    candidates; its time and bytes beside the full head's. Then qwen3-4b
+    at full width, 4 of its 36 layers, at [4, 2048] (GQA, 32 heads over
+    8, head_dim 128), held and timed the same way. The bf16 kernel's
+    registers, spill bytes (0, a gate) and shared memory at each padded
+    head_dim come first (``cudaFuncGetAttributes``);
+  * the MoE cell (``moe_cell``): mixtral-8x7b at full width, MOE_LAYERS =
+    4 of its 32 layers (12.1 GB of random bf16 weights from SEED), under
+    its top-k router and under ``router="irli_kchoice"`` (one kchoice
+    launch a layer, ``slots = 2``): the prefill at [1, MOE_SEQ = 8192]
+    (the 4096-token window masks real keys), every k-choice routing
+    bit-equal to ``kchoice_ref(slots=2)`` on its router logits, layer 0's
+    block routed by the kernel bit-equal to the block routed by the plain
+    walk (``plain_router``); decode at B = DECODE_B over a ring of 4096
+    slots filled with the forward's K and V of positions 0..MOE_POS - 1,
+    16 steps across pos 4096 (the ring wraps), held under top-k to the
+    teacher-forced forward (run a row at a time at capacity E / top_k,
+    where no token is dropped; ``decode_routing_gate``: a token routed as
+    the forward in every layer within DECODE_TOL, a token routed
+    otherwise only where the forward's router had a near tie); under
+    k-choice only its routings are held (its loads run over the whole
+    block in the forward and over one step in decode); ``_moe_rows`` at
+    [2, MOE_ROWS_T] (ffn_chunk MOE_ROWS_T) routing as each row alone.
+    Then llama4-maverick's MoE block alone at full width (128 experts of
+    [5120, 8192] and a shared one, 32.5 GB) on a [1, LLAMA4_T = 2048] bf16
+    activation under both routers: kchoice at E = 128, slots 1, bit-equal
+    to its plain version, and the kernel-routed output bit-equal to the
+    plain-routed one; each with its time and the largest expert's share;
   * the recsys cell (``recsys_cell``): ``launch/steps.build_ctr_serve``
     over DIEN at ``configs/dien.CONFIG``'s full width (item table
     1,048,576 x 18 and category table 100,000 x 18 fp32, sequence 100,
@@ -205,7 +249,8 @@ from a directory that holds this file and nothing else of the repository.
 recall, at L labels and N training queries, and prints them as JSON;
 ``--distributed`` runs only the build, the search cell's index and the
 distributed cell; ``--audit`` the build, that index and the audit cell;
-``--train`` the build and the train cell.
+``--train`` the build and the train cell; ``--lm`` the build, the LM
+cell and the MoE cell.
 
 Widths (configs/irli_deep1b.py): D=96, B=20000, R=32, H=1024. Search, the
 serve_query cell: int8 block 32, m=5, tau=2, k=10, topC=1024, refine_k auto
@@ -233,7 +278,14 @@ alike, so the cell keeps L/B = 6.55 and its time (PERF.md). The LM cell:
 the reference's ``prefill_32k`` cell (configs/lm_common.py: batch 32 x
 32,768 over a pod) cut to one card as two request shapes, [1, 32768] (the
 cell's prompt length, batch 1) and [4, 2048] (a few short requests);
-tokens random from SEED; qwen3-4b's depth cut to 4 layers. The recsys
+tokens random from SEED; qwen3-4b's depth cut to 4 layers. gemma-7b's
+decode: the reference's decode cells cut to B = 8 at a 4,096-token
+context (a 15 GB cache beside 17.1 GB of weights). The MoE cell:
+mixtral-8x7b's depth cut from 32 to 4 layers (46.7 B parameters, 93 GB in
+bf16, do not fit one card); llama4-maverick's block alone (one period of
+its 4 layers is about 130 GB: the whole model waits for four cards). The
+baselines: balanced k-means cut to 8,192 labels (its walk is a host loop).
+The recsys
 cell: the reference's serve_p99 and serve_bulk cells
 (configs/recsys_common.py) for DIEN, at full width and batch, on one card
 in place of a mesh. The distributed cell: the serve_query cell's own
@@ -246,7 +298,11 @@ mesh fit at 32,768 labels, one round (1 x 1), and at narrow widths (2 x
 to keep the whole run under 460 s with the train cell: the server cell's
 burst from 4,096 to N_BURST = 1,024 requests (2,048 until the train cell
 came), the first N_BARE = 512 of them without the probe counter (its
-rate is the same at any count; its p50/p99 grow with it). The train
+rate is the same at any count; its p50/p99 grow with it); with the
+decode, vocabulary-head and MoE phases, the paced run from 512 to N_PACED
+= 256 requests and the mutation phase from 4,096 to N_MUT_Q = 2,048
+queries (an insert every MUT_EVERY = 512 of them, was 1,024: four
+inserts and the delete after the second, as before). The train
 cell: the fit cell's config with R cut from 32 to TRAIN_R = 4 (R counts
 independent repetitions, the fit's depth: a round then takes about 2 s
 and a checkpoint, w2 and its two AdamW moments, about 1 GB, where R = 32
@@ -298,8 +354,8 @@ SOFT_L, SOFT_BATCH = 16_384, 1024
 # any count); the mutation phase's queries, an insert of MUT_INSERT rows
 # after every MUT_EVERY queries and a delete of N_MUT_DEL live ids after the
 # second insert
-N_BURST, N_BARE, N_PACED, WIDE_M = 1024, 512, 512, 10
-N_MUT_Q, MUT_EVERY, MUT_INSERT, N_MUT_DEL = 4096, 1024, 4096, 10_000
+N_BURST, N_BARE, N_PACED, WIDE_M = 1024, 512, 256, 10
+N_MUT_Q, MUT_EVERY, MUT_INSERT, N_MUT_DEL = 2048, 512, 4096, 10_000
 # the refit cell (over FIT_L labels): queries served, rows inserted before
 # the cycle and again while it runs (the swap's tail), ids deleted
 N_REFIT_Q, REFIT_INSERT, REFIT_DELETE = 4096, 4096, 1000
@@ -319,6 +375,22 @@ QWEN_LAYERS = 4
 # prefill with the plain attention: two bf16 attentions that round P apart
 # differ by 2.4e-2 to 2.5e-2 after gemma-7b's 28 random layers (PERF.md)
 PREFILL_TOL = 5e-2
+# decode: batch rows, gemma-7b's context, teacher-forced steps, the timed
+# step's position; a decode step's logits against the teacher-forced
+# forward's, relative L2 (the prefill's limit: bf16 rounding apart)
+DECODE_B, DECODE_CTX, DECODE_STEPS, DECODE_POS = 8, 4096, 16, 4064
+DECODE_TOL = 5e-2
+# the IRLI vocabulary head over gemma-7b's vocabulary: buckets, reps,
+# scorer width, probes
+HEAD_B, HEAD_R, HEAD_H, HEAD_M = 4096, 4, 1024, 8
+# the MoE cell: mixtral-8x7b's layers kept, the prefill's length, the
+# position its decode starts at (its 16 steps cross 4096: the ring wraps)
+MOE_LAYERS, MOE_SEQ, MOE_POS = 4, 8192, 4088
+# the per-row path's tokens a row (2 rows, ffn_chunk = MOE_ROWS_T), and the
+# tokens of llama4-maverick's MoE block
+MOE_ROWS_T, LLAMA4_T = 4096, 2048
+# balanced k-means' labels and buckets (its walk runs on the host)
+BALANCED_L, BALANCED_B = 8192, 64
 
 
 def log(*args):
@@ -562,7 +634,7 @@ def fit_run(torch, dev, n_labels: int, n_train: int) -> dict:
                              f"the hash partition's {r_hash}")
     return dict(idx=idx, eng=eng, cfg=cfg, base=base, train=train,
                 labels=labels, rows=rows, round0=round0, launches=launches,
-                recall=(r_hash, r_fit), queries=fq)
+                recall=(r_hash, r_fit), queries=fq, gt=gt)
 
 
 @contextlib.contextmanager
@@ -792,6 +864,7 @@ def fit_cell(torch, dev, check_irli) -> dict:
 
     run = fit_run(torch, dev, FIT_L, FIT_L)
     idx, eng = run.pop("idx"), run["eng"]
+    baselines = baselines_phase(torch, dev, run, idx)
     base, train, labels = run["base"], run["train"], run["labels"]
     rows, launches = run["rows"], run["launches"]
     build_ms = time_ms(torch, idx.build_index, n=5)
@@ -1071,7 +1144,7 @@ def fit_cell(torch, dev, check_irli) -> dict:
                            "neighbours_plain_ms": nb_plain,
                            "neighbours_library_ms": nb_lib,
                            "neighbours_bound_ms": nb_bound[0]},
-            "dense_launches": dense_launches}
+            "dense_launches": dense_launches, "baselines": baselines}
 
 
 def exact_attention(q, k, v):
@@ -1216,7 +1289,8 @@ ATTENTION = "flash_attention (flash_*_kernel)"
 FLASH_KERNELS = ("flash_bf16_wgmma_kernel", "flash_f32_kernel")  # names
 
 
-def device_split(torch, run, names, label) -> tuple[float, dict, int, int]:
+def device_split(torch, run, names, label,
+                 require: bool = True) -> tuple[float, dict, int, int]:
     """One warm ``run()`` under torch.profiler -> its device time (ms),
     that time by group, the number of the port's kernels it ran and the
     number of all the kernels it ran. The
@@ -1226,17 +1300,25 @@ def device_split(torch, run, names, label) -> tuple[float, dict, int, int]:
     op, such as those behind a "Command Buffer Full" marker) together."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.analysis.trace import LEAD_IN, LEAD_IN_KERNEL
+
     def ours(name):
         return any(k in name for k in names)
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # in a long run the profiler drops a window's first kernels
+        # (PERF.md §7): lead-in kernels take that loss, uncounted
+        for _ in range(LEAD_IN):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
         run()
         torch.cuda.synchronize()
     events = prof.events()
     dev = [e for e in events
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and LEAD_IN_KERNEL not in e.name]
     if not dev:
         raise AssertionError(f"torch.profiler traced no device activity "
                              f"({label})")
@@ -1251,7 +1333,7 @@ def device_split(torch, run, names, label) -> tuple[float, dict, int, int]:
                     split[e.name] = split.get(e.name, 0.0) \
                         + kern.duration / 1e3
     split["kernels tied to no aten op"] = total - sum(split.values())
-    if not mine:
+    if require and not mine:
         raise AssertionError(f"no {label} kernel in the trace; its "
                              f"kernels: {sorted({e.name[:80] for e in dev})}")
     return total, dict(sorted(split.items(), key=lambda kv: -kv[1])), \
@@ -1264,8 +1346,11 @@ def lm_cell(torch, dev) -> dict:
     flash_attention once a layer and no other kernel, the kernel against
     its plain version on layer 0's q, k, v, each prefill against the same
     prefill with the plain attention, the times; then qwen3-4b (4 of 36
-    layers) at [4, 2048], the GQA and head_dim 128 case. Returns the
-    launches by path, the record, times and bound."""
+    layers) at [4, 2048], the GQA and head_dim 128 case. Between the two,
+    on gemma-7b's model: its decode (decode_phase) and the IRLI vocabulary
+    head (head_phase) on the [4, 2048] prefill's last hidden state and on
+    the first decode step's. Returns the launches by path, the record,
+    times and bound, and the decode's and the head's numbers."""
     import dataclasses
 
     from repro_torch.configs.gemma_7b import CONFIG as GEMMA
@@ -1284,7 +1369,7 @@ def lm_cell(torch, dev) -> dict:
         f"memory a block" for dt, a in attrs.items()))
     if any(a["spill_bytes"] for a in attrs.values()):
         raise AssertionError(f"flash_attention spills registers: {attrs}")
-    launches, err, near, times = {}, 0.0, 0, {}
+    launches, err, near, times, serving = {}, 0.0, 0, {}, {}
     gen = torch.Generator(device=dev).manual_seed(SEED)
     for cfg, shapes in ((GEMMA, LM_SHAPES),
                         (dataclasses.replace(QWEN, n_layers=QWEN_LAYERS),
@@ -1323,6 +1408,8 @@ def lm_cell(torch, dev) -> dict:
             with plain_attention(exact=True):
                 exact = step(model, batch)
             near += prefill_check(torch, name, out, plain, exact)
+            if cfg is GEMMA and (bsz, seq) == LM_SHAPES[0]:
+                head_in = {f"prefill [{bsz}, {seq}]": out["hidden"].clone()}
             del plain, exact
             q, k, v = qkv
             err = max(err, flash_check(torch, f"({name}, layer 0)", q, k,
@@ -1396,13 +1483,710 @@ def lm_cell(torch, dev) -> dict:
             times[name] = (att_ms, plain_ms, sdpa_ms, (bms, by))
             del out, qkv, q, k, v, batch, tokens
             torch.cuda.empty_cache()
+        if cfg is GEMMA:
+            t0 = time.perf_counter()
+            serving["decode"] = decode_phase(torch, dev, model, cfg, gen)
+            head_in["decode step 0"] = serving["decode"].pop("hidden")
+            serving["head"] = head_phase(torch, dev, model, cfg, head_in)
+            del head_in
+            log(f"gemma-7b decode and vocabulary head: "
+                f"{time.perf_counter() - t0:.1f} s")
         del model, step
         torch.cuda.empty_cache()
     log(f"lm cell: {near} prefill rows had a near tie at the top-2")
     att_ms, plain_ms, sdpa_ms, bnd = times[
         f"{GEMMA.name} prefill [{LM_SHAPES[1][0]}, {LM_SHAPES[1][1]}]"]
     return {"launches": launches, "err": err,
-            "times": (att_ms, plain_ms, sdpa_ms), "bound": bnd}
+            "times": (att_ms, plain_ms, sdpa_ms), "bound": bnd, **serving}
+
+
+def rel_l2(a, b) -> float:
+    """‖a − b‖ / ‖b‖ in fp32."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def decode_phase(torch, dev, model, cfg, gen) -> dict:
+    """gemma-7b's decode at full width and depth (the prefill's model):
+    build_lm_decode(cfg, DECODE_CTX) at B = DECODE_B over init_cache. 16
+    steps from pos 0 held to lm_backbone + _logits over the same tokens,
+    teacher-forced (the forward attends through flash_attention, the
+    decode through _sdpa): each position's logits within DECODE_TOL
+    relative L2, next tokens equal outside near ties; then a step at pos
+    DECODE_POS of a cache filled with random bf16 values, timed beside its
+    byte bound (the weights and the whole cache read once). Returns the
+    first step's final hidden state (the vocabulary head's decode input)
+    and the numbers."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.steps import build_lm_decode
+    from repro_torch.models.module import param_bytes
+    from repro_torch.models.transformer import (_logits, init_cache,
+                                                lm_backbone)
+
+    B, n = DECODE_B, DECODE_STEPS
+    t0 = time.perf_counter()
+    caches = init_cache(cfg, B, DECODE_CTX, device=dev)
+    cache_bytes = sum(t.numel() * t.element_size() for c in caches
+                      for t in c.values())
+    step = build_lm_decode(cfg, DECODE_CTX)
+    toks = torch.randint(0, cfg.vocab, (B, n), generator=gen, device=dev)
+    logits, first_h = [], None
+    torch.cuda.synchronize()
+    reset_launches()
+    for t in range(n):
+        out = step(model, {"token": toks[:, t], "caches": caches,
+                           "pos": torch.full((B,), t, device=dev)})
+        logits.append(out["logits"])
+        if first_h is None:
+            first_h = out["hidden"].clone()
+    torch.cuda.synchronize()
+    launches = {k: c for k, c in LAUNCHES.items() if c}
+    if launches:
+        raise AssertionError(f"gemma decode launched {launches}: its "
+                             f"attention is _sdpa")
+    with torch.inference_mode():
+        h, _ = lm_backbone(model, cfg, toks)
+        full = _logits(model, cfg, h)                         # [B, n, V]
+    errs, near = [], 0
+    for t in range(n):
+        errs.append(rel_l2(logits[t], full[:, t]))
+        top2 = full[:, t].topk(2, dim=-1).values
+        tie = (top2[:, 0] - top2[:, 1]) < 2e-2 * top2[:, 0].abs()
+        differ = logits[t].argmax(-1) != full[:, t].argmax(-1)
+        if bool((differ & ~tie).any()):
+            raise AssertionError(f"gemma decode step {t}: next tokens "
+                                 f"differ from the forward's outside the "
+                                 f"near ties")
+        near += int(tie.sum())
+    log(f"gemma-7b decode (B {B}, context {DECODE_CTX}, cache "
+        f"{cache_bytes / 1e9:.2f} GB bf16): {n} steps from pos 0 against "
+        f"the teacher-forced forward (lm_backbone + _logits, flash_attention"
+        f"): logits rel L2 max {max(errs):.4e} (limit {DECODE_TOL:g}), by "
+        f"step {[f'{e:.2e}' for e in errs]}; {near} of {B * n} rows a near "
+        f"tie at the top-2; no kernel launched")
+    if not max(errs) <= DECODE_TOL:
+        raise AssertionError(f"gemma decode: logits rel L2 {max(errs):.3e} "
+                             f"against the forward (limit {DECODE_TOL})")
+    del full, h, logits
+    for c in caches:
+        for t in c.values():
+            t.normal_(generator=gen)
+    batch = {"token": toks[:, -1], "caches": caches,
+             "pos": torch.full((B,), DECODE_POS, device=dev)}
+    step_ms = time_ms(torch, lambda: step(model, batch), n=10, warmup=2)
+    traced, split, _, n_kern = device_split(
+        torch, lambda: step(model, batch), (), "the port's kernels",
+        require=False)
+    log(f"gemma-7b decode step: one traced step (torch.profiler), device "
+        f"time {traced:.4f} ms in {n_kern} kernels; by group: "
+        + "; ".join(f"{g} {t:.4f} ms ({t / traced:.1%})"
+                    for g, t in list(split.items())[:8]))
+    w_bytes = param_bytes(model)
+    flops = 2.0 * B * (w_bytes / 2) + 4.0 * B * cfg.n_heads * cfg.head_dim \
+        * DECODE_CTX * cfg.n_layers
+    bms, by = bound(flops, w_bytes + cache_bytes)
+    log(f"gemma-7b decode step at pos {DECODE_POS} (cache filled with random "
+        f"bf16): {step_ms:.4f} ms a step, {B / step_ms * 1e3:.1f} tokens/s; "
+        f"bound {bms:.4f} ms ({by}: {w_bytes / 1e9:.2f} GB of weights and "
+        f"{cache_bytes / 1e9:.2f} GB of cache read once), {bms / step_ms:.1%}"
+        f" of it reached; set-up and checks {time.perf_counter() - t0:.1f} s")
+    del caches, batch
+    torch.cuda.empty_cache()
+    return {"hidden": first_h, "step_ms": step_ms, "bound": (bms, by),
+            "tol": max(errs)}
+
+
+def head_phase(torch, dev, model, cfg, inputs) -> dict:
+    """The IRLI vocabulary head over gemma-7b's 256,000 tokens: B = HEAD_B
+    buckets, R = HEAD_R reps of the hash partition (max_load 2·V/B), a
+    random softmax_bce scorer (d_in d_model, d_hidden HEAD_H), m = HEAD_M,
+    on each of ``inputs`` (name -> final hidden [Bq, d]). The probe (one
+    irli_topk launch) against top_buckets outside near ties; the candidate
+    ids against the plain gather of its buckets; every candidate logit
+    against the full _logits at that id (TOL); the greedy token against
+    the argmax of the full logits over the candidate set (near ties
+    exempt). Times and bytes read beside the full head's. Returns the
+    launches and times."""
+    from repro_torch.core import partition as PTN
+    from repro_torch.core import vocab_head as PV
+    from repro_torch.core.network import (ScorerConfig, scorer_init,
+                                          scorer_logits)
+    from repro_torch.core.query import gather_members, top_buckets
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.irli_topk.ref import near, same_topm
+    from repro_torch.launch.steps import next_token
+    from repro_torch.models.transformer import _logits
+
+    V, Bk, R, m = cfg.vocab, HEAD_B, HEAD_R, HEAD_M
+    index = PTN.build_inverted_index(PTN.hash_init(V, Bk, R, SEED,
+                                                   device=dev), Bk,
+                                     max_load=2 * V // Bk)
+    sp = scorer_init(ScorerConfig(d_in=cfg.d_model, d_hidden=HEAD_H,
+                                  n_buckets=Bk, n_reps=R),
+                     torch.Generator(device=dev).manual_seed(SEED))
+    table = model["embed"]["table"]
+    C = R * m * index.max_load
+    launches, times = 0, {}
+    for name, h in inputs.items():
+        Bq = h.shape[0]
+        torch.cuda.synchronize()
+        reset_launches()
+        cands, logits = PV.candidate_token_logits(sp, index, table, h, m=m)
+        torch.cuda.synchronize()
+        got = {k: c for k, c in LAUNCHES.items() if c}
+        if got != {"irli_topk": 1}:
+            raise AssertionError(f"vocab head ({name}) launched {got}, not "
+                                 f"one irli_topk")
+        launches += 1
+        bidx = PV.probe_buckets(sp, h, m)
+        pv, pi = top_buckets(sp, h, m + 1)
+        lg = scorer_logits(sp, h)
+        cut, order = same_topm(lg.gather(-1, bidx.long()), bidx,
+                               lg.gather(-1, pi), pi, TOL)
+        if not torch.equal(cands, gather_members(index.members, bidx)):
+            raise AssertionError(f"vocab head ({name}): candidates differ "
+                                 f"from the plain gather")
+        plain = gather_members(index.members, pi[..., :m])
+        rows_same = int((plain == cands).all(1).sum())
+        with torch.inference_mode():
+            full = _logits(model, cfg, h)                       # [Bq, V]
+        valid = cands >= 0
+        want = full.gather(1, cands.clamp(min=0).long())
+        ok = near(logits, want, TOL) | ~valid
+        if not bool(ok.all()) or not bool(torch.isinf(logits[~valid]).all()):
+            raise AssertionError(f"vocab head ({name}): "
+                                 f"{int((~ok).sum())} candidate logits off "
+                                 f"the full head's")
+        tok = PV.greedy_token(sp, index, table, h, m=m)
+        in_set = torch.zeros_like(full, dtype=torch.bool)
+        in_set.scatter_(1, cands.clamp(min=0).long(), valid)
+        ref_tok = full.masked_fill(~in_set, float("-inf")).argmax(1)
+        same = tok.long() == ref_tok
+        tie = near(full.gather(1, tok.long()[:, None])[:, 0],
+                   full.gather(1, ref_tok[:, None])[:, 0], TOL)
+        if not bool((same | tie).all()):
+            raise AssertionError(f"vocab head ({name}): greedy token off "
+                                 f"the full head's argmax over the "
+                                 f"candidates")
+        covered = int((tok.long() == full.argmax(1)).sum())
+        distinct = statistics.mean(torch.unique(r[r >= 0]).numel()
+                                   for r in cands)
+        head_ms = time_ms(torch, lambda: PV.greedy_token(sp, index, table, h,
+                                                         m=m), n=10)
+        traced, split, _, n_kern = device_split(
+            torch, lambda: PV.greedy_token(sp, index, table, h, m=m),
+            ("irli_topk_kernel",), "irli_topk (the probe)")
+        log(f"vocab head ({name}): one traced call (torch.profiler), device "
+            f"time {traced:.4f} ms in {n_kern} kernels; by group: "
+            + "; ".join(f"{g} {t:.4f} ms ({t / traced:.1%})"
+                        for g, t in list(split.items())[:8]))
+        full_ms = time_ms(torch, lambda: next_token(_logits(model, cfg, h)),
+                          n=10)
+        sp_bytes = sum(t.numel() * t.element_size() for t in sp.values())
+        head_bytes = sp_bytes + Bq * C * (4 + table.shape[1]
+                                          * table.element_size())
+        full_bytes = table.numel() * table.element_size()
+        log(f"vocab head ({name}, Bq {Bq}): V {V}, B {Bk}, R {R}, max_load "
+            f"{index.max_load}, m {m}: C = {C} candidates a query "
+            f"({distinct:.1f} distinct), probe = one irli_topk launch, "
+            f"against top_buckets: {cut} rows a near tie at the m cut, "
+            f"{order} in another order; {rows_same} of {Bq} rows' "
+            f"candidates equal the plain probe's gather; candidate logits "
+            f"within {TOL:g} of the full head; greedy token = the full "
+            f"argmax in {covered} of {Bq} rows; head {head_ms:.4f} ms "
+            f"(reads {head_bytes / 1e6:.1f} MB: the scorer "
+            f"{sp_bytes / 1e6:.1f} MB, the candidates' ids and rows) against "
+            f"the full _logits + next_token {full_ms:.4f} ms (reads the "
+            f"{full_bytes / 1e9:.3f} GB table)")
+        times[name] = (head_ms, full_ms)
+    del index, sp
+    torch.cuda.empty_cache()
+    return {"launches": launches, "times": times}
+
+
+@contextlib.contextmanager
+def recorded_routes(store: list):
+    """Keep each MoE routing's (router, logits, ids) in ``store``, in call
+    order; the routing itself is unchanged."""
+    from repro_torch.models import moe as MOE
+    route = MOE._route
+
+    def keep(logits, cfg):
+        w, idx, aux = route(logits, cfg)
+        store.append((cfg.router, logits, idx))
+        return w, idx, aux
+    MOE._route = keep
+    try:
+        yield
+    finally:
+        MOE._route = route
+
+
+@contextlib.contextmanager
+def plain_router():
+    """The MoE router's k-choice walk through kchoice_ref (no launch)."""
+    from repro_torch.kernels.kchoice.ref import kchoice_ref
+    from repro_torch.models import moe as MOE
+    assign = MOE.kchoice_assign
+    MOE.kchoice_assign = lambda t, o, l0=None, w=None, *, B, slots=1: \
+        kchoice_ref(t, o, l0, w, B=B, slots=slots)
+    try:
+        yield
+    finally:
+        MOE.kchoice_assign = assign
+
+
+def router_check(torch, name, routes, mcfg):
+    """Every recorded k-choice routing equals kchoice_ref with the same
+    slots on the same router logits, bit for bit. Returns the first plain
+    walk and its host time in ms."""
+    from repro_torch.core.topk import topk_stable
+    from repro_torch.kernels.kchoice.ref import kchoice_ref
+    K = max(mcfg.router_k_choices, mcfg.top_k)
+    first = None
+    for router, logits, idx in routes:
+        if router != "irli_kchoice":
+            continue
+        topi = topk_stable(torch.softmax(logits.float(), -1), K)[1]
+        topi = topi.reshape(-1, *topi.shape[-2:]).to(torch.int32)
+        G, T = topi.shape[:2]
+        order = torch.arange(T, dtype=torch.int32,
+                             device=topi.device).expand(G, T)
+        t0 = time.perf_counter()
+        want = kchoice_ref(topi, order, B=mcfg.n_experts, slots=mcfg.top_k)
+        first = first or (want, (time.perf_counter() - t0) * 1e3)
+        if not torch.equal(idx.reshape(want.shape).to(want.dtype), want):
+            raise AssertionError(f"{name}: the kchoice launch differs from "
+                                 f"kchoice_ref(slots={mcfg.top_k})")
+    return first
+
+
+def decode_routing_gate(torch, mcfg, logits, full, dec_routes,
+                        fwd_routes) -> str:
+    """Decode under the top-k router against the teacher-forced forward,
+    token by token. A token whose experts in every layer equal the
+    forward's: its logits within DECODE_TOL (relative L2) of the
+    forward's, its next token equal outside near ties. A token whose
+    experts differ in some layer: in the first such layer the forward's
+    router had a near tie at the top-k cut (its k-th and (k+1)-th
+    probabilities within DECODE_TOL of each other, relative): bf16
+    rounding of the layer's input decides such a tie, and every later
+    layer then sees another input. logits, full [B, n, V]; dec_routes the
+    decode's routings (step-major, then layer), fwd_routes[b][layer] the
+    forward's (logits, ids) at the decode's positions. Returns a summary;
+    raises on a breach."""
+    B, n = logits.shape[:2]
+    n_layers = len(fwd_routes[0])
+    k = mcfg.top_k
+    flipped, worst = 0, 0.0
+    for b in range(B):
+        for t in range(n):
+            first = None
+            for layer in range(n_layers):
+                f_lg, f_idx = fwd_routes[b][layer]
+                d_idx = dec_routes[t * n_layers + layer][2][b]
+                if not torch.equal(f_idx[t].sort().values,
+                                   d_idx.sort().values):
+                    first = layer
+                    break
+            if first is None:
+                e = rel_l2(logits[b, t], full[b, t])
+                worst = max(worst, e)
+                top2 = full[b, t].topk(2).values
+                tie = float(top2[0] - top2[1]) < 2e-2 * abs(float(top2[0]))
+                if e > DECODE_TOL or (not tie and int(logits[b, t].argmax())
+                                      != int(full[b, t].argmax())):
+                    raise AssertionError(
+                        f"mixtral decode (topk), row {b} step {t}: routed "
+                        f"as the forward, logits rel L2 {e:.3e} (limit "
+                        f"{DECODE_TOL}) or another next token")
+                continue
+            flipped += 1
+            probs = torch.softmax(fwd_routes[b][first][0][t].float(), -1)
+            top = probs.topk(k + 1).values
+            if float(top[k - 1] - top[k]) > DECODE_TOL * float(top[k - 1]):
+                raise AssertionError(
+                    f"mixtral decode (topk), row {b} step {t}: layer "
+                    f"{first} routed otherwise than the forward without a "
+                    f"near tie ({top.tolist()})")
+    return (f"{B * n - flipped} of {B * n} tokens routed as the forward in "
+            f"every layer, their logits within {worst:.4e} (limit "
+            f"{DECODE_TOL}); {flipped} routed otherwise first at a near tie "
+            f"of the router")
+
+
+def expert_share(torch, idx, E: int) -> float:
+    """The largest expert's share of a routing's picks."""
+    return float(torch.bincount(idx.reshape(-1).long(), minlength=E).max()
+                 / idx.numel())
+
+
+@contextlib.contextmanager
+def first_moe_input(store: list):
+    """Keep the input of the first MoE block a forward runs in ``store``;
+    the block itself is unchanged."""
+    from repro_torch.models import transformer as TR
+    moe_apply = TR.moe_apply
+
+    def keep(p, mcfg, x):
+        if not store:
+            store.append(x)
+        return moe_apply(p, mcfg, x)
+    TR.moe_apply = keep
+    try:
+        yield
+    finally:
+        TR.moe_apply = moe_apply
+
+
+@contextlib.contextmanager
+def recorded_kv(store: list):
+    """Keep each attend_train call's k and v (one layer's, [B, S, Kv, D])
+    in ``store``; the call is unchanged."""
+    from repro_torch.models import attention as A
+    qkv = A._qkv
+
+    def keep(p, cfg, x, positions):
+        q, k, v = qkv(p, cfg, x, positions)
+        if x.shape[1] > 1:
+            store.append((k, v))
+        return q, k, v
+    A._qkv = keep
+    try:
+        yield
+    finally:
+        A._qkv = qkv
+
+
+def moe_cell(torch, dev) -> dict:
+    """mixtral-8x7b at full width, MOE_LAYERS of its 32 layers (random
+    bf16 weights from SEED), under the config's top-k router and under
+    irli_kchoice (one kchoice launch a layer, slots 2): the prefill at
+    [1, MOE_SEQ] (the 4096-token window masks real keys), every kchoice
+    routing bit-equal to kchoice_ref(slots=2), the MoE output of the
+    kernel-routed block bit-equal to the plain-routed one; decode at B =
+    DECODE_B over a ring of 4096, 16 steps across pos 4096 (the ring
+    wraps), the ring filled with the forward's K and V of positions 0..MOE_POS
+    - 1, held to the teacher-forced forward (run a row at a time at
+    capacity E / top_k, where no token is dropped) under top-k; _moe_rows
+    at [2, 4096] with ffn_chunk 4096 against per-row routing. Then
+    llama4-maverick's MoE block alone at full width (128 experts, top-1,
+    a shared expert) on a [1, 2048] bf16 activation under both routers,
+    kchoice at E = 128. Returns the launches, the router's kernel and
+    plain times and the numbers."""
+    import dataclasses
+
+    from repro_torch.configs.llama4_maverick import CONFIG as LLAMA4
+    from repro_torch.configs.mixtral_8x7b import CONFIG as MIXTRAL
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.kchoice import ops as kops
+    from repro_torch.kernels.kchoice.ref import dependence_depth
+    from repro_torch.launch.steps import build_lm_decode, build_lm_prefill
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.module import param_bytes, param_count
+    from repro_torch.models.transformer import (_logits, init_cache,
+                                                lm_backbone, lm_init)
+    from repro_torch.core.topk import topk_stable
+
+    t_cell = time.perf_counter()
+    log(f"moe cell: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        f"on the card before it")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    base = dataclasses.replace(MIXTRAL, n_layers=MOE_LAYERS)
+    cfgs = {r: dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, router=r)) for r in ("topk", "irli_kchoice")}
+    t0 = time.perf_counter()
+    model = lm_init(base, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"mixtral-8x7b: {base.n_layers} of 32 layers, d {base.d_model}, "
+        f"{base.n_heads} heads over {base.n_kv_heads} x {base.head_dim}, "
+        f"SWA window {base.window}, {base.moe.n_experts} experts top-"
+        f"{base.moe.top_k} of d_ff {base.moe.d_ff}: {param_count(model)} "
+        f"params ({param_bytes(model) / 1e9:.2f} GB bf16), init "
+        f"{time.perf_counter() - t0:.2f} s")
+    launches, out, routes = {}, {}, []
+    toks = torch.randint(0, base.vocab, (1, MOE_SEQ), generator=gen,
+                         device=dev)
+    xs = []
+    for r, cfg in cfgs.items():
+        step = build_lm_prefill(cfg)
+        name = f"mixtral prefill [1, {MOE_SEQ}] ({r})"
+        torch.cuda.synchronize()
+        reset_launches()
+        with recorded_routes(routes), first_moe_input(xs):
+            out[r] = step(model, {"tokens": toks})
+        torch.cuda.synchronize()
+        got = {k: c for k, c in LAUNCHES.items() if c}
+        want = {"kchoice": base.n_layers} if r == "irli_kchoice" else {}
+        if got != want:
+            raise AssertionError(f"{name} launched {got}, expected {want}")
+        launches[name] = got.get("kchoice", 0)
+        if not bool(torch.isfinite(out[r]["logits"]).all()):
+            raise AssertionError(f"{name}: non-finite logits")
+        ms = time_ms(torch, lambda: step(model, {"tokens": toks}), n=2,
+                     warmup=1)
+        log(f"{name}: {ms:.4f} ms ({MOE_SEQ / ms * 1e3:.1f} tokens/s), next "
+            f"token {out[r]['next_token'].tolist()}")
+        if r == "irli_kchoice":
+            traced, split, n_k, n_kern = device_split(
+                torch, lambda: step(model, {"tokens": toks}),
+                ("kchoice_kernel",), "kchoice (the router)")
+            log(f"{name}: one traced prefill (torch.profiler), device time "
+                f"{traced:.4f} ms, {n_k} kchoice of {n_kern} kernels; by "
+                f"group: " + "; ".join(f"{g} {t:.4f} ms ({t / traced:.1%})"
+                                      for g, t in list(split.items())[:10]))
+    plain_walk = router_check(torch, "mixtral prefill", routes,
+                              cfgs["irli_kchoice"].moe)
+    shares = [expert_share(torch, idx, base.moe.n_experts)
+              for r, _, idx in routes if r == "irli_kchoice"]
+    # the same layer-0 block (its prefill input), routed by the kernel and
+    # by the plain walk
+    mk = cfgs["irli_kchoice"].moe
+    lp = model["layers"][0]["moe"]
+    with torch.inference_mode():
+        yk, _ = MOE.moe_apply(lp, mk, xs[0])
+        with plain_router():
+            yp, _ = MOE.moe_apply(lp, mk, xs[0])
+        yt, _ = MOE.moe_apply(lp, cfgs["topk"].moe, xs[0])
+    if not torch.equal(yk, yp):
+        raise AssertionError("mixtral MoE block: the kernel-routed output "
+                             "differs from the plain-routed one")
+    # the router on its own at the prefill's shape: kernel, plain, bound
+    logits0 = next(lg for r, lg, _ in routes if r == "irli_kchoice")
+    K = max(mk.router_k_choices, mk.top_k)
+    topi = topk_stable(torch.softmax(logits0.float(), -1), K)[1]
+    topi = topi[None].to(torch.int32).contiguous()
+    order = torch.arange(topi.shape[1], dtype=torch.int32,
+                         device=dev)[None].contiguous()
+    k_ms = time_ms(torch, lambda: kops.kchoice(topi, order, B=mk.n_experts,
+                                               slots=mk.top_k), n=10)
+    picks, p_ms = plain_walk
+    depth = int(dependence_depth(topi, order, picks, B=mk.n_experts)[0])
+    link = kops.step_cycles(dev)
+    clock = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    r_bound = depth * link / clock * 1e3
+    log(f"mixtral router (irli_kchoice, slots {mk.top_k}, K {K}, E "
+        f"{mk.n_experts}, T {topi.shape[1]}): {len(shares)} routings "
+        f"bit-equal to kchoice_ref; the layer-0 block's output routed by "
+        f"the kernel bit-equal to the plain-routed one; largest expert's "
+        f"share of the picks by layer {[round(s, 4) for s in shares]} (top-"
+        f"k on layer 0's input: {expert_share(torch, topk_stable(torch.softmax(logits0.float(), -1), mk.top_k)[1], mk.n_experts):.4f}, "
+        f"a fair share {1 / mk.n_experts:.4f}); the kchoice launch alone "
+        f"{k_ms:.4f} ms, kchoice_ref (host walk) {p_ms:.1f} ms; dependence "
+        f"depth {depth} of {picks.numel()} picks x {link:.2f} clocks a link "
+        f"at {clock / 1e9:.3f} GHz -> bound {r_bound:.4f} ms")
+    del yk, yp, yt, xs, out
+    routes.clear()
+    # decode across pos 4096: the ring filled from the teacher-forced forward
+    B, n, P = DECODE_B, DECODE_STEPS, MOE_POS
+    ctx = 2 * base.window
+    dtoks = torch.randint(0, base.vocab, (B, P + n), generator=gen,
+                          device=dev)
+    nodrop = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, capacity_factor=base.moe.n_experts / base.moe.top_k))
+    full, kv, fwd_routes = [], [], []
+    with torch.inference_mode():
+        for b in range(B):
+            store, rstore = [], []
+            with recorded_kv(store), recorded_routes(rstore):
+                h, _ = lm_backbone(model, nodrop, dtoks[b:b + 1])
+            full.append(_logits(model, nodrop, h[:, P:])[0])
+            kv.append(store)
+            fwd_routes.append([(lg[P:], idx[P:]) for _, lg, idx in rstore])
+    full = torch.stack(full)                                   # [B, n, V]
+    dec = {}
+    for r, cfg in cfgs.items():
+        caches = init_cache(cfg, B, ctx, device=dev)
+        Sc = caches[0]["k"].shape[1]
+        for layer, c in enumerate(caches):
+            for b in range(B):
+                k, v = kv[b][layer]
+                c["k"][b, :P] = k[0, :P]
+                c["v"][b, :P] = v[0, :P]
+        step = build_lm_decode(cfg, ctx)
+        logits = []
+        torch.cuda.synchronize()
+        reset_launches()
+        with recorded_routes(routes):
+            for t in range(n):
+                o = step(model, {"token": dtoks[:, P + t], "caches": caches,
+                                 "pos": torch.full((B,), P + t, device=dev)})
+                logits.append(o["logits"])
+        torch.cuda.synchronize()
+        got = {k: c for k, c in LAUNCHES.items() if c}
+        want = {"kchoice": base.n_layers * n} if r == "irli_kchoice" else {}
+        if got != want:
+            raise AssertionError(f"mixtral decode ({r}) launched {got}, "
+                                 f"expected {want}")
+        launches[f"mixtral decode ({r})"] = got.get("kchoice", 0)
+        logits = torch.stack(logits, 1)                        # [B, n, V]
+        errs = [rel_l2(logits[:, t], full[:, t]) for t in range(n)]
+        dec[r] = errs
+        if r == "topk":
+            held = decode_routing_gate(torch, cfg.moe, logits, full, routes,
+                                       fwd_routes)
+        else:
+            router_check(torch, "mixtral decode", routes, cfg.moe)
+        routes.clear()
+        batch = {"token": dtoks[:, P + n - 1], "caches": caches,
+                 "pos": torch.full((B,), P + n - 1, device=dev)}
+        step_ms = time_ms(torch, lambda: step(model, batch), n=10, warmup=2)
+        gate = (held if r == "topk" else "not a gate: the k-choice loads "
+                "run over the whole block in the forward, over one step in "
+                "decode")
+        log(f"mixtral decode ({r}, B {B}, ring of {Sc} slots, positions "
+            f"{P}..{P + n - 1}): logits rel L2 against the teacher-forced "
+            f"forward max {max(errs):.4e} over the step's rows ({gate}); "
+            f"{step_ms:.4f} ms a step, {B / step_ms * 1e3:.1f} tokens/s")
+        del caches, batch
+    del full, kv
+    # _moe_rows: the per-row path at [2, MOE_ROWS_T], ffn_chunk MOE_ROWS_T
+    x = torch.randn((2, MOE_ROWS_T, base.d_model), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    half = MOE_ROWS_T // 2
+    for r in ("topk", "irli_kchoice"):
+        mr = dataclasses.replace(cfgs[r].moe, ffn_chunk=MOE_ROWS_T)
+        rows, single = [], []
+        reset_launches()
+        with torch.inference_mode():
+            logits = MOE.L.dense_apply(lp["router"], x)
+            y, _ = MOE.moe_apply(lp, mr, x)
+        got = LAUNCHES["kchoice"]
+        with torch.inference_mode():
+            for s0 in range(0, MOE_ROWS_T, half):
+                lg = logits[:, s0:s0 + half]
+                rows.append(MOE._route(lg, mr)[1])
+                single.append(torch.stack([MOE._route(lg[b], mr)[1]
+                                           for b in range(2)]))
+        if not all(torch.equal(a, b) for a, b in zip(rows, single)):
+            raise AssertionError(f"_moe_rows ({r}): the batched routing "
+                                 f"differs from the per-row one")
+        if r == "irli_kchoice" and got != 2:
+            raise AssertionError(f"_moe_rows launched {got} kchoice, not 2")
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"_moe_rows ({r}): non-finite output")
+        launches[f"mixtral _moe_rows ({r})"] = got
+    log(f"mixtral _moe_rows at [2, {MOE_ROWS_T}] (ffn_chunk {MOE_ROWS_T}: "
+        f"2 chunks of [2, {half}]): the batched routing equals each row's "
+        f"alone under both routers (one kchoice launch a chunk, G = 2)")
+    del model, lp, x, y, logits, rows, single
+    torch.cuda.empty_cache()
+    # llama4-maverick's MoE block at full width
+    lm = LLAMA4.moe
+    t0 = time.perf_counter()
+    p = MOE.moe_init(gen, lm, torch.bfloat16)
+    torch.cuda.synchronize()
+    nbytes = param_bytes(p)
+    x = torch.randn((1, LLAMA4_T, lm.d_model), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    ys = {}
+    for r in ("topk", "irli_kchoice"):
+        mr = dataclasses.replace(lm, router=r)
+        reset_launches()
+        with recorded_routes(routes), torch.inference_mode():
+            ys[r], _ = MOE.moe_apply(p, mr, x)
+        torch.cuda.synchronize()
+        got = LAUNCHES["kchoice"]
+        if got != (1 if r == "irli_kchoice" else 0):
+            raise AssertionError(f"llama4 MoE block ({r}) launched {got} "
+                                 f"kchoice")
+        launches[f"llama4 MoE block ({r})"] = got
+        if not bool(torch.isfinite(ys[r]).all()):
+            raise AssertionError(f"llama4 MoE block ({r}): non-finite")
+        ms = time_ms(torch, lambda: MOE.moe_apply(p, mr, x), n=5)
+        with torch.inference_mode():
+            lg = MOE.L.dense_apply(p["router"], x.reshape(-1, lm.d_model))
+            idx = MOE._route(lg, mr)[1]
+        log(f"llama4 MoE block ({r}, {lm.n_experts} experts top-1 + shared, "
+            f"[1, {LLAMA4_T}]): {ms:.4f} ms (the weights {nbytes / 1e9:.2f} GB read once: "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), largest expert's "
+            f"share {expert_share(torch, idx, lm.n_experts):.4f} (capacity "
+            f"{MOE._capacity(mr, LLAMA4_T)} an expert of {LLAMA4_T} "
+            f"tokens)")
+    router_check(torch, "llama4 MoE block", routes, dataclasses.replace(
+        lm, router="irli_kchoice"))
+    with torch.inference_mode(), plain_router():
+        yp, _ = MOE.moe_apply(p, dataclasses.replace(
+            lm, router="irli_kchoice"), x)
+    if not torch.equal(ys["irli_kchoice"], yp):
+        raise AssertionError("llama4 MoE block: the kernel-routed output "
+                             "differs from the plain-routed one")
+    log(f"llama4 MoE block: {nbytes / 1e9:.2f} GB bf16 (init "
+        f"{time.perf_counter() - t0:.2f} s), the kchoice routing at E = "
+        f"{lm.n_experts} "
+        f"bit-equal to kchoice_ref, the kernel-routed output bit-equal to "
+        f"the plain-routed one; moe cell {time.perf_counter() - t_cell:.1f} "
+        f"s")
+    del p, x, ys, yp
+    torch.cuda.empty_cache()
+    return {"launches": launches, "decode": dec}
+
+
+def baselines_phase(torch, dev, run, idx) -> dict:
+    """The paper's partition baselines (core/baselines.py) on the fit
+    cell's data (FIT_L labels at the deep1b widths, its Q held-out queries
+    and their exact top-K): k-means and LSH at B buckets and the random
+    partition, each through its query -> bucket rule (centroid_top_buckets,
+    lsh_top_buckets, random buckets) -> candidates_from_partition ->
+    recall_of_mask at m = 1, 4, 16, beside the fitted index's candidates
+    (its top-m probe of R reps, gathered); balanced k-means at
+    BALANCED_L labels and BALANCED_B buckets (its host walk)."""
+    import numpy as np
+
+    from repro_torch.core import baselines as BL
+    from repro_torch.core.query import gather_members, probe_buckets
+
+    t_phase = time.perf_counter()
+    base, fq, gt = run["base"], run["queries"], run["gt"]
+    Lb = base.shape[0]
+    t0 = time.perf_counter()
+    ka, kc = BL.kmeans_partition(base, B, seed=SEED)
+    torch.cuda.synchronize()
+    k_s = time.perf_counter() - t0
+    la, planes = BL.lsh_partition(base, B, seed=SEED)
+    ra = BL.random_partition(Lb, B, SEED, device=dev)
+    rng = np.random.default_rng(SEED)
+    rules = {
+        "kmeans": (ka, lambda m: BL.centroid_top_buckets(fq, kc, m)),
+        "lsh": (la, lambda m: BL.lsh_top_buckets(fq, planes, B, m)),
+        "random": (ra, lambda m: torch.from_numpy(rng.integers(
+            0, B, (fq.shape[0], m)).astype(np.int32)).to(dev)),
+    }
+    out = {}
+    for m in (1, 4, 16):
+        row = {}
+        for name, (assign, rule) in rules.items():
+            mask = BL.candidates_from_partition(assign, rule(m), Lb)
+            row[name] = (BL.recall_of_mask(mask, gt),
+                         float(mask.sum(1).float().mean()))
+        cands = gather_members(idx.index.members,
+                               probe_buckets(idx.params, fq, m))
+        mask = torch.zeros((fq.shape[0], Lb + 1), dtype=torch.bool,
+                           device=dev)
+        mask.scatter_(1, torch.where(cands >= 0, cands, Lb).long(), True)
+        row["irli (fitted)"] = (BL.recall_of_mask(mask[:, :Lb], gt),
+                                float(mask[:, :Lb].sum(1).float().mean()))
+        out[m] = row
+        log(f"baselines at m = {m} (B {B}, L {Lb}, Q {fq.shape[0]}): "
+            + "; ".join(f"{n} recall@{K} {r:.4f} with {c:.1f} candidates a "
+                        f"query" for n, (r, c) in row.items()))
+    sub = base[:BALANCED_L]
+    t0 = time.perf_counter()
+    ba, bc = BL.balanced_kmeans_partition(sub, BALANCED_B, seed=SEED)
+    b_s = time.perf_counter() - t0
+    load = torch.bincount(ba.long(), minlength=BALANCED_B)
+    if int(load.max()) > -(-BALANCED_L // BALANCED_B):
+        raise AssertionError(f"balanced k-means: a bucket holds "
+                             f"{int(load.max())} labels")
+    form = "blocked" if Lb * B * base.shape[1] >= 2e8 else "direct"
+    log(f"baselines: k-means at B {B} over {Lb} labels (25 Lloyd "
+        f"iterations, the {form} distance form) {k_s:.2f} s; balanced "
+        f"k-means at L {BALANCED_L}, B {BALANCED_B} (25 iterations, the host "
+        f"walk) {b_s:.2f} s, loads {int(load.min())}..{int(load.max())} "
+        f"(capacity {-(-BALANCED_L // BALANCED_B)}); the fitted index's "
+        f"search recall@{K} {run['recall'][1]:.4f}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 @contextlib.contextmanager
@@ -3391,6 +4175,9 @@ def main() -> int:
                          "audit cell")
     ap.add_argument("--train", action="store_true",
                     help="only the build and the train cell")
+    ap.add_argument("--lm", action="store_true",
+                    help="only the build, the LM cell (prefill, decode, "
+                         "vocabulary head) and the MoE cell")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -3443,6 +4230,13 @@ def main() -> int:
     if args.train:
         out = train_cell(torch, dev)
         print(json.dumps({"train": out}), flush=True)
+        return 0
+    if args.lm:
+        lm = lm_cell(torch, dev)
+        moe = moe_cell(torch, dev)
+        print(json.dumps({"lm": lm["launches"], "head": lm["head"],
+                          "decode_ms": lm["decode"]["step_ms"],
+                          "moe": moe["launches"]}), flush=True)
         return 0
 
     # -------------------------------------------------------------- data --
@@ -4097,14 +4891,23 @@ def main() -> int:
     main_launches["flash_attention"] = sum(lm["launches"].values())
     record["flash_attention"] = {"max_abs_err": lm["err"]}
     bounds["flash_attention"] = lm["bound"]
+    by_path["irli_topk"]["vocab head"] = lm["head"]["launches"]
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
-    # ------------------------------------------------ 15. the recsys cell --
+    # ---------------------------------------------------- 15. the MoE cell --
+    torch.cuda.empty_cache()
+    moe = moe_cell(torch, dev)
+    by_path["kchoice"].update({p: c for p, c in moe["launches"].items()
+                               if c})
+    log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
+        f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
+    # ------------------------------------------------ 16. the recsys cell --
     torch.cuda.empty_cache()
     rec = recsys_cell(torch, dev, smi)
     by_path["embedding_bag"] = rec["launches"]
-    main_launches["embedding_bag"] = sum(rec["launches"].values())
+    main_launches = {n: sum(paths.values()) for n, paths in by_path.items()}
     record["embedding_bag"] = {"max_abs_err": rec["err"]}
     bounds["embedding_bag"] = rec["bound"]
     tiles["embedding_bag"] = rec["extra"]

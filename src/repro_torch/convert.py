@@ -1,7 +1,7 @@
 """Carry an index across between the JAX package and the port: its arrays,
 as numpy, become the port's objects (and back), so the same index can be
 served, and fitted further, by both packages. The LM and DIEN params trees
-cross the same way.
+cross the same way, and so do the LM's KV caches.
 """
 from __future__ import annotations
 
@@ -171,7 +171,7 @@ def _model_leaf(x, dev) -> torch.Tensor:
     a = np.asarray(x)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
 
 
 def _model_host(t: torch.Tensor) -> np.ndarray:
@@ -201,7 +201,9 @@ def lm_params_from_reference(params: dict, cfg, *,
     tree, numpy or array leaves) -> the port's ``LM`` on ``device``. The
     reference stacks each layer leaf on a leading [n_layers // period]
     axis under ``layers/sub{i}/...``; layer g·period + i of the port is
-    slice g of ``sub{i}``."""
+    slice g of ``sub{i}``. An MoE layer's ``moe`` subtree comes across the
+    same way: its router, its experts' stacks [n_groups, E, d, f] as the
+    layer's [E, d, f] and its ``shared`` expert."""
     from repro_torch.models.transformer import LM
     dev = resolve_device(device)
     n_groups = cfg.n_layers // cfg.period
@@ -254,3 +256,21 @@ def dien_params_to_reference(params) -> dict:
     """The port's DIEN params (module or nested dict) -> the reference's
     tree as numpy (bf16 leaves as ``ml_dtypes.bfloat16``)."""
     return _host_tree(params)
+
+
+# ------------------------------------------------------------- KV caches --
+def caches_from_reference(caches, *, device: str | torch.device = "cuda"
+                          ) -> list[dict]:
+    """The reference's decode caches (``init_cache`` / ``lm_decode_step``'s
+    list of per-layer {"k", "v"}, numpy or array leaves) -> the port's: a
+    list of {"k", "v"} tensors of the same dtype on ``device``, each its
+    own memory (the port's decode writes them in place)."""
+    dev = resolve_device(device)
+    return [{n: _model_leaf(c[n], dev).clone() for n in ("k", "v")}
+            for c in caches]
+
+
+def caches_to_reference(caches) -> list[dict]:
+    """The port's caches -> the reference's layout as numpy (bf16 as
+    ``ml_dtypes.bfloat16``)."""
+    return [{n: _model_host(c[n]) for n in ("k", "v")} for c in caches]

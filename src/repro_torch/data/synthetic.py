@@ -1,13 +1,15 @@
-"""Synthetic data: numpy copies of the reference's ``clustered_ann`` and
-``behavior_stream`` (``repro/data/synthetic.py``), which the port keeps so
-that it imports nothing of the JAX package. The same seed gives the same
-arrays.
+"""Synthetic data: numpy copies of the reference's ``clustered_ann``,
+``zipf_xml`` and ``behavior_stream`` (``repro/data/synthetic.py``), which
+the port keeps so that it imports nothing of the JAX package. The same seed
+gives the same arrays.
 
 ``clustered_ann``: GloVe/SIFT-like dense vectors with planted,
 power-law-sized clusters and exact top-k ground-truth neighbours (brute
 force): the ANN labels of IRLI §3.2 ("100 exact near neighbours ...
 generated beforehand"). ``behavior_stream``: DIEN's user-history
-sequences (Zipf item ids).
+sequences (Zipf item ids). ``zipf_xml``: extreme multi-label data whose
+co-occurring labels share geometry and whose label frequencies are Zipf
+(the XML scenario of IRLI §3.2, Def. 1).
 """
 from __future__ import annotations
 
@@ -92,6 +94,52 @@ def clustered_ann(n_base: int = 20000, n_queries: int = 500,
     gt = _topk_l2(base, queries, k_gt, metric)
     train_gt = _topk_l2(base, train_queries, k_train, metric)
     return ANNData(base, queries, train_queries, gt, train_gt, metric)
+
+
+# ------------------------------------------------------------------- XML ----
+@dataclasses.dataclass
+class XMLData:
+    x_train: np.ndarray     # [N, d]
+    y_train: list           # list of np.ndarray label ids per point
+    x_test: np.ndarray
+    y_test: list
+    n_labels: int
+    label_freq: np.ndarray  # [L]
+
+
+def zipf_xml(n_train: int = 8000, n_test: int = 1000, d: int = 32,
+             n_labels: int = 2000, labels_per_point: int = 3,
+             seed: int = 0) -> XMLData:
+    """Multi-label data where co-occurring labels share geometry (so a
+    learned partition CAN put them together) and frequencies are
+    Zipf-distributed."""
+    rng = np.random.default_rng(seed)
+    label_vecs = rng.normal(size=(n_labels, d)).astype(np.float32)
+    pop = 1.0 / np.arange(1, n_labels + 1) ** 1.1      # Zipf popularity
+    pop /= pop.sum()
+
+    def make(n):
+        xs = np.empty((n, d), np.float32)
+        ys = []
+        anchor = rng.choice(n_labels, size=n, p=pop)
+        for i in range(n):
+            a = anchor[i]
+            # correlated co-labels: nearest label vectors to the anchor
+            sim = label_vecs @ label_vecs[a]
+            near = np.argpartition(-sim, labels_per_point + 1)[
+                :labels_per_point + 1]
+            labs = near[near != a][: labels_per_point - 1]
+            labs = np.concatenate([[a], labs]).astype(np.int32)
+            ys.append(labs)
+            xs[i] = label_vecs[labs].mean(0) + rng.normal(size=d) * 0.3
+        return xs, ys
+
+    x_train, y_train = make(n_train)
+    x_test, y_test = make(n_test)
+    freq = np.zeros(n_labels)
+    for labs in y_train:
+        freq[labs] += 1
+    return XMLData(x_train, y_train, x_test, y_test, n_labels, freq)
 
 
 # ---------------------------------------------------------------- recsys ----

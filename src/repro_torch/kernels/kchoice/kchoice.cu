@@ -44,6 +44,18 @@
 // rows, in insertion order) from device memory into a ring of three, two
 // chunks ahead of the walk, so the walk reads shared memory only and a
 // window may cross a chunk's edge.
+//
+// Slots (the MoE router's top-k, src/repro/models/moe.py:81-118): with
+// slots = S > 1 each label takes S distinct candidates in turn, slot j the
+// first least-loaded of those its earlier slots did not take, each pick
+// adding the label's weight. The walk is then over the L·S (label, slot)
+// picks: the ring stages picks, and a label's picks sit in neighbouring
+// lanes. A label's second pick always waits on its first (they share the
+// K candidates), so no window has a clean prefix worth committing: each
+// window holds the picks of 32 / S whole labels and is walked in
+// registers from its first lane, a lane striking its own label's earlier
+// picks from its candidates (+inf) where another label's pick would give
+// the bucket's new load. At S = 1 none of this runs.
 #include <cuda_runtime.h>
 
 namespace {
@@ -56,17 +68,17 @@ constexpr int kGroup = 16;                   // candidates staged at once
 constexpr unsigned char kFree = 0xFF;        // an unclaimed bucket
 constexpr int kMaxKG = 16;                   // candidates a lane holds
 
-// Staging thread t gathers label s = c·kChunk + t of the insertion order
-// (chunk c) into ring slot s mod kRing: its id, its weight and its K
-// candidates, transposed ([K][kRing]) so that the walk's lanes read
-// neighbouring words.
+// Staging thread t gathers pick s = c·kChunk + t of the walk (chunk c; the
+// pick of slot s mod S of label s / S of the insertion order) into ring
+// slot s mod kRing: its label's id, weight and K candidates, transposed
+// ([K][kRing]) so that the walk's lanes read neighbouring words.
 __device__ void stage(const int* __restrict__ topk,
                       const int* __restrict__ order,
-                      const float* __restrict__ w, long long g, int L, int K,
-                      int c, int t, int* cand, int* lbl, float* wt) {
+                      const float* __restrict__ w, long long g, int L, int S,
+                      int K, int c, int t, int* cand, int* lbl, float* wt) {
   const int s = c * kChunk + t;
-  if (s >= L) return;
-  const int l = order[g * L + s];
+  if (s >= L * S) return;
+  const int l = order[g * L + (S > 1 ? s / S : s)];
   const int p = s % kRing;
   const float wl = w ? w[l] : 1.0f;
   const int* row = topk + (g * L + l) * K;
@@ -173,6 +185,41 @@ __device__ void walk(int first, int n, const float* loads,
     last = last && (d >= 0 || choice != c);
 #pragma unroll
     for (int u = 0; u < KG; ++u) v[u] = later && b[u] == c ? load : v[u];
+    min_of(v, b, best, choice);   // unchanged where nothing was hit
+    after = best + wl;
+  }
+}
+
+// The picks of a window of whole labels (S a label, lanes 0 to n - 1),
+// placed one after another in registers from lane 0 (K <= KG), as walk()
+// places labels: lane i's choice is final once the picks before it are
+// placed; it broadcasts its bucket and that bucket's new load. A later
+// lane of another label takes the new load where the bucket is among its
+// candidates; a later lane of the same label strikes the bucket out
+// (+inf): a label takes S distinct candidates. Another label's pick never
+// follows a lane's own label's first pick, so nothing restores a struck
+// candidate.
+template <int KG>
+__device__ void walk_slots(int n, int S, const float* loads,
+                           const int (&b)[KG], float wl, int& choice,
+                           float& after, bool& last) {
+  const int lane = threadIdx.x & 31;
+  const int head = lane - lane % S;   // the lane of this label's first pick
+  float v[KG];
+#pragma unroll
+  for (int u = 0; u < KG; ++u) v[u] = loads[b[u]];
+  float best;
+  min_of(v, b, best, choice);
+  after = best + wl;
+  last = true;
+  for (int i = 0; i < n; ++i) {
+    const int c = __shfl_sync(0xffffffffu, choice, i);
+    const float load = __shfl_sync(0xffffffffu, after, i);
+    const bool later = lane > i;
+    const float hit = i >= head ? __int_as_float(0x7f800000) : load;
+    last = last && (lane >= i || choice != c);
+#pragma unroll
+    for (int u = 0; u < KG; ++u) v[u] = later && b[u] == c ? hit : v[u];
     min_of(v, b, best, choice);   // unchanged where nothing was hit
     after = best + wl;
   }
@@ -298,11 +345,41 @@ __device__ int window(int start, int qs, int L, int K, long long g,
   return take;
 }
 
+// One window of warp 0 at S > 1 picks a label, from pick `start` of the
+// walk (ring slot qs; a multiple of S), its lanes' labels in x: walks the
+// picks of the window's 32 / S labels in registers (walk_slots), writes
+// each pick to assign [G, L, S], reads the next window's labels into x and
+// returns the picks placed. Adds the window and its picks to `rounds`.
+template <int KG>
+__device__ int window_slots(int start, int qs, int L, int S, int K,
+                            long long g, float* loads, const int* cand,
+                            const int* lbl, const float* wt, Label<KG>& x,
+                            int* __restrict__ assign, int& rounds) {
+  const int lane = threadIdx.x & 31;
+  const int n = min(kWindow - kWindow % S, L * S - start);
+  Label<KG> next;
+  int qn = qs + n;
+  qn -= qn < kRing ? 0 : kRing;
+  next.read(cand, lbl, wt, K, slot_of(start + n, qn, L * S));
+  int choice;
+  float after;
+  bool last;
+  walk_slots(n, S, loads, x.b, x.wl, choice, after, last);
+  rounds += 1 + n;
+  if (lane < n) {
+    if (last) loads[choice] = after;   // one writer a bucket
+    assign[(g * L + x.l) * S + lane % S] = choice;
+  }
+  x = next;
+  __syncwarp();
+  return n;
+}
+
 template <int KG>
 __global__ void __launch_bounds__(kThreads)
     kchoice_kernel(const int* __restrict__ topk, const int* __restrict__ order,
                    const float* __restrict__ load0, long long load0_stride,
-                   const float* __restrict__ w, int L, int K, int B,
+                   const float* __restrict__ w, int L, int K, int B, int S,
                    int walk_below, int walk_max_k,
                    int* __restrict__ assign, int* __restrict__ rounds_out) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -331,30 +408,33 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int warp = threadIdx.x >> 5, t = threadIdx.x - kWindow;
   if (warp > 0) {
-    stage(topk, order, w, g, L, K, 0, t, cand, lbl, wt);
-    stage(topk, order, w, g, L, K, 1, t, cand, lbl, wt);
+    stage(topk, order, w, g, L, S, K, 0, t, cand, lbl, wt);
+    stage(topk, order, w, g, L, S, K, 1, t, cand, lbl, wt);
   }
   __syncthreads();
-  const int n_chunks = (L + kChunk - 1) / kChunk;
+  const int N = L * S;   // the walk's picks
+  const int n_chunks = (N + kChunk - 1) / kChunk;
   int start = 0, qs = 0, rounds = 0;
   Label<KG> x;
-  if (warp == 0) x.read(cand, lbl, wt, K, slot_of(0, 0, L));
+  if (warp == 0) x.read(cand, lbl, wt, K, slot_of(0, 0, N));
   for (int c = 0; c < n_chunks; ++c) {
     if (warp == 0) {
-      // windows that start in chunk c read at most 31 labels into chunk
+      // windows that start in chunk c read at most 31 picks into chunk
       // c + 1, and read the next window's ahead at most 63 into it: both
       // are staged
-      const int end = min(L, (c + 1) * kChunk);
+      const int end = min(N, (c + 1) * kChunk);
       while (start < end) {
-        const int take = window(start, qs, L, K, g, loads, claim, cand, lbl,
-                                wt, x, walk_below, walk_max_k, assign,
-                                rounds);
+        const int take =
+            S > 1 ? window_slots(start, qs, L, S, K, g, loads, cand, lbl, wt,
+                                 x, assign, rounds)
+                  : window(start, qs, L, K, g, loads, claim, cand, lbl, wt,
+                           x, walk_below, walk_max_k, assign, rounds);
         start += take;
         qs += take;
         qs -= qs < kRing ? 0 : kRing;
       }
     } else if (c + 2 < n_chunks) {
-      stage(topk, order, w, g, L, K, c + 2, t, cand, lbl, wt);
+      stage(topk, order, w, g, L, S, K, c + 2, t, cand, lbl, wt);
     }
     __syncthreads();
   }
@@ -412,7 +492,7 @@ namespace {
 template <int KG>
 int launch(const int* topk, const int* order, const float* load0,
            long long load0_stride, const float* w, int G, int L, int K, int B,
-           int walk_below, int walk_max_k, int* assign, int* rounds,
+           int S, int walk_below, int walk_max_k, int* assign, int* rounds,
            void* stream) {
   const long long smem = kchoice_smem_bytes(B, K);
   cudaError_t err = cudaFuncSetAttribute(
@@ -421,7 +501,7 @@ int launch(const int* topk, const int* order, const float* load0,
   if (err != cudaSuccess) return static_cast<int>(err);
   kchoice_kernel<KG>
       <<<G, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          topk, order, load0, load0_stride, w, L, K, B, walk_below,
+          topk, order, load0, load0_stride, w, L, K, B, S, walk_below,
           walk_max_k, assign, rounds);
   return static_cast<int>(cudaGetLastError());
 }
@@ -430,16 +510,16 @@ int launch(const int* topk, const int* order, const float* load0,
 template <int KG>
 int dispatch(const int* topk, const int* order, const float* load0,
              long long load0_stride, const float* w, int G, int L, int K,
-             int B, int walk_below, int walk_max_k, int* assign, int* rounds,
-             void* stream) {
+             int B, int S, int walk_below, int walk_max_k, int* assign,
+             int* rounds, void* stream) {
   if constexpr (KG > 1) {
     if (K < KG) {
       return dispatch<KG - 1>(topk, order, load0, load0_stride, w, G, L, K,
-                              B, walk_below, walk_max_k, assign, rounds,
+                              B, S, walk_below, walk_max_k, assign, rounds,
                               stream);
     }
   }
-  return launch<KG>(topk, order, load0, load0_stride, w, G, L, K, B,
+  return launch<KG>(topk, order, load0, load0_stride, w, G, L, K, B, S,
                     walk_below, walk_max_k, assign, rounds, stream);
 }
 
@@ -448,21 +528,26 @@ int dispatch(const int* topk, const int* order, const float* load0,
 // topk [G, L, K] int32 bucket ids (each < B); order [G, L] int32, a
 // permutation of 0..L-1 per rep; load0 [G, B] f32 (load0_stride B), one [B]
 // row for every rep (stride 0) or NULL (zeros); w [L] f32 or NULL (ones).
+// slots S in [1, K] picks a label (S > 1: K <= kMaxKG and L·S < 2^31).
 // A window whose clean prefix is shorter than walk_below (0..32) is walked
-// in registers when K <= walk_max_k (at most kMaxKG). assign [G, L] int32;
-// rounds [G] int32 or NULL: each rep's sequential rounds, its windows and
-// the walks' steps. Returns cudaGetLastError() after the launch.
+// in registers when K <= walk_max_k (at most kMaxKG). assign [G, L] int32
+// ([G, L, S] at S > 1, a label's picks in slot order); rounds [G] int32 or
+// NULL: each rep's sequential rounds, its windows and the walks' steps.
+// Returns cudaGetLastError() after the launch.
 extern "C" int kchoice_launch(const int* topk, const int* order,
                               const float* load0, long long load0_stride,
                               const float* w, int G, int L, int K, int B,
-                              int walk_below, int walk_max_k, int* assign,
-                              int* rounds, void* stream) {
+                              int slots, int walk_below, int walk_max_k,
+                              int* assign, int* rounds, void* stream) {
   if (G < 1 || L < 1 || K < 1 || B < 1 || walk_below < 0 ||
-      walk_below > kWindow || walk_max_k > kMaxKG) {
+      walk_below > kWindow || walk_max_k > kMaxKG || slots < 1 ||
+      slots > K || (slots > 1 && K > kMaxKG) ||
+      static_cast<long long>(L) * slots > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // a lane holds all its K candidates (at most kMaxKG; more are read from
   // the ring kMaxKG at a time)
   return dispatch<kMaxKG>(topk, order, load0, load0_stride, w, G, L, K, B,
-                          walk_below, walk_max_k, assign, rounds, stream);
+                          slots, walk_below, walk_max_k, assign, rounds,
+                          stream);
 }

@@ -33,17 +33,19 @@ def _launcher():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def kchoice(topk_idx, order, load0=None, weights=None, *, B: int,
-            rounds=None):
+            rounds=None, slots: int = 1):
     """Launch the CUDA kernel: topk_idx [G, L, K] int32 bucket ids < B,
     order [G, L] int32 (a permutation per rep), load0 [G, B] or [B] f32 or
-    None, weights [L] f32 or None, all on the card -> assign [G, L] int32.
+    None, weights [L] f32 or None, all on the card -> assign [G, L] int32,
+    or [G, L, slots] with ``slots`` > 1 (each label's ``slots`` distinct
+    picks in turn, as ref.kchoice_ref; K <= ref.WALK_MAX_K).
     ``rounds``, a [G] int32 tensor on the card or None, receives each
     rep's sequential rounds: its 32-label windows and its in-register
     steps, one a label walked (a diagnostic, compared with
@@ -77,6 +79,9 @@ def kchoice(topk_idx, order, load0=None, weights=None, *, B: int,
         raise ValueError(f"kchoice: B={B}, K={K} need {smem_bytes(B, K)} B "
                          f"of shared memory, over the {SMEM_BYTES} B one "
                          f"block may use")
+    if not 1 <= slots <= K or (slots > 1 and K > ref.WALK_MAX_K):
+        raise ValueError(f"kchoice: slots={slots} must lie in [1, K={K}], "
+                         f"and K <= {ref.WALK_MAX_K} for slots > 1")
     if rounds is not None and (rounds.dtype != torch.int32
                                or tuple(rounds.shape) != (G,)):
         raise ValueError(f"kchoice: rounds must be int32 [{G}], got "
@@ -84,7 +89,8 @@ def kchoice(topk_idx, order, load0=None, weights=None, *, B: int,
     if G > 2 ** 31 - 1:
         raise ValueError(f"kchoice: {G} reps exceed the grid")
     dev = topk_idx.device
-    out = torch.empty((G, L), dtype=torch.int32, device=dev)
+    out = torch.empty((G, L) + ((slots,) if slots > 1 else ()),
+                      dtype=torch.int32, device=dev)
     if L == 0 or G == 0:
         return out
     topk_idx, order = topk_idx.contiguous(), order.contiguous()
@@ -96,23 +102,25 @@ def kchoice(topk_idx, order, load0=None, weights=None, *, B: int,
             topk_idx.data_ptr(), order.data_ptr(),
             None if load0 is None else load0.data_ptr(), stride,
             None if weights is None else weights.data_ptr(), G, L, K, B,
-            ref.WALK_BELOW, ref.WALK_MAX_K, out.data_ptr(),
+            slots, ref.WALK_BELOW, ref.WALK_MAX_K, out.data_ptr(),
             None if rounds is None else rounds.data_ptr(), stream)
     check_launch("kchoice", err)
     LAUNCHES["kchoice"] += 1
     return out
 
 
-def kchoice_assign(topk_idx, order, load0=None, weights=None, *, B: int):
+def kchoice_assign(topk_idx, order, load0=None, weights=None, *, B: int,
+                   slots: int = 1):
     """Sequential least-loaded-of-top-K insertion for G reps at once:
-    topk_idx [G, L, K], order [G, L] -> assign [G, L] int32. The kernel on
-    the card, the plain version on the CPU."""
+    topk_idx [G, L, K], order [G, L] -> assign [G, L] int32 ([G, L, slots]
+    with ``slots`` > 1). The kernel on the card, the plain version on the
+    CPU."""
     if not on_card(topk_idx, order, load0, weights):
-        return kchoice_ref(topk_idx, order, load0, weights, B=B)
+        return kchoice_ref(topk_idx, order, load0, weights, B=B, slots=slots)
     return kchoice(topk_idx.to(torch.int32), order.to(torch.int32),
                    None if load0 is None else load0.to(torch.float32),
                    None if weights is None else weights.to(torch.float32),
-                   B=B)
+                   B=B, slots=slots)
 
 
 def step_cycles(device, n: int = 4096) -> float:

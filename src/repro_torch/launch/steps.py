@@ -15,14 +15,15 @@ donated); a serve step is ``step(params, batch) -> outputs`` under
     returning the last position's fp32 logits and hidden state, plus
     ``next_token`` (the greedy argmax of the reference's decode step,
     ``:155-161``);
+  * ``build_lm_decode`` (``:151-162``): one token against the KV caches,
+    greedy next token;
   * ``build_ctr_serve`` (``:179-182``): a CTR model's click probability;
   * ``build_retrieval_serve`` (``:185``): the brute-force two-tower
     candidate scoring that IRLI accelerates, ``distance_topk`` on the card;
   * ``build_irli_serve`` (``:300-331``): the sharded-corpus IRLI query over
     ``core/distributed.make_production_search``.
 
-The LM, GNN and CTR train steps, the decode step and ``opt_state_specs``
-wait (ROADMAP).
+The LM, GNN and CTR train steps and ``opt_state_specs`` wait (ROADMAP).
 """
 from __future__ import annotations
 
@@ -91,6 +92,31 @@ def build_lm_prefill(cfg):
             logits = _logits(model, cfg, last)
             return {"logits": logits, "hidden": last,
                     "next_token": next_token(logits)}
+
+    return step
+
+
+def build_lm_decode(cfg, context_len: int):
+    """step(model, batch) -> {"next_token" [B] int32, "caches", "logits"
+    [B, V] fp32, "hidden" [B, d]} for batch["token"] [B], batch["pos"] [B]
+    and batch["caches"] (``models.transformer.init_cache(cfg, B,
+    context_len)``), which the step writes in place and returns. The
+    logits and the final hidden state (the vocabulary head's input) come
+    with the reference's two outputs. The caches carry their length, as
+    in the reference, whose step does not read ``context_len`` either."""
+    from repro_torch.models.transformer import _logits, decode_hidden
+    del context_len
+
+    def step(model, batch):
+        with torch.inference_mode():
+            dev = model.device
+            token = torch.as_tensor(batch["token"], device=dev)
+            pos = torch.as_tensor(batch["pos"], device=dev)
+            caches = batch["caches"]
+            h = decode_hidden(model, cfg, token, caches, pos)
+            logits = _logits(model, cfg, h)
+            return {"next_token": next_token(logits), "caches": caches,
+                    "logits": logits, "hidden": h}
 
     return step
 

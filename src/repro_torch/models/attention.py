@@ -1,6 +1,6 @@
 """Grouped-query attention for the LM family.
 
-Port of ``repro/models/attention.py:25-146``: MHA/GQA/MQA, RoPE / NoPE,
+Port of ``repro/models/attention.py:25-189``: MHA/GQA/MQA, RoPE / NoPE,
 qk-norm (Qwen3), sliding-window (Mixtral), chunked-local (Llama-4), causal
 full. ``attend_train`` is [B, S] self-attention. Its causal full case
 (``kind="full"``, no logit cap, positions 0..S-1: what ``lm_backbone``
@@ -10,7 +10,12 @@ CPU), which holds no score tensor. The other kinds run ``_sdpa`` in plain
 torch, in query chunks, as in the reference, and so do the cases the
 kernel does not take (float16, a head_dim that is not a multiple of 16 in
 [16, 256]); the choice is made from the config and the activation dtype
-alone (``uses_kernel``). ``attend_decode`` waits for the decode slice; the
+alone (``uses_kernel``). ``attend_decode`` is one new token against a KV
+cache: the whole context for ``full`` and ``chunked`` (masked by ``_mask``
+at the absolute positions), a ring buffer of ``min(window, context)`` slots
+for ``swa`` (write slot pos % Sc); it writes the new K and V into the
+caches it is given, in place, and attends through ``_sdpa`` (the
+reference's decode attention is outside any Pallas kernel too). The
 reference's sequence sharding (``seq_shard``) is mesh machinery and is not
 ported.
 """
@@ -147,3 +152,40 @@ def attend_train(p, cfg: AttnConfig, x, positions=None):
                      cfg.window, cfg.chunk)
         outs.append(_sdpa(q[:, s0:s0 + qc], k, v, mask, cfg))
     return L.dense_apply(p["o_proj"], torch.cat(outs, dim=1))
+
+
+def attend_decode(p, cfg: AttnConfig, x, cache_k, cache_v, pos):
+    """One-step decode. x [B, 1, d_model]; cache_k, cache_v [B, Sc, Kv, D];
+    pos [B] int (each row's absolute position).
+
+    Writes the new K and V into slot pos (``full``, ``chunked``) or
+    pos % Sc (``swa``: a ring buffer whose slot i holds absolute position
+    pos - ((pos - i) mod Sc), masked while it is still empty) of the
+    caches, in place, and returns (out [B, 1, d_model], cache_k,
+    cache_v)."""
+    B = x.shape[0]
+    Sc = cache_k.shape[1]
+    pos = pos.to(torch.int64)
+    positions = pos[:, None]                                   # [B, 1]
+    q, k_new, v_new = _qkv(p, cfg, x, positions)
+    rows = torch.arange(B, device=x.device)
+    k_pos = torch.arange(Sc, device=x.device)[None, :]        # [1, Sc]
+    if cfg.kind == "swa":
+        slot = pos % Sc
+        abs_pos = positions - ((positions - k_pos) % Sc)
+        mask = ((abs_pos >= 0) & (abs_pos <= positions))[:, None, :]
+    else:
+        slot = pos
+        mask = _mask(cfg.kind, positions, k_pos.expand(B, Sc), cfg.window,
+                     cfg.chunk)                                # [B, 1, Sc]
+    cache_k[rows, slot] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[rows, slot] = v_new[:, 0].to(cache_v.dtype)
+    out = _sdpa(q, cache_k, cache_v, mask, cfg)
+    return L.dense_apply(p["o_proj"], out), cache_k, cache_v
+
+
+def decode_cache_len(cfg: AttnConfig, context_len: int) -> int:
+    """Physical KV-cache length for a given logical context length."""
+    if cfg.kind == "swa":
+        return min(cfg.window, context_len)
+    return context_len

@@ -1,0 +1,240 @@
+"""Mixture-of-Experts block (GShard/Mixtral-style capacity dispatch) with an
+optional IRLI-flavoured router.
+
+Port of ``repro/models/moe.py``. Routing modes:
+  - ``topk``         — softmax top-k with the GShard load-balance loss;
+  - ``irli_kchoice`` — the paper's power-of-K-choices applied to experts:
+    each token considers its top-K experts and takes, for each of its
+    ``top_k`` slots, the least-loaded one it has not taken yet, tokens in
+    order (aux-loss-free balance). On the card that walk is one launch of
+    the ``kchoice`` kernel (``kernels/kchoice``: G = 1 for the flat token
+    block, G = batch rows in the per-row path, ``slots = top_k``); on the
+    CPU its plain version. No Python loop over tokens runs on the card.
+
+Both routers take their top-K with ``core/topk.topk_stable``: a tie goes to
+the smaller expert id, as ``jax.lax.top_k`` breaks it. Dispatch is the
+reference's capacity-bounded scatter into [E, C, d] (``_moe_tokens``) or
+[B, E, C, d] (``_moe_rows``, the path of a block longer than
+``ffn_chunk``), a token's queue position the running count of its expert
+over the (token, slot) pairs in order; the expert products are batched
+matmuls over the stacked [E, d, f] weights (the reference computes them in
+plain XLA, outside any Pallas kernel). ``_moe_tokens`` accumulates them in
+fp32 and returns fp32 before the casts the reference makes; ``_moe_rows``
+keeps the activation dtype, as the reference's. The top-k outputs of a
+token are summed in slot order in the activation dtype. The reference's
+mesh constraints (``constrain_first``) do nothing on one device and are
+not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.topk import topk_stable
+from repro_torch.kernels.kchoice.ops import kchoice_assign
+from repro_torch.models import layers as L
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    d_model: int
+    d_ff: int
+    n_experts: int
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    router: str = "topk"          # topk | irli_kchoice
+    router_k_choices: int = 4      # K for irli_kchoice (>= top_k)
+    n_shared_experts: int = 0      # llama4-style always-on shared expert
+    act: str = "silu"
+    ffn_chunk: int = 65536         # max tokens dispatched at once (memory cap)
+
+
+def _expert_stack(gen: torch.Generator, E: int, shape, scale: float,
+                  dtype) -> torch.Tensor:
+    """[E, *shape] ~ normal · scale in dtype, drawn an expert at a time:
+    the fp32 draw never holds more than one expert (llama4's stacks are
+    10.7 GB each in bf16, 21.5 GB in fp32)."""
+    out = torch.empty((E, *shape), dtype=dtype, device=gen.device)
+    for e in range(E):
+        out[e] = L._normal(gen, shape, scale, dtype)
+    return out
+
+
+def moe_init(gen: torch.Generator, cfg: MoEConfig,
+             dtype=torch.float32) -> dict:
+    """router kernel [d, E]; experts gate, up [E, d, f] ~ normal / sqrt(d)
+    and down [E, f, d] ~ normal / sqrt(f), one stacked tensor each; a
+    shared GLU expert of width f·n_shared_experts where there is one."""
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    p = {"router": L.dense_init(gen, d, E, dtype, use_bias=False),
+         "experts": {"gate": _expert_stack(gen, E, (d, f), d ** -0.5, dtype),
+                     "up": _expert_stack(gen, E, (d, f), d ** -0.5, dtype),
+                     "down": _expert_stack(gen, E, (f, d), f ** -0.5,
+                                           dtype)}}
+    if cfg.n_shared_experts > 0:
+        p["shared"] = L.glu_mlp_init(gen, d, f * cfg.n_shared_experts, dtype)
+    return p
+
+
+def _capacity(cfg: MoEConfig, n_tokens: int) -> int:
+    cap = int(cfg.capacity_factor * n_tokens * cfg.top_k / cfg.n_experts)
+    return max(8, ((cap + 7) // 8) * 8)  # a multiple of 8, as the reference
+
+
+def _route_topk(logits, cfg: MoEConfig):
+    """Standard top-k routing. logits [.., T, E] -> (weights [.., T, k] f32,
+    idx [.., T, k] int64, aux [..]: E · sum_e(frac_tokens_e · mean_prob_e)
+    over the T tokens)."""
+    E = logits.shape[-1]
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    w, idx = topk_stable(probs, cfg.top_k)
+    w = w / (w.sum(-1, keepdim=True) + 1e-9)
+    me = probs.mean(-2)
+    ce = F.one_hot(idx[..., 0], E).to(torch.float32).mean(-2)
+    return w, idx, E * (me * ce).sum(-1)
+
+
+def _route_irli_kchoice(logits, cfg: MoEConfig):
+    """Power-of-K-choices routing (the paper's Thm. 2 applied to experts):
+    tokens in order, each of a token's ``top_k`` slots the least-loaded of
+    its top ``max(router_k_choices, top_k)`` experts it has not taken yet
+    (the first in choice order at equal load), each pick adding 1 to its
+    expert's load; every row of a [G, T, E] input has its own loads.
+    logits [.., T, E] -> (weights [.., T, k] f32, idx [.., T, k] int64,
+    aux 0)."""
+    E = logits.shape[-1]
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    K = max(cfg.router_k_choices, cfg.top_k)
+    _, topi = topk_stable(probs, K)                          # [.., T, K]
+    ti = topi.reshape(-1, *topi.shape[-2:])                  # [G, T, K]
+    G, T = ti.shape[:2]
+    order = torch.arange(T, dtype=torch.int32,
+                         device=ti.device).expand(G, T)
+    idx = kchoice_assign(ti.to(torch.int32), order, B=E, slots=cfg.top_k)
+    idx = idx.reshape(*topi.shape[:-1], cfg.top_k).long()
+    w = probs.gather(-1, idx)
+    w = w / (w.sum(-1, keepdim=True) + 1e-9)
+    return w, idx, torch.zeros((), dtype=torch.float32, device=w.device)
+
+
+def _route(logits, cfg: MoEConfig):
+    if cfg.router == "irli_kchoice":
+        return _route_irli_kchoice(logits, cfg)
+    if cfg.router == "topk":
+        return _route_topk(logits, cfg)
+    raise ValueError(f"unknown router {cfg.router!r}")
+
+
+def _queue_positions(idx, E: int, C: int):
+    """Each (token, slot)'s place in its expert's queue, the (token, slot)
+    pairs taken in order: idx [.., T, k] -> (pos [.., T, k] int64, keep:
+    pos < C)."""
+    *lead, T, k = idx.shape
+    flat = F.one_hot(idx, E).reshape(*lead, T * k, E)
+    pos = (torch.cumsum(flat, dim=-2) * flat - 1).amax(-1).reshape(idx.shape)
+    return pos, (pos < C) & (pos >= 0)
+
+
+def _f32_bmm(a, b):
+    """a [n, i, j] @ b [n, j, l], products summed in fp32 -> fp32: bf16
+    operands on the card go to one bf16 matmul with an fp32 output; on the
+    CPU (or fp32 operands) an fp32 matmul of the upcast operands."""
+    if a.is_cuda and a.dtype == b.dtype and a.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.to(torch.float32), b.to(torch.float32))
+
+
+def _experts_f32(p, cfg: MoEConfig, disp, dtype):
+    """The stacked GLU experts on disp [E, C, d], accumulated in fp32:
+    (act(disp·gate) · (disp·up)) in fp32, cast to dtype, then ·down in
+    fp32, cast to dtype -> [E, C, d]."""
+    ex = p["experts"]
+    h = _f32_bmm(disp, ex["gate"])
+    u = _f32_bmm(disp, ex["up"])
+    h = (L.ACTS[cfg.act](h) * u).to(dtype)
+    return _f32_bmm(h, ex["down"]).to(dtype)
+
+
+def _moe_tokens(p, cfg: MoEConfig, xt):
+    """Dispatch + expert compute + combine for a flat token block [T, d]
+    -> (y [T, d], aux)."""
+    T, d = xt.shape
+    k, E = cfg.top_k, cfg.n_experts
+    w, idx, aux = _route(L.dense_apply(p["router"], xt), cfg)  # [T, k]
+    C = _capacity(cfg, T)
+    pos, keep = _queue_positions(idx, E, C)
+    w = torch.where(keep, w, 0.0)
+    e_flat = idx.reshape(-1)
+    c_flat = pos.reshape(-1).clamp(0, C - 1)
+    tok_flat = torch.arange(T, device=xt.device).repeat_interleave(k)
+    keep_flat = keep.reshape(-1)
+    vals = torch.where(keep_flat[:, None], xt[tok_flat], 0.0)
+    disp = torch.zeros((E, C, d), dtype=xt.dtype, device=xt.device)
+    disp.index_put_((e_flat, c_flat), vals, accumulate=True)
+    out_e = _experts_f32(p, cfg, disp, xt.dtype)               # [E, C, d]
+    gathered = out_e[e_flat, c_flat] * (w.reshape(-1, 1)
+                                        * keep_flat[:, None]).to(xt.dtype)
+    # the reference's segment_sum over a token's k slots, in slot order
+    gathered = gathered.reshape(T, k, d)
+    y = torch.zeros_like(xt)
+    for j in range(k):
+        y = y + gathered[:, j]
+    if cfg.n_shared_experts > 0:
+        y = y + L.glu_mlp_apply(p["shared"], xt, cfg.act)
+    return y, aux
+
+
+def _moe_rows(p, cfg: MoEConfig, x):
+    """Per-batch-row capacity dispatch. x [B, T, d] -> (y [B, T, d], aux):
+    routing (each row its own loads), queue positions, the [B, E, C_row, d]
+    dispatch and the combine are row-local; the expert products keep the
+    activation dtype."""
+    B, T, d = x.shape
+    k, E = cfg.top_k, cfg.n_experts
+    w, idx, aux = _route(L.dense_apply(p["router"], x), cfg)   # [B, T, k]
+    aux = aux.mean()
+    C = _capacity(cfg, T)
+    pos, keep = _queue_positions(idx, E, C)
+    w = torch.where(keep, w, 0.0)
+    b_idx = torch.arange(B, device=x.device)[:, None].expand(B, T)
+    disp = torch.zeros((B, E, C, d), dtype=x.dtype, device=x.device)
+    for j in range(k):
+        v_j = torch.where(keep[:, :, j, None], x, 0.0)
+        disp.index_put_((b_idx, idx[:, :, j], pos[:, :, j].clamp(0, C - 1)),
+                        v_j, accumulate=True)
+    ex = p["experts"]
+    h = torch.einsum("becd,edf->becf", disp, ex["gate"])
+    u = torch.einsum("becd,edf->becf", disp, ex["up"])
+    h = (L.ACTS[cfg.act](h) * u).to(x.dtype)
+    out_e = torch.einsum("becf,efd->becd", h, ex["down"]).to(x.dtype)
+    y = torch.zeros_like(x)
+    for j in range(k):
+        o_j = out_e[b_idx, idx[:, :, j], pos[:, :, j].clamp(0, C - 1)]
+        y = y + o_j * (w[:, :, j, None] * keep[:, :, j, None]).to(x.dtype)
+    if cfg.n_shared_experts > 0:
+        y = y + L.glu_mlp_apply(p["shared"], x, cfg.act)
+    return y, aux
+
+
+def moe_apply(p, cfg: MoEConfig, x):
+    """x [B, S, d] -> (y [B, S, d], aux loss). Capacity-bounded dispatch.
+
+    When T = B·S exceeds ``ffn_chunk`` (and the sequence splits evenly),
+    the tokens go through ``_moe_rows`` in sequence chunks of
+    ffn_chunk // B, one after another (the FFN is position-independent):
+    the dispatch buffers stay bounded at prefill scale. Otherwise the
+    whole block is one ``_moe_tokens`` call."""
+    B, S, d = x.shape
+    T = B * S
+    s_chunk = max(1, cfg.ffn_chunk // max(B, 1))
+    if T > cfg.ffn_chunk and S % s_chunk == 0 and S // s_chunk > 1:
+        ys, auxs = [], []
+        for s0 in range(0, S, s_chunk):
+            y, aux = _moe_rows(p, cfg, x[:, s0:s0 + s_chunk])
+            ys.append(y)
+            auxs.append(aux)
+        return torch.cat(ys, dim=1), torch.stack(auxs).sum()
+    y, aux = _moe_tokens(p, cfg, x.reshape(T, d))
+    return y.reshape(B, S, d), aux

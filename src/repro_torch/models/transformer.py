@@ -1,30 +1,44 @@
-"""The LM family's transformer stack: GQA attention and a GLU MLP per
-layer, tied or untied head.
+"""The LM family's transformer stack: GQA attention and a GLU MLP or an
+MoE block per layer, tied or untied head, and the decode step with its KV
+caches.
 
-Port of ``repro/models/transformer.py:24-205`` for the forward. The model
+Port of ``repro/models/transformer.py:24-205`` for the forward and
+``:256-314`` for decode. The model
 is an ``nn.Module`` (:class:`LM`) whose parameter names follow the
 reference's paths with the layer axis unstacked: the reference's
 ``layers/sub{i}/attn/q_proj/kernel`` [n_layers // period, d, H·D] is the
 port's ``layers.{g·period + i}.attn.q_proj.kernel`` [d, H·D] (the
 reference's [d_in, d_out] kernel layout; ``convert.lm_params_from_
 reference`` carries weights across). The reference scans the layers with
-remat; the forward's numbers are the same as a Python loop's. MoE layers
-(``cfg.moe``), ``chunked_xent``, ``lm_loss``, the KV cache and
-``lm_decode_step`` wait (ROADMAP), and so do the reference's settings that
-only they or the mesh read (``ce_chunk``, ``remat``, ``seq_shard_attn``).
+remat; the forward's numbers are the same as a Python loop's. An MoE
+layer (``cfg.moe``) holds ``moe`` (``models/moe.py``: the router and the
+stacked [E, d, f] experts) where a dense one holds ``mlp``.
+
+Decode: ``init_cache`` gives one {"k", "v"} pair a layer ([B, Sc, Kv, D],
+Sc the context, or a ring of min(window, context) slots on an SWA layer),
+``cache_specs`` their shapes and dtypes, and ``lm_decode_step`` one token
+against them. It writes each layer's new K and V into the caches it is
+given, in place, and returns them: the reference returns functional
+copies, and copying a 15 GB cache each step would cost more than the step
+(ROADMAP, the deliberate divergences). ``chunked_xent``, ``lm_loss`` and
+the train step wait (ROADMAP), and so do the reference's settings that only
+they or the mesh read (``ce_chunk``, ``remat``, ``seq_shard_attn``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 from torch import nn
 
 from repro_torch.kernels import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.attention import AttnConfig, attend_train, attn_init
+from repro_torch.models.attention import (AttnConfig, attend_decode,
+                                          attend_train, attn_init,
+                                          decode_cache_len)
 from repro_torch.models.module import as_module
+from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +62,7 @@ class LMConfig:
     window: int = 4096
     chunk: int = 8192
     nope_on_full: bool = False         # NoPE on 'full' layers (llama4)
-    moe: Optional[Any] = None          # the reference's MoEConfig; not ported
+    moe: Optional[MoEConfig] = None    # MoE (None => dense GLU MLP)
     param_dtype: str = "bfloat16"
     q_chunk: int = 1024
 
@@ -101,13 +115,6 @@ def _dtype(cfg: LMConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
-def _no_moe(cfg: LMConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP, the MoE "
-            f"item: models/moe.py)")
-
-
 class LM(nn.ModuleDict):
     """The LM's parameters, nested as the reference's tree: ``embed``,
     ``layers`` (one entry a layer), ``ln_final`` and, untied,
@@ -115,7 +122,6 @@ class LM(nn.ModuleDict):
     :func:`lm_backbone`."""
 
     def __init__(self, cfg: LMConfig, tree: dict):
-        _no_moe(cfg)
         order = ("embed", "layers", "ln_final", "lm_head")
         super().__init__({k: as_module(tree[k]) for k in order if k in tree})
         self.cfg = cfg
@@ -131,10 +137,14 @@ class LM(nn.ModuleDict):
 # ------------------------------------------------------------------ init ----
 def _layer_init(gen: torch.Generator, cfg: LMConfig, kind_idx: int) -> dict:
     dt = _dtype(cfg)
-    return {"ln_attn": L.rmsnorm_init(cfg.d_model, dt, gen.device),
-            "attn": attn_init(gen, cfg.attn_cfg(kind_idx), dt),
-            "ln_mlp": L.rmsnorm_init(cfg.d_model, dt, gen.device),
-            "mlp": L.glu_mlp_init(gen, cfg.d_model, cfg.d_ff, dt)}
+    p = {"ln_attn": L.rmsnorm_init(cfg.d_model, dt, gen.device),
+         "attn": attn_init(gen, cfg.attn_cfg(kind_idx), dt),
+         "ln_mlp": L.rmsnorm_init(cfg.d_model, dt, gen.device)}
+    if cfg.moe is not None:
+        p["moe"] = moe_init(gen, cfg.moe, dt)
+    else:
+        p["mlp"] = L.glu_mlp_init(gen, cfg.d_model, cfg.d_ff, dt)
+    return p
 
 
 def lm_init(cfg: LMConfig, *, seed: int = 0,
@@ -143,7 +153,6 @@ def lm_init(cfg: LMConfig, *, seed: int = 0,
     ``seed``: dense kernels normal / sqrt(d_in), the embedding normal /
     sqrt(d), norm scales 0 (the reference's distributions; not its
     numbers)."""
-    _no_moe(cfg)
     if cfg.n_layers % cfg.period:
         raise ValueError(f"n_layers {cfg.n_layers} % pattern period "
                          f"{cfg.period} != 0")
@@ -161,24 +170,40 @@ def lm_init(cfg: LMConfig, *, seed: int = 0,
 
 
 # --------------------------------------------------------------- forward ----
-def lm_backbone(params, cfg: LMConfig, tokens):
-    """tokens [B, S] -> (final hidden [B, S, d], aux loss 0). Every layer's
-    attention is one ``attend_train`` call (the flash-attention kernel on
-    the card for the full-attention configs)."""
-    _no_moe(cfg)
+def _embed(params, cfg: LMConfig, tokens):
     x = L.embedding_apply(params["embed"], tokens)
     if cfg.embed_scale:
         # rounded to the activation dtype first, as the reference does:
         # sqrt(3072) = 55.4256 is 55.5 in bf16
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def _ffn(lp, cfg: LMConfig, h):
+    """A layer's MLP or MoE block -> (y, aux loss)."""
+    if cfg.moe is not None:
+        return moe_apply(lp["moe"], cfg.moe, h)
+    return L.glu_mlp_apply(lp["mlp"], h, cfg.act), None
+
+
+def lm_backbone(params, cfg: LMConfig, tokens):
+    """tokens [B, S] -> (final hidden [B, S, d], aux loss: the MoE layers'
+    load-balance losses summed, 0 for a dense model). Every layer's
+    attention is one ``attend_train`` call (the flash-attention kernel on
+    the card for the full-attention configs)."""
+    x = _embed(params, cfg, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, lp in enumerate(params["layers"]):
         acfg = cfg.attn_cfg(layer % cfg.period)
         h = L.rmsnorm_apply(lp["ln_attn"], x)
         x = x + attend_train(lp["attn"], acfg, h)
         h = L.rmsnorm_apply(lp["ln_mlp"], x)
-        x = x + L.glu_mlp_apply(lp["mlp"], h, cfg.act)
+        y, a = _ffn(lp, cfg, h)
+        if a is not None:
+            aux = aux + a
+        x = x + y
     x = L.rmsnorm_apply(params["ln_final"], x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def _logits(params, cfg: LMConfig, h):
@@ -191,3 +216,57 @@ def _logits(params, cfg: LMConfig, h):
     if cfg.logit_cap > 0:
         out = cfg.logit_cap * torch.tanh(out / cfg.logit_cap)
     return out
+
+
+# ---------------------------------------------------------------- decode ----
+def cache_specs(cfg: LMConfig, batch: int, context_len: int,
+                dtype: torch.dtype | None = None) -> list[dict]:
+    """The caches' shapes and dtypes without their memory: one {"k":
+    (shape, dtype), "v": (shape, dtype)} a layer, shape [batch, Sc,
+    n_kv_heads, head_dim] with Sc = ``decode_cache_len`` of the layer's
+    attention (the reference's ShapeDtypeStructs)."""
+    dtype = dtype or _dtype(cfg)
+    out = []
+    for layer in range(cfg.n_layers):
+        Sc = decode_cache_len(cfg.attn_cfg(layer % cfg.period), context_len)
+        spec = ((batch, Sc, cfg.n_kv_heads, cfg.head_dim), dtype)
+        out.append({"k": spec, "v": spec})
+    return out
+
+
+def init_cache(cfg: LMConfig, batch: int, context_len: int,
+               dtype: torch.dtype | None = None,
+               device: str | torch.device = "cuda") -> list[dict]:
+    """Zero KV caches on ``device``, one {"k", "v"} pair of separate
+    tensors a layer (``lm_decode_step`` writes them in place), ring buffers
+    on the SWA layers."""
+    dev = resolve_device(device)
+    return [{n: torch.zeros(shape, dtype=dt, device=dev)
+             for n, (shape, dt) in spec.items()}
+            for spec in cache_specs(cfg, batch, context_len, dtype)]
+
+
+def decode_hidden(params, cfg: LMConfig, token, caches, pos):
+    """One decode step up to the final norm: token [B], caches (written in
+    place), pos [B] -> final hidden [B, d]. The layers run in a Python loop
+    (an SWA ring buffer and a full cache differ in shape)."""
+    with torch.inference_mode():
+        x = _embed(params, cfg, token)[:, None, :]
+        for layer, lp in enumerate(params["layers"]):
+            acfg = cfg.attn_cfg(layer % cfg.period)
+            c = caches[layer]
+            h = L.rmsnorm_apply(lp["ln_attn"], x)
+            out, _, _ = attend_decode(lp["attn"], acfg, h, c["k"], c["v"],
+                                      pos)
+            x = x + out
+            x = x + _ffn(lp, cfg, L.rmsnorm_apply(lp["ln_mlp"], x))[0]
+        return L.rmsnorm_apply(params["ln_final"], x)[:, 0, :]
+
+
+def lm_decode_step(params, cfg: LMConfig, token, caches, pos):
+    """One decode step. token [B], caches a list of per-layer {"k", "v"},
+    pos [B] -> (logits [B, V] fp32, caches). The new K and V are written
+    into the given caches in place, under ``torch.inference_mode``; the
+    returned caches are those tensors."""
+    h = decode_hidden(params, cfg, token, caches, pos)
+    return _logits(params, cfg, h), caches

@@ -499,18 +499,19 @@ def test_kchoice_kernel_follows_the_walk_policy(card, monkeypatch, kind,
 
 def test_kchoice_c_entry_refuses_a_walk_policy_it_cannot_hold(card):
     """A window has 32 lanes and a lane holds at most 16 candidates: the C
-    entry refuses walk_below past 32 and walk_max_k past 16, and launches
-    nothing."""
+    entry refuses walk_below past 32 and walk_max_k past 16, and slots
+    outside [1, K], and launches nothing."""
     from repro_torch.kernels.kchoice import ops as kops
     topk = torch.zeros((1, 64, 4), dtype=torch.int32, device=card)
     order = torch.arange(64, dtype=torch.int32, device=card)[None]
     out = torch.full((1, 64), -1, dtype=torch.int32, device=card)
-    for below, max_k in ((33, 16), (8, 17), (-1, 16)):
+    for below, max_k, slots in ((33, 16, 1), (8, 17, 1), (-1, 16, 1),
+                                (8, 16, 0), (8, 16, 5)):
         err = kops._launcher()(topk.data_ptr(), order.data_ptr(), None, 0,
-                               None, 1, 64, 4, 8, below, max_k,
+                               None, 1, 64, 4, 8, slots, below, max_k,
                                out.data_ptr(), None,
                                torch.cuda.current_stream(card).cuda_stream)
-        assert err != 0, (below, max_k)
+        assert err != 0, (below, max_k, slots)
     torch.cuda.synchronize(card)
     assert out.eq(-1).all()
 
@@ -1574,3 +1575,171 @@ def test_trainer_crash_resume_is_bit_identical_on_the_card(card, tmp_path):
     for k, v in ref.state["params"].items():
         assert torch.equal(v, res.state["params"][k]), k
     assert out["metrics"][2]["loss"] == rout["metrics"][0]["loss"]
+
+
+# ---------------------------------------------- the LM's serving path ----
+def _router_lists(kind, G, T, E, K, seed):
+    """The MoE router's candidates: each token's top-K experts of softmax
+    logits [G, T, E] (stable: a tie to the smaller id), int32 [G, T, K],
+    on the CPU. "equal": every logit 0, so every token's list is 0..K-1
+    and every pick a tie of loads."""
+    from repro_torch.core.topk import topk_stable
+    rng = np.random.default_rng(seed)
+    lg = (np.zeros((G, T, E)) if kind == "equal"
+          else rng.normal(size=(G, T, E))).astype(np.float32)
+    probs = torch.softmax(torch.from_numpy(lg), dim=-1)
+    return topk_stable(probs, K)[1].to(torch.int32)
+
+
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("K", [2, 4])
+@pytest.mark.parametrize("T", [1, 33, 4096])
+@pytest.mark.parametrize("E", [8, 128])
+@pytest.mark.parametrize("slots", [1, 2])
+def test_kchoice_slots_match_plain_on_router_lists(card, slots, E, T, K, G):
+    """The MoE router's walk (tokens in order, ``slots`` distinct picks a
+    token, each the least-loaded of its K not yet taken): one launch,
+    bit-equal to kchoice_ref with the same slots, its rounds the plain
+    schedule's."""
+    from repro_torch.kernels.kchoice import ops as kops
+    from repro_torch.kernels.kchoice.ref import kchoice_ref, kchoice_windows
+    topi = _router_lists("random", G, T, E, K, T + E + K)
+    order = torch.arange(T, dtype=torch.int32).expand(G, T).contiguous()
+    rounds = torch.zeros(G, dtype=torch.int32, device=card)
+    reset_launches()
+    got = kops.kchoice(topi.to(card), order.to(card), B=E, slots=slots,
+                       rounds=rounds)
+    torch.cuda.synchronize()
+    assert LAUNCHES["kchoice"] == 1
+    want = kchoice_ref(topi, order, B=E, slots=slots)
+    assert got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+    _, plain_rounds = kchoice_windows(topi, order, B=E, slots=slots)
+    assert rounds.tolist() == plain_rounds.tolist()
+
+
+@pytest.mark.parametrize("E", [8, 128])
+@pytest.mark.parametrize("slots", [1, 2])
+def test_kchoice_slots_at_all_equal_logits(card, slots, E):
+    """Every token's candidates are experts 0..3 and every pick a tie of
+    loads: the first in choice order wins each, bit-equal to the plain
+    walk (which round-robins the four experts)."""
+    from repro_torch.kernels.kchoice import ops as kops
+    from repro_torch.kernels.kchoice.ref import kchoice_ref
+    G, T = 3, 1000
+    topi = _router_lists("equal", G, T, E, 4, 0)
+    order = torch.arange(T, dtype=torch.int32).expand(G, T).contiguous()
+    got = kops.kchoice(topi.to(card), order.to(card), B=E, slots=slots)
+    want = kchoice_ref(topi, order, B=E, slots=slots)
+    assert torch.equal(got.cpu(), want)
+    assert set(want.flatten().tolist()) == {0, 1, 2, 3}
+
+
+def test_kchoice_refuses_slots_it_cannot_walk(card):
+    from repro_torch.kernels.kchoice import ops as kops
+    topi = torch.zeros((1, 8, 4), dtype=torch.int32, device=card)
+    order = torch.arange(8, dtype=torch.int32, device=card)[None]
+    for bad in (0, 5):
+        with pytest.raises(ValueError, match="slots"):
+            kops.kchoice(topi, order, B=8, slots=bad)
+
+
+def test_vocab_head_probe_is_one_irli_topk_launch(card):
+    """The vocabulary head's probe on the card is one irli_topk launch,
+    equal to the plain top-m of the probabilities (core/query.top_buckets)
+    outside near ties at the m cut; the candidate ids equal the same
+    gather of the plain probe's buckets, the logits the CPU's to 1e-5."""
+    from repro_torch.core import partition as PTN
+    from repro_torch.core import query as TQ
+    from repro_torch.core import vocab_head as PV
+    from repro_torch.core.network import scorer_logits
+    V, d, B, R, Bq, m = 4096, 64, 64, 4, 8, 8
+    gen = torch.Generator().manual_seed(0)
+    embed = torch.randn((V, d), generator=gen).to(torch.bfloat16)
+    sp = {"w1": torch.randn((R, d, 96), generator=gen) / d ** 0.5,
+          "b1": torch.zeros((R, 96)),
+          "w2": torch.randn((R, 96, B), generator=gen) / 96 ** 0.5,
+          "b2": torch.zeros((R, B))}
+    index = PTN.build_inverted_index(PTN.hash_init(V, B, R, 0), B,
+                                     max_load=2 * V // B)
+    h = torch.randn((Bq, d), generator=gen).to(torch.bfloat16)
+    on = lambda t: t.to(card)
+    csp = {k: on(v) for k, v in sp.items()}
+    cindex = PTN.InvertedIndex(on(index.members), on(index.load),
+                               index.max_load)
+    reset_launches()
+    bidx = PV.probe_buckets(csp, on(h), m)
+    torch.cuda.synchronize()
+    assert LAUNCHES["irli_topk"] == 1
+    pv, pi = TQ.top_buckets(sp, h, m + 1)
+    logits = scorer_logits(sp, h)
+    kv = logits.gather(-1, bidx.long().cpu())
+    same_topm(kv, bidx.cpu(), logits.gather(-1, pi), pi)
+    cands, cl = PV.candidate_token_logits(csp, cindex, on(embed), on(h), m=m)
+    want = TQ.gather_members(index.members, bidx.cpu())
+    assert torch.equal(cands.cpu(), want)
+    rows = embed[want.clamp(min=0).long()].float()
+    ref = torch.einsum("bcd,bd->bc", rows, h.float())
+    ref = ref.masked_fill(want < 0, float("-inf"))
+    torch.testing.assert_close(cl.cpu(), ref, rtol=1e-5, atol=1e-5)
+    tok = PV.greedy_token(csp, cindex, on(embed), on(h), m=m)
+    assert torch.equal(tok.cpu(), want.gather(1, ref.argmax(1)[:, None])[:, 0])
+
+
+@pytest.mark.parametrize("router", ["topk", "irli_kchoice"])
+def test_lm_decode_step_on_the_card_equals_the_cpu(card, router):
+    """A small fp32 mixtral-shaped model (SWA ring of 8, 4 experts top-2)
+    decoded 12 steps on the card and on the CPU from the same weights:
+    logits and caches to 1e-4 (fp32 GEMMs in another order), next tokens
+    equal; under irli_kchoice one kchoice launch a layer a step."""
+    from repro_torch.launch.steps import build_lm_decode
+    from repro_torch.models.moe import MoEConfig
+    from repro_torch.models.transformer import LMConfig, init_cache, lm_init
+    cfg = LMConfig(name="mixtral-tiny", n_layers=2, d_model=64, n_heads=4,
+                   n_kv_heads=2, head_dim=16, d_ff=128, vocab=512,
+                   attn_pattern=("swa",), window=8, tie_embeddings=False,
+                   param_dtype="float32",
+                   moe=MoEConfig(d_model=64, d_ff=128, n_experts=4, top_k=2,
+                                 router=router))
+    cpu = lm_init(cfg, seed=0, device="cpu")
+    gpu = lm_init(cfg, seed=0, device="cpu").to(card)
+    B, ctx = 3, 16
+    cc, gc = (init_cache(cfg, B, ctx, device="cpu"),
+              init_cache(cfg, B, ctx, device=card))
+    step = build_lm_decode(cfg, ctx)
+    toks = torch.randint(0, 512, (12, B), generator=torch.Generator()
+                         .manual_seed(1))
+    for s in range(12):
+        pos = torch.tensor([s, s + 2, s + 5])
+        reset_launches()
+        g = step(gpu, {"token": toks[s], "pos": pos, "caches": gc})
+        torch.cuda.synchronize()
+        assert LAUNCHES["kchoice"] == (2 if router == "irli_kchoice" else 0)
+        c = step(cpu, {"token": toks[s], "pos": pos, "caches": cc})
+        torch.testing.assert_close(g["logits"].cpu(), c["logits"],
+                                   rtol=1e-4, atol=1e-4)
+        assert torch.equal(g["next_token"].cpu(), c["next_token"])
+    for a, b in zip(gc, cc):
+        torch.testing.assert_close(a["k"].cpu(), b["k"], rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_moe_tokens_bf16_on_the_card_accumulates_in_fp32(card):
+    """_moe_tokens at bf16 on the card (the experts' products summed in
+    fp32, one bf16 matmul with an fp32 output) against the same block on
+    the CPU (fp32 matmuls of the upcast operands): within bf16 rounding of
+    the output (2e-2), the same routing."""
+    from repro_torch.models import moe as PMOE
+    cfg = PMOE.MoEConfig(d_model=256, d_ff=512, n_experts=8, top_k=2,
+                         router="irli_kchoice")
+    gen = torch.Generator().manual_seed(0)
+    p = PMOE.moe_init(gen, cfg, torch.bfloat16)
+    x = torch.randn((200, 256), generator=gen).to(torch.bfloat16)
+    y, _ = PMOE._moe_tokens(p, cfg, x)
+    gp = {k: ({n: v.to(card) for n, v in t.items()}) for k, t in p.items()}
+    reset_launches()
+    gy, _ = PMOE._moe_tokens(gp, cfg, x.to(card))
+    torch.cuda.synchronize()
+    assert LAUNCHES["kchoice"] == 1
+    torch.testing.assert_close(gy.cpu().float(), y.float(), rtol=2e-2,
+                               atol=2e-2)

@@ -612,13 +612,3 @@ def test_configs_copy_the_reference_value_for_value(jcfg, pcfg):
     for i in range(pcfg.period):
         assert same_fields(pcfg.attn_cfg(i), jcfg.attn_cfg(i)) == \
             {"seq_shard"}
-
-
-def test_moe_configs_raise_until_ported():
-    moe = dataclasses.make_dataclass(
-        "MoE", ["d_ff", "n_experts", "top_k", "n_shared_experts"])(
-        128, 4, 2, 1)
-    cfg = LMConfig(**dict(LM_VARIANTS["yi-6b"]), moe=moe)
-    assert cfg.n_active_params < cfg.n_params
-    with pytest.raises(NotImplementedError, match="MoE"):
-        lm_init(cfg, device="cpu")
