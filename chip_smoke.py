@@ -51,7 +51,8 @@ path at its own:
     read), held to the plain search, the probe counter's sum, each batch's
     launches, each query's epoch that of the last mutation before it;
   * the refit cell (``refit_cell``): a hash-partitioned index at the
-    deep1b widths over FIT_L labels (sigmoid_bce), a MutableIRLIIndex
+    deep1b widths (R = REFIT_R = 16) over FIT_L labels (sigmoid_bce), a
+    MutableIRLIIndex
     (int8, capacity 2L, delta_len 208) served through IRLIServer with a
     QueryLog, a ShadowAuditor over the exact oracle (sample 0.05) and a
     DriftDetector, inserts and deletes through the server, one
@@ -111,7 +112,7 @@ path at its own:
   * the train cell (``train_cell``, after the fit): (a) the fault-tolerant
     ``Trainer`` (train/trainer.py) over ``launch/steps.
     build_irli_fit_parts`` at the fit cell's config with R cut to TRAIN_R
-    = 4, TRAIN_ROUNDS = 3 rounds of 1 epoch, a checkpoint every 2:
+    = 2, TRAIN_ROUNDS = 3 rounds of 1 epoch, a checkpoint every 2:
     uninterrupted, then crashed before round 2 (``fail_at_step``) and
     resumed from its checkpoint, assign, params and the last round's loss
     bit-equal to the uninterrupted run; the round times (after
@@ -208,7 +209,39 @@ path at its own:
     time by op (``device_split``); then the kernel alone at serve_bulk's
     shapes beside its byte bound, the plain version and
     ``F.embedding_bag``, and at serve_p99's item ids; its registers and
-    spill bytes (0, a gate) and its lane plan against the C side's.
+    spill bytes (0, a gate) and its lane plan against the C side's;
+  * the model-train cell (``model_train_cell``): (a) gemma-7b at full
+    width, GEMMA_TRAIN_LAYERS = 4 of 28 layers, bf16, through
+    ``build_lm_train_step`` (adamw_nomaster, lr TRAIN_LR, n_micro 2) on 2
+    x TRAIN_SEQ = 4,096 random tokens, GEMMA_TRAIN_STEPS = 4 steps on the
+    repeated batch (a warm step, two timed, the last traced): the
+    loss finite and falling, the first step's loss within 1e-2 of a
+    no-grad ``lm_loss`` whose attention is the kernel (4 flash_attention
+    launches), grad_norm at n_micro 1 and 2 within 1e-3, 0 launches in
+    the steps, the last step traced by op; (b) mixtral-8x7b at full
+    width, MIXTRAL_TRAIN_LAYERS = 2 of 32, under both routers: the loss
+    falling, the peak under 75 GB, under k-choice one kchoice launch a
+    layer a microbatch forward plus one a recompute, each recompute's
+    assignment bit-equal to its forward's; (c) DLRM at MLPerf's widths
+    (the five 40M-row tables cut to DLRM_TABLE_CAP = 2,000,000 rows) on
+    ``criteo_stream`` at 65,536, xDeepFM at 16,384, BST at 65,536 and
+    DIEN at 8,192 at their CONFIGs through ``build_ctr_train_step``, 3
+    steps each, the loss falling; DIEN's steps launch no embedding_bag,
+    its item table's first moment is nonzero on every history-only row,
+    and the trained model serves with 2 launches; (d) SchNet at
+    ``configs/schnet.CELL_SHAPES``: full_graph_sm (2,708 nodes padded to
+    3,072), minibatch_lg (a fanout (15, 10) sample of 1,024 seeds over
+    ``random_graph`` at reddit's 232,965 nodes with REDDIT_EDGES =
+    11,648,250 edges, a mean degree of 50) and molecule (128 x 30
+    atoms), 3 steps each; (e) one train step of each case of
+    ``launch/step_cases`` (the reduced configs) on
+    the card and on the CPU from the same state and batch, loss and
+    every gradient leaf to PARITY_TOL = 1e-4; (f) ``launch/train.py`` for
+    the seven model archs, 4 steps and a resume to 6, its final loss
+    bit-equal to a straight 6-step run under
+    ``torch.use_deterministic_algorithms(True)``. Each phase gives ms a
+    step (CUDA events, after a warm step), tokens/s or samples/s, peak
+    memory and its launches.
 
 Each path's counters are set to 0 just before it runs and read just after;
 the kernels line gives each kernel's launches by path.
@@ -250,7 +283,8 @@ recall, at L labels and N training queries, and prints them as JSON;
 ``--distributed`` runs only the build, the search cell's index and the
 distributed cell; ``--audit`` the build, that index and the audit cell;
 ``--train`` the build and the train cell; ``--lm`` the build, the LM
-cell and the MoE cell.
+cell and the MoE cell; ``--model-train`` the build and the model-train
+cell.
 
 Widths (configs/irli_deep1b.py): D=96, B=20000, R=32, H=1024. Search, the
 serve_query cell: int8 block 32, m=5, tau=2, k=10, topC=1024, refine_k auto
@@ -303,16 +337,31 @@ decode, vocabulary-head and MoE phases, the paced run from 512 to N_PACED
 = 256 requests and the mutation phase from 4,096 to N_MUT_Q = 2,048
 queries (an insert every MUT_EVERY = 512 of them, was 1,024: four
 inserts and the delete after the second, as before). The train
-cell: the fit cell's config with R cut from 32 to TRAIN_R = 4 (R counts
-independent repetitions, the fit's depth: a round then takes about 2 s
-and a checkpoint, w2 and its two AdamW moments, about 1 GB, where R = 32
-takes 16 s and 7.9 GB), 3 rounds of 1 epoch (of 5 and 5); (b) at the
-narrow widths above, 8,192 labels.
+cell: the fit cell's config with R cut from 32 to TRAIN_R = 2 (R counts
+independent repetitions, the fit's depth: a round then takes about 1 s
+and a checkpoint, w2 and its two AdamW moments, about 0.5 GB, where R =
+32 takes 16 s and 7.9 GB; R was 4 until the model-train cell came), 3
+rounds of 1 epoch (of 5 and 5); (b) at the narrow widths above, 8,192
+labels. To fit the model-train cell, the refit cell's R was cut from 32
+to REFIT_R = 16 (its artifact's verify, save and restore took 36 of its
+52 s at R = 32; at R = 8 only 97.3% of the tail inserts found
+themselves, under the 99% gate) and kchoice's uniform-list check at the
+fit's 32 reps from 131,072 labels to UNIFORM_L = 32,768 (its plain walk
+and window schedule run on the host, label by label); the reddit-sized
+graph of the model-train cell is built in a spawned host process while
+the card runs the cell's (a) and (b). The model-train cell: gemma-7b's
+depth cut to 4 layers and mixtral-8x7b's to 2 (the state of the whole
+models, 137 GB and more, does not fit one card), the global batch of
+train_4k's cell (256) to 2, DLRM's five 40M-row tables to 2,000,000 rows
+(the full 104.5 GB table holds no state), reddit's degree from ~492 to
+50 (the host's build time), ogb_products left out (its RBF expansion
+alone is 74 GB).
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -341,6 +390,7 @@ N_INSERT, INSERT_BATCH, N_DEL_BASE, N_DEL_NEW = 65_536, 4096, 90_000, 10_000
 DELTA_LEN = 208                    # default_delta_len(2·L, L, B)
 # the fit cell
 FIT_L = 131_072
+UNIFORM_L = 32_768               # kchoice's uniform-list check: labels
 FIT_BATCH, FIT_ROUNDS, FIT_CHUNK = 4096, 2, FIT_AFFINITY_CHUNK
 # a neighbours chunk (1024 queries, k = K_NEIGH, over FIT_L rows) may take no
 # longer than it did before the tile GEMM's redesign: 7.4278 ms on an H100
@@ -360,6 +410,7 @@ N_MUT_Q, MUT_EVERY, MUT_INSERT, N_MUT_DEL = 2048, 512, 4096, 10_000
 # the cycle and again while it runs (the swap's tail), ids deleted
 N_REFIT_Q, REFIT_INSERT, REFIT_DELETE = 4096, 4096, 1000
 REFIT_MIN_Q, REFIT_HOT = 1024, 0.005     # RefitConfig's min_queries, hot_frac
+REFIT_R = 16                             # of R = 32, for the run's time
 # the distributed cell: (b) P = DIST_P gloo ranks on the card, each over
 # DIST_L = L / DIST_P rows of the search cell's corpus; (c) the 1 x 1 mesh
 # fit at deep1b widths over DIST_FIT_L labels (one round), and the 2 x 2
@@ -1039,9 +1090,12 @@ def fit_cell(torch, dev, check_irli) -> dict:
         torch, "the fit's shape (real affinities)", ids, orders, None, None,
         link, sm_clock, n=5)
     # a balanced partition's lists: long clean prefixes, the window path
-    kchoice_check(torch, "the fit's shape (uniform lists)",
-                  uniform_lists(torch, R, FIT_L, FIT_K, SEED).to(dev),
-                  orders, None, None, link, sm_clock, n=5)
+    kchoice_check(torch, f"the fit's reps over {UNIFORM_L} labels "
+                  f"(uniform lists)",
+                  uniform_lists(torch, R, UNIFORM_L, FIT_K, SEED).to(dev),
+                  insertion_orders(R, UNIFORM_L, dev, torch.Generator()
+                                   .manual_seed(SEED)).int(),
+                  None, None, link, sm_clock, n=5)
     s_ids = ids[:, :INSERT_BATCH].contiguous()
     s_orders = insertion_orders(R, INSERT_BATCH, dev,
                                 torch.Generator().manual_seed(SEED)).int()
@@ -1289,9 +1343,10 @@ ATTENTION = "flash_attention (flash_*_kernel)"
 FLASH_KERNELS = ("flash_bf16_wgmma_kernel", "flash_f32_kernel")  # names
 
 
-def device_split(torch, run, names, label,
-                 require: bool = True) -> tuple[float, dict, int, int]:
-    """One warm ``run()`` under torch.profiler -> its device time (ms),
+def device_split(torch, run, names, label, require: bool = True,
+                 warm: bool = True) -> tuple[float, dict, int, int]:
+    """One warm ``run()`` under torch.profiler (``warm=False``: the caller
+    has warmed it; no extra call) -> its device time (ms),
     that time by group, the number of the port's kernels it ran and the
     number of all the kernels it ran. The
     groups: the port's kernels (``names``: parts of their demangled names)
@@ -1304,7 +1359,8 @@ def device_split(torch, run, names, label,
 
     def ours(name):
         return any(k in name for k in names)
-    run()
+    if warm:
+        run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1419,11 +1475,25 @@ def lm_cell(torch, dev) -> dict:
                              warmup=1)
             att_ms = time_ms(torch, lambda: faops.flash_attention(q, k, v),
                              n=n_runs, warmup=1)
-            traced, split, n_att, _ = device_split(
-                torch, lambda: step(model, batch), FLASH_KERNELS, ATTENTION)
-            if n_att != cfg.n_layers:
-                raise AssertionError(f"{name}: the traced prefill ran "
-                                     f"{n_att} flash_attention kernels, "
+            # the wrapper's count is read around each traced call: a
+            # second trace only when the prefill launched every layer's
+            # kernel and the trace saw fewer (the profiler may drop
+            # kernels, PERF.md §7), so a launch that is missing fails
+            for _ in range(2):
+                reset_launches()
+                traced, split, n_att, _ = device_split(
+                    torch, lambda: step(model, batch), FLASH_KERNELS,
+                    ATTENTION, warm=False)
+                n_call = LAUNCHES["flash_attention"]
+                if n_att == cfg.n_layers or n_call != cfg.n_layers:
+                    break
+                log(f"{name}: the trace saw {n_att} flash_attention "
+                    f"kernels of the {n_call} the wrapper launched; "
+                    f"traced again")
+            if n_call != cfg.n_layers or n_att != cfg.n_layers:
+                raise AssertionError(f"{name}: the traced prefill "
+                                     f"launched {n_call} flash_attention "
+                                     f"kernels and the trace saw {n_att}, "
                                      f"not {cfg.n_layers}")
             tok_s = bsz * seq / pre_ms * 1e3
             # the projections' and MLPs' GEMMs, the causal attention and
@@ -2996,8 +3066,8 @@ def server_cell(torch, dev, idx, store8, corpus, midx, plain_search, agree):
 
 # ------------------------------------------------------------- the refit --
 def refit_cell(torch, dev) -> dict:
-    """The refit cell: a hash-partitioned index at the deep1b widths over
-    FIT_L labels (sigmoid_bce, batch FIT_BATCH, affinity chunk FIT_CHUNK),
+    """The refit cell: a hash-partitioned index at the deep1b widths (R cut
+    to REFIT_R) over FIT_L labels (sigmoid_bce, batch FIT_BATCH, affinity chunk FIT_CHUNK),
     wrapped in a MutableIRLIIndex (int8, capacity 2L, delta_len 208),
     served through IRLIServer with a QueryLog, a ShadowAuditor over the
     exact oracle and a DriftDetector; inserts and deletes through the
@@ -3023,8 +3093,9 @@ def refit_cell(torch, dev) -> dict:
         return v / v.norm(dim=1, keepdim=True)
 
     corpus = unit(FIT_L)
-    cfg = IRLIConfig(d=D, n_labels=FIT_L, n_buckets=B, n_reps=R, d_hidden=H,
-                     K=FIT_K, loss="sigmoid_bce", batch_size=FIT_BATCH,
+    cfg = IRLIConfig(d=D, n_labels=FIT_L, n_buckets=B, n_reps=REFIT_R,
+                     d_hidden=H, K=FIT_K, loss="sigmoid_bce",
+                     batch_size=FIT_BATCH,
                      affinity_chunk=FIT_CHUNK, epochs_per_round=1, lr=1e-3,
                      seed=SEED)
     idx = IRLIIndex(cfg, device=dev)
@@ -3786,7 +3857,7 @@ def audit_cell(torch, dev, idx, store8, queries) -> dict:
 # the mesh Trainer at the narrow widths on DIST_P gloo ranks; (c) DIEN's
 # retrieval_cand; (e) THREAD_CALLS calls of each TMA kernel from a new
 # thread after THREAD_MAIN of its own and THREAD_IRLI irli_topk launches
-TRAIN_R, TRAIN_ROUNDS, TRAIN_EVERY, TRAIN_FAIL = 4, 3, 2, 2
+TRAIN_R, TRAIN_ROUNDS, TRAIN_EVERY, TRAIN_FAIL = 2, 3, 2, 2
 THREAD_MAIN, THREAD_IRLI, THREAD_CALLS = 300, 1000, 20
 TMA_KERNELS = ("mega_query", "irli_topk", "distance_topk", "flash_attention")
 
@@ -4049,7 +4120,7 @@ def train_cell(torch, dev, ranks=None) -> dict:
 
     t_cell = time.perf_counter()
     launches = {}
-    # ---------------------------------------------- (a) one card, R = 4 --
+    # ------------------------------------------ (a) one card, R = TRAIN_R --
     t0 = time.perf_counter()
     base, _, _ = clustered_vectors(n_base=FIT_L, n_queries=1, d=D,
                                    seed=SEED)
@@ -4159,6 +4230,624 @@ def train_cell(torch, dev, ranks=None) -> dict:
             "retrieval": retrieval, "threads": threads}
 
 
+# --------------------------------------------------------- model training --
+TRAIN_SEQ = 4096                  # train_4k's sequence
+GEMMA_TRAIN_LAYERS = 4            # of 28: params, grads, m, v, acc ~30 GB
+MIXTRAL_TRAIN_LAYERS = 2          # of 32: ~51 GB of state
+GEMMA_TRAIN_STEPS = 4             # a warm step, two timed, one traced
+TRAIN_LR = 1e-4
+DLRM_TABLE_CAP = 2_000_000        # the five 40M-row tables, cut
+CTR_BATCH = {"dlrm": 65_536, "xdeepfm": 16_384, "bst": 65_536,
+             "dien": 8_192}
+REDDIT_NODES, REDDIT_EDGES = 232_965, 11_648_250   # mean degree 50
+FANOUT, SEEDS = (15, 10), 1024
+PARITY_TOL = 1e-4                 # card vs CPU, of a leaf's largest |g|
+MODEL_ARCHS = ("gemma-7b", "yi-6b", "qwen3-4b", "mixtral-8x7b",
+               "llama4-maverick-400b-a17b", "schnet", "dlrm")
+
+
+def tree_max_err(torch, got, want, zero_leaf=1e-4) -> float:
+    """The largest |a - b| of two trees of tensors (one nesting), each
+    leaf over its own largest |b| (floored at ``zero_leaf`` of the tree's
+    largest: a leaf whose exact gradient is 0, such as an attention bias
+    before a softmax, is rounding noise)."""
+    from repro_torch.checkpoint.checkpointer import flatten_with_paths
+    a = [t.float().cpu() for _, t in flatten_with_paths(got)]
+    b = [t.float().cpu() for _, t in flatten_with_paths(want)]
+    top = max(float(t.abs().max()) for t in b)
+    return max(float((x - y).abs().max())
+               / max(float(y.abs().max()), zero_leaf * top, 1e-30)
+               for x, y in zip(a, b))
+
+
+def train_steps(torch, step, state, batch, n: int = 3, trace=None):
+    """n steps of one train step on one repeated batch: step 0 warm (its
+    loss kept), the others timed with CUDA events; with ``trace`` the last
+    one runs under ``device_split`` instead (no extra step; give n >= 4 so
+    that two steps are timed). -> (state, losses,
+    ms of each timed step, peak GB, launches of all n, split or None)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, times, split = [], [], None
+    for i in range(n):
+        if trace is not None and i == n - 1:
+            holder = {}
+
+            def run():
+                holder["out"] = step(state, batch)
+            split = device_split(torch, run, trace, "kernels", warm=False,
+                                 require=False)
+            state, m = holder["out"]
+        else:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step(state, batch)
+            end.record()
+            end.synchronize()
+            if i:
+                times.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    return state, losses, times, peak, launches, split
+
+
+def fwd_bwd_ms(torch, loss_fn, leaves, n: int = 3) -> float:
+    """CUDA-event median of loss_fn() and its gradient in ``leaves``."""
+    def run():
+        with torch.enable_grad():
+            torch.autograd.grad(loss_fn(), leaves)
+    return time_ms(torch, run, n=n, warmup=1)
+
+
+def lm_shares(torch, dev, tree, cfg, labels, step_ms) -> dict:
+    """What a step at [1, TRAIN_SEQ] microbatches spends, measured alone
+    with CUDA events: the fp32 tied head (``chunked_xent`` forward and
+    backward, its chunk recomputed, as in the step) and one layer's
+    attention (``attend_train`` forward and backward plus the forward the
+    layer's remat adds; the projections included) -> ms and shares of
+    the step (2 microbatches, every layer)."""
+    from repro_torch.models.attention import attend_train
+    from repro_torch.models.transformer import chunked_xent
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    x = torch.randn((1, TRAIN_SEQ, cfg.d_model), generator=gen, device=dev,
+                    dtype=torch.bfloat16).requires_grad_(True)
+    table = tree["embed"]["table"]
+    mask = torch.ones((1, TRAIN_SEQ), device=dev)
+    table.requires_grad_(True)
+    try:
+        head = fwd_bwd_ms(torch, lambda: chunked_xent(
+            tree, cfg, x, labels[:1], mask), [x, table])
+    finally:
+        table.requires_grad_(False)
+    p = tree["layers"]["0"]["attn"]
+    acfg = cfg.attn_cfg(0)
+    ws = [t for v in p.values() for t in v.values()]
+    for t in ws:
+        t.requires_grad_(True)
+    try:
+        attn_fb = fwd_bwd_ms(torch, lambda: attend_train(
+            p, acfg, x).float().sum(), [x, *ws])
+        with torch.enable_grad():
+            attn_f = time_ms(torch, lambda: attend_train(p, acfg, x), n=3,
+                             warmup=1)
+    finally:
+        for t in ws:
+            t.requires_grad_(False)
+    n_att = 2 * cfg.n_layers
+    return {"head_ms": head, "head_share": 2 * head / step_ms,
+            "attention_ms": attn_fb + attn_f,
+            "attention_share": n_att * (attn_fb + attn_f) / step_ms}
+
+
+def split_line(split) -> str:
+    total, parts = split[0], split[1]
+    top = ", ".join(f"{k} {v:.1f} ms ({100 * v / total:.1f}%)"
+                    for k, v in list(parts.items())[:6])
+    return f"traced {total:.1f} ms of device time: {top}"
+
+
+def lm_train_phase(torch, dev) -> dict:
+    """(a) gemma-7b at full width, GEMMA_TRAIN_LAYERS layers, and (b)
+    mixtral-8x7b at full width, MIXTRAL_TRAIN_LAYERS layers under both
+    routers: build_lm_train_step (adamw_nomaster, n_micro = 2) on a global
+    batch of 2 x TRAIN_SEQ random tokens (next-token labels)."""
+    import dataclasses
+
+    from repro_torch.configs import gemma_7b, mixtral_8x7b
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.kchoice import ops as kops
+    from repro_torch.launch.steps import build_lm_train_step, lm_grads
+    from repro_torch.models.module import param_count, tensor_tree
+    from repro_torch.models.transformer import lm_init, lm_loss
+    from repro_torch.optim.optimizers import global_norm
+
+    out = {"launches": {}}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+
+    def batch_of(cfg):
+        t = torch.randint(0, cfg.vocab, (2, TRAIN_SEQ), generator=gen,
+                          device=dev, dtype=torch.int32)
+        return {"tokens": t, "labels": torch.roll(t, -1, 1)}
+
+    # ------------------------------------------------------ (a) gemma --
+    t_ph = time.perf_counter()
+    cfg = dataclasses.replace(gemma_7b.CONFIG,
+                              n_layers=GEMMA_TRAIN_LAYERS)
+    tree = tensor_tree(lm_init(cfg, seed=SEED, device=dev))
+    batch = batch_of(cfg)
+    n_par = param_count(tree)
+    reset_launches()
+    with torch.no_grad():
+        ref_loss = float(lm_loss(tree, cfg, batch["tokens"],
+                                 batch["labels"])[0])
+    prefill = {k: v for k, v in LAUNCHES.items() if v}
+    if prefill != {"flash_attention": GEMMA_TRAIN_LAYERS}:
+        raise AssertionError(f"gemma no-grad loss: launches {prefill}")
+    # the whole batch as one microbatch; the first step's grad_norm (at
+    # n_micro = 2, from the same params) is held to it
+    torch.cuda.reset_peak_memory_stats()
+    _, g = lm_grads(tree, cfg, batch["tokens"], batch["labels"], 1)
+    norm1 = float(global_norm(g))
+    del g
+    peak1 = torch.cuda.max_memory_allocated() / 1e9
+    step, opt = build_lm_train_step(cfg, "adamw_nomaster", n_micro=2,
+                                    lr=TRAIN_LR)
+    state = {"params": tree, "opt": opt.init(tree)}
+    norm2 = []
+    plain_step = step
+
+    def step(st, b):
+        st, m = plain_step(st, b)
+        norm2.append(float(m["grad_norm"]))
+        return st, m
+    state, losses, times, peak, launches, split = train_steps(
+        torch, step, state, batch, n=GEMMA_TRAIN_STEPS,
+        trace=("flash", "kchoice"))
+    rel = abs(norm1 - norm2[0]) / norm2[0]
+    log(f"model train (a) gemma grad_norm at n_micro 1 {norm1:.6f} (peak "
+        f"{peak1:.2f} GB), the first step's at n_micro 2 {norm2[0]:.6f}")
+    if rel > 1e-3:
+        raise AssertionError(f"gemma grad_norm at n_micro 1 and 2: {norm1}, "
+                             f"{norm2[0]}")
+    if launches.get("flash_attention", 0):
+        raise AssertionError(f"gemma train step launched flash_attention: "
+                             f"{launches}")
+    if abs(losses[0] - ref_loss) > 1e-2 * abs(ref_loss):
+        raise AssertionError(f"gemma first step's loss {losses[0]} against "
+                             f"the no-grad kernel loss {ref_loss}")
+    ms = statistics.median(times)
+    tok = 2 * TRAIN_SEQ
+    log(f"model train (a) gemma-7b {GEMMA_TRAIN_LAYERS} of 28 layers, "
+        f"{n_par} params bf16, adamw_nomaster lr {TRAIN_LR}, batch 2 x "
+        f"{TRAIN_SEQ} as n_micro 2: losses {losses} (the no-grad loss "
+        f"through flash_attention {ref_loss:.6f}, {prefill['flash_attention']}"
+        f" launches; rel {abs(losses[0] - ref_loss) / ref_loss:.2e}); "
+        f"grad_norm n_micro 1 vs 2 rel {rel:.2e}; step {ms:.1f} ms "
+        f"({times}), {tok / ms * 1e3:.0f} tokens/s, peak {peak:.2f} GB; "
+        f"launches in {GEMMA_TRAIN_STEPS} steps {launches}; "
+        f"{split_line(split)}")
+    shares = lm_shares(torch, dev, tree, cfg, batch["labels"], ms)
+    log(f"model train (a) gemma-7b, measured alone: the fp32 tied head "
+        f"(chunked_xent forward + backward, one microbatch) "
+        f"{shares['head_ms']:.1f} ms, x 2 = {shares['head_share']:.1%} of "
+        f"the step; one layer's attention (attend_train forward + backward "
+        f"+ the remat's forward, projections included) "
+        f"{shares['attention_ms']:.1f} ms, x {2 * cfg.n_layers} = "
+        f"{shares['attention_share']:.1%}")
+    out["gemma"] = {"ms": ms, "times": times, "tokens_s": tok / ms * 1e3,
+                    "peak_gb": peak, "losses": losses, "ref_loss": ref_loss,
+                    "grad_norm_rel": rel, "split": split[1], **shares}
+    out["launches"]["model train (a) no-grad loss"] = prefill
+    out["launches"]["model train (a) gemma step"] = launches
+    del state, tree, opt, step, batch
+    torch.cuda.empty_cache()
+    log(f"model train (a): {time.perf_counter() - t_ph:.1f} s")
+
+    # ---------------------------------------------------- (b) mixtral --
+    t_ph = time.perf_counter()
+    kernel = kops.kchoice
+    for router in ("topk", "irli_kchoice"):
+        base = mixtral_8x7b.CONFIG
+        cfg = dataclasses.replace(
+            base, n_layers=MIXTRAL_TRAIN_LAYERS,
+            moe=dataclasses.replace(base.moe, router=router))
+        tree = tensor_tree(lm_init(cfg, seed=SEED, device=dev))
+        batch = batch_of(cfg)
+        step, opt = build_lm_train_step(cfg, "adamw_nomaster", n_micro=2,
+                                        lr=TRAIN_LR)
+        state = {"params": tree, "opt": opt.init(tree)}
+        picks = []
+
+        def recording(*a, **k):
+            res = kernel(*a, **k)
+            picks.append(res.clone())
+            return res
+        kops.kchoice = recording
+        try:
+            state, losses, times, peak, launches, _ = train_steps(
+                torch, step, state, batch)
+        finally:
+            kops.kchoice = kernel
+        if peak > 75:
+            raise AssertionError(f"mixtral train peak {peak:.1f} GB")
+        L_ = MIXTRAL_TRAIN_LAYERS
+        want = 3 * 2 * L_ * 2 if router == "irli_kchoice" else 0
+        if launches.get("kchoice", 0) != want or launches.get(
+                "flash_attention", 0):
+            raise AssertionError(f"mixtral {router}: launches {launches}, "
+                                 f"kchoice wanted {want}")
+        same = True
+        for s in range(0, len(picks), 2 * L_):   # a microbatch: F.., R..
+            fwd, rec = picks[s:s + L_], picks[s + L_:s + 2 * L_][::-1]
+            same &= all(torch.equal(a, b) for a, b in zip(fwd, rec))
+        if not same:
+            raise AssertionError(f"mixtral {router}: a recompute routed "
+                                 f"otherwise than its forward")
+        ms = statistics.median(times)
+        tok = 2 * TRAIN_SEQ
+        aux = "" if router == "irli_kchoice" else " (aux in the loss)"
+        log(f"model train (b) mixtral-8x7b {L_} of 32 layers, router "
+            f"{router}{aux}: losses {losses}; step {ms:.1f} ms ({times}), "
+            f"{tok / ms * 1e3:.0f} tokens/s, peak {peak:.2f} GB; launches "
+            f"in 3 steps {launches}"
+            + (f" (one a layer a microbatch forward plus one a recompute; "
+               f"each recompute's assignment bit-equal to its forward's: "
+               f"{same})" if want else ""))
+        out[f"mixtral_{router}"] = {"ms": ms, "times": times,
+                                    "tokens_s": tok / ms * 1e3,
+                                    "peak_gb": peak, "losses": losses}
+        out["launches"][f"model train (b) mixtral {router}"] = launches
+        del state, tree, opt, step, batch, picks
+        torch.cuda.empty_cache()
+    log(f"model train (b): {time.perf_counter() - t_ph:.1f} s")
+    return out
+
+
+def ctr_train_phase(torch, dev) -> dict:
+    """(c) DLRM (MLPerf widths, the 40M-row tables cut to DLRM_TABLE_CAP),
+    xDeepFM, BST and DIEN at their CONFIGs through build_ctr_train_step
+    (adamw_nomaster), 3 steps each on one repeated batch of CTR_BATCH."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import bst, dien, xdeepfm
+    from repro_torch.data.synthetic import behavior_stream, criteo_stream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.steps import (build_ctr_serve,
+                                          build_ctr_train_step)
+    from repro_torch.models import recsys as RS
+    from repro_torch.models.module import param_count, tensor_tree
+
+    out = {"launches": {}}
+    rng = np.random.default_rng(SEED)
+
+    def on(batch):
+        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    def run(name, params, apply, batch, extra=""):
+        step, opt = build_ctr_train_step(apply, lr=TRAIN_LR)
+        state = {"params": params, "opt": opt.init(params)}
+        state, losses, times, peak, launches, _ = train_steps(
+            torch, step, state, batch)
+        ms = statistics.median(times)
+        bsz = CTR_BATCH[name]
+        log(f"model train (c) {name} at batch {bsz}: {param_count(params)} "
+            f"params; losses {losses}; step {ms:.2f} ms ({times}), "
+            f"{bsz / ms * 1e3:.0f} samples/s, peak {peak:.2f} GB; launches "
+            f"{launches}{extra}")
+        out[name] = {"ms": ms, "times": times, "samples_s": bsz / ms * 1e3,
+                     "peak_gb": peak, "losses": losses}
+        out["launches"][f"model train (c) {name} step"] = launches
+        return state, launches
+
+    # DLRM: MLPerf widths, each 40M-row table cut to DLRM_TABLE_CAP rows
+    t_ph = time.perf_counter()
+    vocab = tuple(min(v, DLRM_TABLE_CAP) for v in RS.DLRMConfig().vocab_sizes)
+    pad = (-sum(vocab)) % 512
+    padded = vocab[:-1] + (vocab[-1] + pad,)
+    cfg = dataclasses.replace(RS.DLRMConfig(), vocab_sizes=padded)
+    params, offsets = RS.dlrm_init(cfg, seed=SEED, device=dev)
+    batch = on(next(criteo_stream(CTR_BATCH["dlrm"], cfg.n_dense, vocab,
+                                  seed=SEED)))
+    log(f"model train (c) dlrm: {sum(padded)} table rows ({sum(vocab)} "
+        f"before the /512 pad; {sum(padded) * cfg.embed_dim * 4 / 1e9:.2f} "
+        f"GB fp32), batch made in {time.perf_counter() - t_ph:.2f} s")
+    run("dlrm", params, lambda p, b: RS.dlrm_apply(
+        p, cfg, offsets, b["dense"], b["sparse"]), batch)
+    del params, batch
+    torch.cuda.empty_cache()
+
+    # xDeepFM at its CONFIG
+    xc = xdeepfm.CONFIG
+    params, offsets = RS.xdeepfm_init(xc, seed=SEED, device=dev)
+    host = next(criteo_stream(CTR_BATCH["xdeepfm"], 13,
+                              [xc.vocab_per_field] * xc.n_sparse,
+                              seed=SEED))
+    batch = on({"sparse": host["sparse"], "label": host["label"]})
+    run("xdeepfm", params, xdeepfm.apply, batch)
+    del params, batch
+    torch.cuda.empty_cache()
+
+    # BST at its CONFIG
+    bc = bst.CONFIG
+    params = RS.bst_init(bc, seed=SEED, device=dev)
+    host = next(behavior_stream(CTR_BATCH["bst"], bc.seq_len,
+                                bc.item_vocab, 1, seed=SEED))
+    batch = on({"hist_items": host["hist_items"],
+                "target_item": host["target_item"],
+                "other_ids": rng.integers(
+                    0, bc.other_vocab, (CTR_BATCH["bst"], bc.n_other_feats)
+                ).astype(np.int32), "label": host["label"]})
+    run("bst", params, bst.apply, batch)
+    del params, batch
+    torch.cuda.empty_cache()
+
+    # DIEN at its CONFIG: no embedding_bag under the gradient, the item
+    # table's gradient on the histories' rows, then 2 launches to serve
+    dc = dien.CONFIG
+    tree = tensor_tree(RS.dien_init(dc, seed=SEED, device=dev))
+    batch = on(next(behavior_stream(CTR_BATCH["dien"], dc.seq_len,
+                                    dc.item_vocab, dc.cate_vocab,
+                                    seed=SEED)))
+    state, launches = run("dien", tree, dien.apply, batch)
+    if launches.get("embedding_bag", 0):
+        raise AssertionError(f"dien train step launched embedding_bag: "
+                             f"{launches}")
+    hist = batch["hist_items"][batch["hist_mask"] > 0].long().unique()
+    only = hist[~torch.isin(hist, batch["target_item"].long())]
+    m_rows = state["opt"]["m"]["item_emb"]["table"][only]
+    nonzero = float((m_rows.abs().sum(1) > 0).float().mean())
+    if nonzero < 1.0:
+        raise AssertionError(f"dien: the item table's first moment is 0 on "
+                             f"{1 - nonzero:.4f} of the history-only rows")
+    reset_launches()
+    prob = build_ctr_serve(dien.apply)(state["params"], batch)["prob"]
+    serve = dict(LAUNCHES)
+    if serve["embedding_bag"] != 2 or not bool(torch.isfinite(prob).all()):
+        raise AssertionError(f"dien serve after training: launches {serve}")
+    # the history sum under the gradient, alone: what an embedding_bag
+    # backward kernel would take over (the rows' gather is the GRU's too)
+    he = torch.randn((CTR_BATCH["dien"], dc.seq_len, 2 * dc.embed_dim),
+                     device=dev, requires_grad=True)
+    w = batch["hist_mask"][..., None]
+    bag_ms = fwd_bwd_ms(torch, lambda: (he * w).sum(1).sum(), [he])
+    del he
+    log(f"model train (c) dien: 0 embedding_bag launches in the steps; the "
+        f"item table's AdamW first moment nonzero on all {only.numel()} "
+        f"history-only rows; the trained model served with "
+        f"{serve['embedding_bag']} embedding_bag launches; the history "
+        f"sum's forward + backward alone {bag_ms:.3f} ms, "
+        f"{bag_ms / out['dien']['ms']:.2%} of the step")
+    out["dien"]["bag_ms"] = bag_ms
+    out["launches"]["model train (c) dien serve"] = {
+        k: v for k, v in serve.items() if v}
+    del state, tree, batch
+    torch.cuda.empty_cache()
+    log(f"model train (c): {time.perf_counter() - t_ph:.1f} s")
+    return out
+
+
+def reddit_subgraph(seed: int, nodes: int, edges: int, d_in: int,
+                    n_classes: int, fanout: tuple, seeds: int) -> dict:
+    """minibatch_lg's batch, made on the host (numpy, no card): a
+    ``random_graph`` of ``nodes`` and ``edges``, its CSR and one fanout
+    sample of ``seeds`` seeds -> {"batch" (numpy), "shape" (the sampler's
+    padded nodes, edges), "n_real_nodes", "n_real_edges", "seconds"}. Run
+    in a spawned process beside the cell's (a) and (b)."""
+    from repro_torch.data.sampler import NeighborSampler, build_csr
+    from repro_torch.data.synthetic import random_graph
+    t0 = time.perf_counter()
+    g = random_graph(nodes, edges, d_in, seed=seed, n_classes=n_classes)
+    csr = build_csr(nodes, g["src"], g["dst"], pos=g["pos"])
+    sampler = NeighborSampler(csr, fanout, seeds, seed=seed)
+    sub = sampler.sample()
+    batch = {"feats": g["feats"][sub["nodes"]], "src": sub["src"],
+             "dst": sub["dst"], "dist": sub["dist"],
+             "labels": g["labels"][sub["nodes"]],
+             "node_mask": sub["node_mask"]}
+    return {"batch": batch, "shape": (sampler.max_nodes, sampler.max_edges),
+            "n_real_nodes": sub["n_real_nodes"],
+            "n_real_edges": sub["n_real_edges"],
+            "seconds": time.perf_counter() - t0}
+
+
+def gnn_train_phase(torch, dev, reddit) -> dict:
+    """(d) SchNet at the reference's cell shapes (configs/schnet.py): the
+    cora-like full graph padded to 3,072 nodes and 10,752 edges; a fanout
+    (15, 10) sample of 1,024 seeds over a reddit-sized random graph
+    (169,984 nodes, 168,960 edges; ``reddit``, what ``reddit_subgraph``
+    returned); 128 molecules of 30 atoms and 64 edges. 3 steps each."""
+    import numpy as np
+
+    from repro_torch.configs import schnet
+    from repro_torch.data.synthetic import molecule_batch, random_graph
+    from repro_torch.launch.steps import (build_gnn_energy_train,
+                                          build_gnn_node_train)
+    from repro_torch.models.gnn import schnet_init
+
+    out = {"launches": {}}
+    t_ph = time.perf_counter()
+
+    def on(batch):
+        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    def run(name, cfg, step_opt, batch, n_items, unit):
+        step, opt = step_opt
+        params = schnet_init(cfg, seed=SEED, device=dev)
+        state = {"params": params, "opt": opt.init(params)}
+        state, losses, times, peak, launches, _ = train_steps(
+            torch, step, state, batch)
+        ms = statistics.median(times)
+        log(f"model train (d) schnet {name}: losses {losses}; step "
+            f"{ms:.2f} ms ({times}), {n_items / ms * 1e3:.0f} {unit}/s, peak "
+            f"{peak:.2f} GB; launches {launches}")
+        out[name] = {"ms": ms, "times": times, "peak_gb": peak,
+                     f"{unit}_s": n_items / ms * 1e3, "losses": losses}
+        out["launches"][f"model train (d) schnet {name}"] = launches
+
+    sh = schnet.CELL_SHAPES["full_graph_sm"]
+    cfg = sh["cfg"]
+    g = random_graph(sh["nodes"], sh["edges"], cfg.d_in, seed=SEED,
+                     n_classes=cfg.n_out)
+    N, E = sh["pad_nodes"], sh["pad_edges"]
+    feats = np.zeros((N, cfg.d_in), np.float32)
+    feats[:sh["nodes"]] = g["feats"]
+    pad_e = lambda a, fill: np.concatenate(  # noqa: E731
+        [a, np.full(E - a.shape[0], fill, a.dtype)])
+    labels = np.zeros(N, np.int32)
+    labels[:sh["nodes"]] = g["labels"]
+    mask = (np.arange(N) < sh["nodes"]).astype(np.float32)
+    batch = on({"feats": feats, "src": pad_e(g["src"], 0),
+                "dst": pad_e(g["dst"], 0), "dist": pad_e(g["dist"], 1e6),
+                "labels": labels, "node_mask": mask})
+    run("full_graph_sm", cfg, build_gnn_node_train(cfg, lr=TRAIN_LR),
+        batch, sh["nodes"], "nodes")
+
+    sh = schnet.CELL_SHAPES["minibatch_lg"]
+    cfg = sh["cfg"]
+    sub = reddit
+    if sub["shape"] != (sh["pad_nodes"], sh["pad_edges"]):
+        raise AssertionError(f"sampler shapes {sub['shape']}")
+    log(f"model train (d) minibatch_lg: random_graph {REDDIT_NODES} nodes, "
+        f"{REDDIT_EDGES} edges, CSR and one fanout {FANOUT} sample of "
+        f"{SEEDS} seeds ({sub['n_real_nodes']} real nodes, "
+        f"{sub['n_real_edges']} real edges of {sub['shape']}) built in "
+        f"{sub['seconds']:.2f} s by a host process while (a) and (b) ran; "
+        f"waited {sub['waited']:.2f} s for it after (b)")
+    run("minibatch_lg", cfg, build_gnn_node_train(cfg, lr=TRAIN_LR),
+        on(sub["batch"]), sub["n_real_nodes"], "nodes")
+
+    sh = schnet.CELL_SHAPES["molecule"]
+    cfg = sh["cfg"]
+    batch = on(molecule_batch(sh["n_graphs"], 30, 64, seed=SEED))
+    run("molecule", cfg, build_gnn_energy_train(cfg, sh["n_graphs"],
+                                                lr=TRAIN_LR),
+        batch, sh["n_graphs"], "graphs")
+    log(f"model train (d): {time.perf_counter() - t_ph:.1f} s")
+    return out
+
+
+def parity_phase(torch, dev) -> dict:
+    """(e) one train step on the card and on the CPU from the same state
+    and batch (fp32, TF32 off), for each of ``launch/step_cases``: the
+    five reduced LMs of the launcher and mixtral's under the k-choice
+    router, the smoke tests' DLRM, BST, xDeepFM and DIEN, both SchNet
+    steps. Loss to PARITY_TOL relative, the gradient (AdamW's first
+    moment / (1 - b1)) leaf by leaf to PARITY_TOL of the leaf's largest
+    |g|."""
+    from repro_torch.launch.step_cases import step_cases
+    from repro_torch.models.module import tree_to
+
+    t_ph = time.perf_counter()
+    cpu = torch.device("cpu")
+    cases = step_cases(SEED)
+    worst = {}
+    for name, (init, (step, opt), batch) in cases.items():
+        res = {}
+        p_cpu = init(cpu)                 # the card starts from these draws
+        for where, params in (("card", tree_to(p_cpu, dev)),
+                              ("cpu", p_cpu)):
+            new, m = step({"params": params, "opt": opt.init(params)},
+                          batch)
+            res[where] = (float(m["loss"]), new["opt"]["m"])
+        lerr = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+        gerr = tree_max_err(torch, res["card"][1], res["cpu"][1])
+        if lerr > PARITY_TOL or gerr > PARITY_TOL:
+            raise AssertionError(f"(e) {name}: loss rel {lerr:.2e}, "
+                                 f"gradient rel {gerr:.2e}")
+        worst[name] = (lerr, gerr)
+    log("model train (e) card = CPU, one step from the same state and "
+        "batch (loss rel, largest gradient leaf error rel to its max |g|): "
+        + ", ".join(f"{n} {a:.1e}/{b:.1e}" for n, (a, b) in worst.items())
+        + f"; {time.perf_counter() - t_ph:.1f} s")
+    return {"worst": worst}
+
+
+
+def launcher_phase(torch, dev) -> dict:
+    """(f) launch/train.py on the card for the seven model archs under
+    torch.use_deterministic_algorithms(True): --steps 4, then --steps 6
+    from its checkpoint (resumed=True), held bit-equal to a straight
+    6-step run's final loss."""
+    import shutil
+
+    from repro_torch.launch import train as T
+
+    t_ph = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "model_train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    res = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for arch in MODEL_ARCHS:
+            def run(steps, sub):
+                return T.run_model(T.parse(
+                    ["--arch", arch, "--steps", str(steps), "--ckpt",
+                     str(root / sub), "--device", dev.type]))
+            run(4, "a")
+            resumed = run(6, "a")
+            straight = run(6, "b")
+            a = resumed["metrics"][-1]["loss"]
+            b = straight["metrics"][-1]["loss"]
+            if not resumed["resumed"] or len(resumed["metrics"]) != 2 \
+                    or a != b:
+                raise AssertionError(f"(f) {arch}: resumed {a!r} "
+                                     f"({resumed['resumed']}), straight "
+                                     f"{b!r}")
+            res[arch] = a
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"model train (f) launch/train.py on the card, 4 steps then a "
+        f"resume to 6, the final loss bit-equal to a straight 6-step run "
+        f"under deterministic algorithms: {res}; "
+        f"{time.perf_counter() - t_ph:.1f} s")
+    return {"final_loss": res}
+
+
+def model_train_cell(torch, dev) -> dict:
+    """The model-training cell: (a) gemma-7b and (b) mixtral-8x7b train
+    steps at full width, (c) the four CTR models, (d) SchNet's three
+    cells, (e) card = CPU at the CPU tests' sizes, (f) the launcher on the
+    card. Returns each phase's numbers and the launches by path."""
+    import concurrent.futures
+    import multiprocessing
+
+    from repro_torch.configs import schnet
+
+    t_cell = time.perf_counter()
+    lg = schnet.CELL_SHAPES["minibatch_lg"]["cfg"]
+    # the reddit-sized graph takes seconds of host time: a spawned process
+    # builds it while the card runs (a) and (b), which the host does not
+    # hold back; it has ended before (c), whose steps a busy host slows
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        reddit = pool.submit(reddit_subgraph, SEED, REDDIT_NODES,
+                             REDDIT_EDGES, lg.d_in, lg.n_out, FANOUT, SEEDS)
+        out = {"lm": lm_train_phase(torch, dev)}
+        t0 = time.perf_counter()
+        graph = reddit.result(timeout=600)
+        graph["waited"] = time.perf_counter() - t0
+    out["ctr"] = ctr_train_phase(torch, dev)
+    out["gnn"] = gnn_train_phase(torch, dev, graph)
+    out["parity"] = parity_phase(torch, dev)
+    out["launcher"] = launcher_phase(torch, dev)
+    launches = {}
+    for part in ("lm", "ctr", "gnn"):
+        launches.update(out[part].pop("launches"))
+    out["launches"] = launches
+    log(f"model train cell: {time.perf_counter() - t_cell:.1f} s")
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -4175,6 +4864,8 @@ def main() -> int:
                          "audit cell")
     ap.add_argument("--train", action="store_true",
                     help="only the build and the train cell")
+    ap.add_argument("--model-train", action="store_true",
+                    help="only the build and the model-training cell")
     ap.add_argument("--lm", action="store_true",
                     help="only the build, the LM cell (prefill, decode, "
                          "vocabulary head) and the MoE cell")
@@ -4220,6 +4911,10 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     log(f"nvidia-smi: {smi}")
 
+    def clock(what):
+        log(f"run clock: {time.perf_counter() - t_start:.1f} s before "
+            f"{what}")
+
     # ---------------------------------------------------------- 2. build --
     t0 = time.perf_counter()
     libs = _build.build(*KERNELS)
@@ -4230,6 +4925,10 @@ def main() -> int:
     if args.train:
         out = train_cell(torch, dev)
         print(json.dumps({"train": out}), flush=True)
+        return 0
+    if args.model_train:
+        out = model_train_cell(torch, dev)
+        print(json.dumps({"model_train": out["launches"]}), flush=True)
         return 0
     if args.lm:
         lm = lm_cell(torch, dev)
@@ -4809,6 +5508,7 @@ def main() -> int:
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    clock("7. the stream")
     # ---------------------------------------------------- 7. the stream --
     del (store16, exact8, cands, cid_m, cnt_m, cids_m, bidx, st, hidden)
     torch.cuda.empty_cache()
@@ -4817,6 +5517,7 @@ def main() -> int:
     record["mega_query"]["max_abs_err"] = max(
         record["mega_query"]["max_abs_err"], stream["search_err"])
 
+    clock("8. the server")
     # ---------------------------------------------------- 8. the server --
     t_cell = time.perf_counter()
     serve = server_cell(torch, dev, idx, store8, corpus, stream.pop("midx"),
@@ -4827,6 +5528,7 @@ def main() -> int:
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    clock("9. the refit")
     # ----------------------------------------------------- 9. the refit --
     del members, params, w2, b2, corpus
     torch.cuda.empty_cache()
@@ -4834,15 +5536,18 @@ def main() -> int:
     refit = refit_cell(torch, dev)
     log(f"refit cell: {time.perf_counter() - t_cell:.1f} s")
 
+    clock("10. the distributed")
     # ----------------------------------------------- 10. the distributed --
     torch.cuda.empty_cache()
     distributed = dist_cell(torch, dev, idx, store8, queries)
 
+    clock("11. the audit")
     # ----------------------------------------------------- 11. the audit --
     torch.cuda.empty_cache()
     audit = audit_cell(torch, dev, idx, store8, queries)
     del idx, store8
 
+    clock("12. the fit")
     # ------------------------------------------------------ 12. the fit --
     torch.cuda.empty_cache()
     fit = fit_cell(torch, dev, check_irli)
@@ -4872,6 +5577,7 @@ def main() -> int:
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    clock("13. the train")
     # ---------------------------------------------------- 13. the train --
     torch.cuda.empty_cache()
     train = train_cell(torch, dev, distributed.pop("trainer_ranks"))
@@ -4884,6 +5590,7 @@ def main() -> int:
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    clock("14. the LM prefill")
     # ------------------------------------------------- 14. the LM prefill --
     torch.cuda.empty_cache()
     lm = lm_cell(torch, dev)
@@ -4895,6 +5602,7 @@ def main() -> int:
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    clock("15. the MoE cell")
     # ---------------------------------------------------- 15. the MoE cell --
     torch.cuda.empty_cache()
     moe = moe_cell(torch, dev)
@@ -4903,6 +5611,7 @@ def main() -> int:
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    clock("16. the recsys cell")
     # ------------------------------------------------ 16. the recsys cell --
     torch.cuda.empty_cache()
     rec = recsys_cell(torch, dev, smi)
@@ -4911,6 +5620,18 @@ def main() -> int:
     record["embedding_bag"] = {"max_abs_err": rec["err"]}
     bounds["embedding_bag"] = rec["bound"]
     tiles["embedding_bag"] = rec["extra"]
+    log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
+        f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
+    clock("17. the model-train cell")
+    # ------------------------------------------ 17. the model-train cell --
+    torch.cuda.empty_cache()
+    mt = model_train_cell(torch, dev)
+    for path, counts in mt["launches"].items():
+        for n in KERNELS:
+            if n in ("flash_attention", "embedding_bag", "kchoice"):
+                by_path[n][path] = counts.get(n, 0)
+    main_launches = {n: sum(paths.values()) for n, paths in by_path.items()}
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 

@@ -1,7 +1,8 @@
 """Carry an index across between the JAX package and the port: its arrays,
 as numpy, become the port's objects (and back), so the same index can be
-served, and fitted further, by both packages. The LM and DIEN params trees
-cross the same way, and so do the LM's KV caches.
+served, and fitted further, by both packages. The model params trees
+(LM, DIEN, DLRM, BST, xDeepFM, SchNet) cross the same way, with the AdamW
+state of a train step over them, and so do the LM's KV caches.
 """
 from __future__ import annotations
 
@@ -195,6 +196,29 @@ def _host_tree(params):
     return {k: _host_tree(v) for k, v in params.items()}
 
 
+def _lm_tree(params: dict, cfg, dev) -> dict:
+    """The reference's stacked LM tree -> the port's nesting, "layers" a
+    list of per-layer dicts."""
+    n_groups = cfg.n_layers // cfg.period
+    layers = [
+        _map_tree(lambda a, g=g: _model_leaf(np.asarray(a)[g], dev),
+                  params["layers"][f"sub{i}"])
+        for g in range(n_groups) for i in range(cfg.period)]
+    tree = {k: _map_tree(lambda a: _model_leaf(a, dev), v)
+            for k, v in params.items() if k != "layers"}
+    return {**tree, "layers": layers}
+
+
+def lm_tree_from_reference(params: dict, cfg, *,
+                           device: str | torch.device = "cuda") -> dict:
+    """The reference's LM params (or a tree of that shape: a gradient, an
+    AdamW moment) -> the plain nested dict a port train step takes
+    (``models.module.tensor_tree`` of the ``LM``: layer g·period + i of
+    the port, keyed str(g·period + i), is slice g of ``sub{i}``)."""
+    from repro_torch.models.module import tensor_tree
+    return tensor_tree(_lm_tree(params, cfg, resolve_device(device)))
+
+
 def lm_params_from_reference(params: dict, cfg, *,
                              device: str | torch.device = "cuda"):
     """The reference's LM params (``repro.models.transformer.lm_init``'s
@@ -205,25 +229,20 @@ def lm_params_from_reference(params: dict, cfg, *,
     same way: its router, its experts' stacks [n_groups, E, d, f] as the
     layer's [E, d, f] and its ``shared`` expert."""
     from repro_torch.models.transformer import LM
-    dev = resolve_device(device)
-    n_groups = cfg.n_layers // cfg.period
-    layers = [
-        _map_tree(lambda a, g=g: _model_leaf(np.asarray(a)[g], dev),
-                  params["layers"][f"sub{i}"])
-        for g in range(n_groups) for i in range(cfg.period)]
-    tree = {k: _map_tree(lambda a: _model_leaf(a, dev), v)
-            for k, v in params.items() if k != "layers"}
-    return LM(cfg, {**tree, "layers": layers})
+    return LM(cfg, _lm_tree(params, cfg, resolve_device(device)))
 
 
-def lm_params_to_reference(model) -> dict:
-    """The port's ``LM`` -> the reference's params tree as numpy (bf16
-    leaves as ``ml_dtypes.bfloat16``), each layer leaf restacked on a
-    leading [n_layers // period] axis under ``layers/sub{i}``."""
-    cfg = model.cfg
+def lm_params_to_reference(model, cfg=None) -> dict:
+    """The port's ``LM`` (or its ``tensor_tree``, or a tree of that shape
+    such as a gradient or an AdamW moment, with ``cfg``) -> the
+    reference's params tree as numpy (bf16 leaves as
+    ``ml_dtypes.bfloat16``), each layer leaf restacked on a leading
+    [n_layers // period] axis under ``layers/sub{i}``."""
+    from repro_torch.models.module import layer_list
+    cfg = cfg if cfg is not None else model.cfg
     n_groups = cfg.n_layers // cfg.period
 
-    per_layer = [_host_tree(lp) for lp in model["layers"]]
+    per_layer = [_host_tree(lp) for lp in layer_list(model["layers"])]
 
     def stack(i, *path):
         leaves = [per_layer[g * cfg.period + i] for g in range(n_groups)]
@@ -256,6 +275,55 @@ def dien_params_to_reference(params) -> dict:
     """The port's DIEN params (module or nested dict) -> the reference's
     tree as numpy (bf16 leaves as ``ml_dtypes.bfloat16``)."""
     return _host_tree(params)
+
+
+def tree_from_reference(params: dict, *,
+                        device: str | torch.device = "cuda") -> dict:
+    """A reference params tree (nested dicts, numpy or array leaves) ->
+    the same nesting of tensors of the same dtypes on ``device``."""
+    dev = resolve_device(device)
+    return _map_tree(lambda a: _model_leaf(a, dev), params)
+
+
+def tree_to_reference(params) -> dict:
+    """A port params tree (module or nested dict) -> the same nesting as
+    numpy (bf16 leaves as ``ml_dtypes.bfloat16``)."""
+    return _host_tree(params)
+
+
+# DLRM, BST, xDeepFM and SchNet keep the reference's nesting as it is
+dlrm_params_from_reference = bst_params_from_reference = tree_from_reference
+xdeepfm_params_from_reference = tree_from_reference
+schnet_params_from_reference = tree_from_reference
+dlrm_params_to_reference = bst_params_to_reference = tree_to_reference
+xdeepfm_params_to_reference = schnet_params_to_reference = tree_to_reference
+
+
+def adamw_state_from_reference(state: dict, tree_from=tree_from_reference,
+                               *, device: str | torch.device = "cuda"
+                               ) -> dict:
+    """The reference's AdamW state over a nested params tree ({"step", "m",
+    "v"[, "master"]}) -> the port's: the step a host int32, the moments
+    through ``tree_from`` (``tree_from_reference``, or for an LM
+    ``lambda t, device: lm_tree_from_reference(t, cfg, device=device)``)."""
+    out = {"step": torch.tensor(int(np.asarray(state["step"])),
+                                dtype=torch.int32)}
+    for k in ("m", "v", "master"):
+        if k in state:
+            out[k] = tree_from(state[k], device=device)
+    return out
+
+
+def adamw_state_to_reference(state: dict, tree_to=tree_to_reference
+                             ) -> dict:
+    """The port's AdamW state -> the reference's layout as numpy, the
+    moments through ``tree_to`` (``tree_to_reference``, or for an LM
+    ``lambda t: lm_params_to_reference(t, cfg)``)."""
+    out = {"step": np.asarray(int(state["step"]), np.int32)}
+    for k in ("m", "v", "master"):
+        if k in state:
+            out[k] = tree_to(state[k])
+    return out
 
 
 # ------------------------------------------------------------- KV caches --

@@ -1,5 +1,6 @@
 """Synthetic data: numpy copies of the reference's ``clustered_ann``,
-``zipf_xml`` and ``behavior_stream`` (``repro/data/synthetic.py``), which
+``zipf_xml``, ``criteo_stream``, ``behavior_stream``, ``random_graph`` and
+``molecule_batch`` (``repro/data/synthetic.py``), which
 the port keeps so that it imports nothing of the JAX package. The same seed
 gives the same arrays.
 
@@ -7,7 +8,11 @@ gives the same arrays.
 power-law-sized clusters and exact top-k ground-truth neighbours (brute
 force): the ANN labels of IRLI §3.2 ("100 exact near neighbours ...
 generated beforehand"). ``behavior_stream``: DIEN's user-history
-sequences (Zipf item ids). ``zipf_xml``: extreme multi-label data whose
+sequences (Zipf item ids). ``criteo_stream``: DLRM's CTR batches (Zipf
+sparse ids, a linear label). ``random_graph``: a power-law graph with
+features and synthesized 3-D positions (SchNet's geometric adaptation);
+``molecule_batch``: small molecules flattened into one graph with
+graph ids. ``zipf_xml``: extreme multi-label data whose
 co-occurring labels share geometry and whose label frequencies are Zipf
 (the XML scenario of IRLI §3.2, Def. 1).
 """
@@ -143,6 +148,22 @@ def zipf_xml(n_train: int = 8000, n_test: int = 1000, d: int = 32,
 
 
 # ---------------------------------------------------------------- recsys ----
+def criteo_stream(batch: int, n_dense: int, vocab_sizes, seed: int = 0):
+    """Infinite CTR batches: {"dense" [B, nd] f32, "sparse" [B, ns] int32,
+    "label" [B] f32}."""
+    rng = np.random.default_rng(seed)
+    vocab_sizes = np.asarray(vocab_sizes, np.int64)
+    while True:
+        dense = rng.normal(size=(batch, n_dense)).astype(np.float32)
+        # Zipf ids clipped per field (power-law access: the hot-row problem)
+        z = rng.zipf(1.2, size=(batch, len(vocab_sizes)))
+        sparse = (z % vocab_sizes[None, :]).astype(np.int32)
+        w = rng.normal(size=(n_dense,)).astype(np.float32)
+        label = (dense @ w + rng.normal(size=batch) * 0.1 > 0).astype(
+            np.float32)
+        yield {"dense": dense, "sparse": sparse, "label": label}
+
+
 def behavior_stream(batch: int, seq_len: int, item_vocab: int,
                     cate_vocab: int, seed: int = 0):
     """Infinite DIEN batches: Zipf(1.2) history and target items, their
@@ -160,3 +181,44 @@ def behavior_stream(batch: int, seq_len: int, item_vocab: int,
                "target_item": target,
                "target_cate": (target % cate_vocab).astype(np.int32),
                "hist_mask": mask, "label": label}
+
+
+# ----------------------------------------------------------------- graphs ---
+def random_graph(n_nodes: int, n_edges: int, d_feat: int, seed: int = 0,
+                 n_classes: int = 16) -> dict:
+    """Power-law random graph with features and synthesized 3-D positions
+    (the SchNet geometric adaptation): {"feats", "src", "dst", "dist",
+    "labels", "pos"} as numpy."""
+    rng = np.random.default_rng(seed)
+    # preferential-attachment-ish degree skew
+    p = 1.0 / np.arange(1, n_nodes + 1) ** 0.5
+    p /= p.sum()
+    src = rng.choice(n_nodes, size=n_edges, p=p).astype(np.int32)
+    dst = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    feats = rng.normal(size=(n_nodes, d_feat)).astype(np.float32)
+    pos = rng.normal(size=(n_nodes, 3)).astype(np.float32) * 3.0
+    dist = np.linalg.norm(pos[src] - pos[dst], axis=1).astype(np.float32)
+    labels = rng.integers(0, n_classes, n_nodes).astype(np.int32)
+    return {"feats": feats, "src": src, "dst": dst, "dist": dist,
+            "labels": labels, "pos": pos}
+
+
+def molecule_batch(batch: int, n_nodes: int, n_edges: int,
+                   seed: int = 0) -> dict:
+    """Batched small molecules flattened into one graph with graph ids:
+    {"types", "src", "dst", "dist", "graph_ids", "energy"} as numpy."""
+    rng = np.random.default_rng(seed)
+    types = rng.integers(0, 10, (batch, n_nodes)).astype(np.int32)
+    pos = rng.normal(size=(batch, n_nodes, 3)).astype(np.float32) * 2.0
+    src = rng.integers(0, n_nodes, (batch, n_edges)).astype(np.int32)
+    dst = rng.integers(0, n_nodes, (batch, n_edges)).astype(np.int32)
+    offs = (np.arange(batch) * n_nodes).astype(np.int32)
+    flat_src = (src + offs[:, None]).reshape(-1)
+    flat_dst = (dst + offs[:, None]).reshape(-1)
+    pf = pos.reshape(-1, 3)
+    dist = np.linalg.norm(pf[flat_src] - pf[flat_dst], axis=1).astype(
+        np.float32)
+    graph_ids = np.repeat(np.arange(batch), n_nodes).astype(np.int32)
+    energy = rng.normal(size=batch).astype(np.float32)
+    return {"types": types.reshape(-1), "src": flat_src, "dst": flat_dst,
+            "dist": dist, "graph_ids": graph_ids, "energy": energy}

@@ -76,7 +76,8 @@ def embedding_bag(ids, weights, table):
     weights [N, P] float32, table [V, D] float32 or bfloat16, all on the
     card, any strides (copied to contiguous) -> [N, D] in the table's dtype,
     accumulated in fp32. An id >= V adds nothing (the plain version raises
-    on it)."""
+    on it). Raises under a gradient (grad mode on and the weights or the
+    table requiring grad): the kernel has no backward."""
     if not on_card(ids, weights, table):
         raise ValueError("embedding_bag launches on CUDA tensors only")
     if ids.ndim != 2 or ids.dtype != torch.int32:
@@ -90,6 +91,11 @@ def embedding_bag(ids, weights, table):
         raise ValueError(f"embedding_bag: table must be [V, D] float32 or "
                          f"bfloat16, got {table.dtype} "
                          f"{tuple(table.shape)}")
+    if torch.is_grad_enabled() and (weights.requires_grad
+                                    or table.requires_grad):
+        raise ValueError("embedding_bag has no backward kernel: call it "
+                         "under torch.no_grad() or torch.inference_mode() "
+                         "(its output would carry no gradient to the table)")
     N, P = ids.shape
     V, D = table.shape
     if P >= 2 ** 31 or D >= 2 ** 31:

@@ -21,9 +21,22 @@ donated); a serve step is ``step(params, batch) -> outputs`` under
   * ``build_retrieval_serve`` (``:185``): the brute-force two-tower
     candidate scoring that IRLI accelerates, ``distance_topk`` on the card;
   * ``build_irli_serve`` (``:300-331``): the sharded-corpus IRLI query over
-    ``core/distributed.make_production_search``.
+    ``core/distributed.make_production_search``;
+  * ``build_lm_train_step`` (``:80-134``): microbatched gradient
+    accumulation in fp32 over ``models.transformer.lm_loss``, both of the
+    reference's microbatch groupings, one optimizer update;
+  * ``build_ctr_train_step`` (``:166-176``): the mean stable BCE of a CTR
+    model's logits;
+  * ``build_gnn_node_train`` (``:198``) and ``build_gnn_energy_train``
+    (``:218``): SchNet's node classification and molecule energy
+    regression.
 
-The LM, GNN and CTR train steps and ``opt_state_specs`` wait (ROADMAP).
+Every train step's params are a plain nested dict of tensors
+(``models.module.tensor_tree`` of a model module). Under a gradient no
+kernel without a backward is launched (``models/attention.uses_kernel``,
+``models/recsys.dien_apply``); the port's kernels stay on the serve paths.
+``opt_state_specs`` and the mesh (``mesh=``) wait for the config machinery
+(ROADMAP).
 """
 from __future__ import annotations
 
@@ -43,6 +56,28 @@ def make_opt(opt_kind: str, **kw):
     return make_optimizer(opt_kind, **kw)
 
 
+def grads_of(loss_fn, params, *args):
+    """loss_fn(params, *args) -> (scalar, metrics); returns (loss, metrics,
+    grads in params' nesting). The leaves require grad only inside the
+    call; a leaf the loss does not reach gets a zero gradient, as
+    ``jax.grad`` gives it."""
+    leaves = flatten_with_paths(params)
+    tensors = [p for _, p in leaves]
+    with torch.enable_grad():
+        for p in tensors:
+            p.requires_grad_(True)
+        try:
+            loss, metrics = loss_fn(params, *args)
+            grads = torch.autograd.grad(loss, tensors, allow_unused=True,
+                                        materialize_grads=True)
+        finally:
+            for p in tensors:
+                p.requires_grad_(False)
+    by_path = {path: g for (path, _), g in zip(leaves, grads)}
+    return loss.detach(), metrics, map_with_paths(
+        lambda path, _: by_path[path], params)
+
+
 def build_train_step(loss_fn, opt_kind: str, **opt_kw):
     """loss_fn(params, batch) -> (scalar, metrics dict) -> (step, opt):
     step(state, batch) -> (state, metrics) runs the forward and backward by
@@ -52,21 +87,88 @@ def build_train_step(loss_fn, opt_kind: str, **opt_kw):
 
     def step(state, batch):
         params, opt_state = state["params"], state["opt"]
-        leaves = flatten_with_paths(params)
-        with torch.enable_grad():
-            for _, p in leaves:
-                p.requires_grad_(True)
-            try:
-                loss, metrics = loss_fn(params, batch)
-                grads = torch.autograd.grad(loss, [p for _, p in leaves])
-            finally:
-                for _, p in leaves:
-                    p.requires_grad_(False)
-        by_path = {path: g for (path, _), g in zip(leaves, grads)}
-        grads = map_with_paths(lambda path, _: by_path[path], params)
+        loss, metrics, grads = grads_of(loss_fn, params, batch)
         params, opt_state, info = opt.update(params, grads, opt_state)
-        metrics = dict(metrics, loss=loss.detach(), **info)
+        metrics = dict(metrics, loss=loss, **info)
         return {"params": params, "opt": opt_state}, metrics
+
+    return step, opt
+
+
+def _on(params, batch: dict) -> dict:
+    """The batch's arrays (numpy or tensors) on the params' device."""
+    dev = device_of(params)
+    return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+
+# ------------------------------------------------------------------ LM ------
+def split_micro(x, M: int, grouping: str = "strided"):
+    """[GB, S] -> [M, GB / M, S], the reference's two groupings: "plain"
+    takes consecutive rows a microbatch, "strided" every M-th row
+    ([GB / M, M, S] with the micro axis moved first)."""
+    GB, S = x.shape
+    if grouping == "plain":
+        return x.reshape(M, GB // M, S)
+    return x.reshape(GB // M, M, S).transpose(0, 1)
+
+
+def lm_grads(params, cfg, tokens, labels, n_micro: int,
+             grouping: str = "strided"):
+    """The LM step's gradient: the global batch [GB, S] in M = n_micro
+    microbatches (M = 1 when GB % n_micro), each one forward and backward
+    (``torch.autograd.grad``) accumulated into fp32 -> (mean loss, grads
+    (fp32, params' nesting) / M). Only one microbatch's graph lives at a
+    time."""
+    from repro_torch.models.transformer import lm_loss
+    GB = tokens.shape[0]
+    M = n_micro if GB % n_micro == 0 else 1
+    toks = split_micro(tokens, M, grouping)
+    labs = split_micro(labels, M, grouping)
+    acc = loss_sum = None
+    for i in range(M):
+        loss, _, g = grads_of(
+            lambda p, t, lb: lm_loss(p, cfg, t, lb), params, toks[i],
+            labs[i])
+        g = [t for _, t in flatten_with_paths(g)]
+        if acc is None:
+            acc = [t.to(torch.float32) for t in g]
+            loss_sum = loss.to(torch.float32)
+        else:
+            for a, t in zip(acc, g):
+                a.add_(t)
+            loss_sum = loss_sum + loss
+        del g
+    for a in acc:
+        a.div_(M)
+    by_path = dict(zip((p for p, _ in flatten_with_paths(params)), acc))
+    return loss_sum / M, map_with_paths(lambda path, _: by_path[path],
+                                        params)
+
+
+def build_lm_train_step(cfg, opt_kind: str, n_micro: int = 8, mesh=None,
+                        micro_split: str = "strided", **opt_kw):
+    """LM train step with gradient-accumulation microbatching -> (step,
+    opt). step(state, batch) with batch {"tokens", "labels"} [GB, S]
+    (numpy or tensors) -> (state, {"loss", "grad_norm", "lr"}): the fp32
+    accumulated gradients (``lm_grads``) divided by M, then one
+    ``opt.update``, in place. ``micro_split``: "strided" or "plain", the
+    reference's two groupings (the mean loss is the same either way; the
+    per-microbatch losses match the reference's only under the same
+    grouping). A ``mesh`` waits for the config machinery (ROADMAP)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "build_lm_train_step(mesh=...): the LM mesh waits for port "
+            "slice 13 (ROADMAP: the config and mesh machinery)")
+    opt = make_opt(opt_kind, **opt_kw)
+    grouping = micro_split
+
+    def step(state, batch):
+        params, opt_state = state["params"], state["opt"]
+        b = _on(params, batch)
+        loss, grads = lm_grads(params, cfg, b["tokens"], b["labels"],
+                               n_micro, grouping)
+        params, opt_state, info = opt.update(params, grads, opt_state)
+        return {"params": params, "opt": opt_state}, dict(loss=loss, **info)
 
     return step, opt
 
@@ -121,6 +223,22 @@ def build_lm_decode(cfg, context_len: int):
     return step
 
 
+def build_ctr_train_step(apply_fn, opt_kind: str = "adamw_nomaster",
+                         **opt_kw):
+    """apply_fn(params, batch) -> logit [B]; the label under
+    batch["label"] -> (step, opt), the loss the mean
+    ``stable_bce_with_logits``, metric ``bce``. The batch's arrays are
+    moved to the params' device first."""
+    from repro_torch.models.layers import stable_bce_with_logits
+
+    def loss_fn(params, batch):
+        b = _on(params, batch)
+        loss = stable_bce_with_logits(apply_fn(params, b), b["label"]).mean()
+        return loss, {"bce": loss.detach()}
+
+    return build_train_step(loss_fn, opt_kind, **opt_kw)
+
+
 def build_ctr_serve(apply_fn):
     """step(params, batch) -> {"prob": sigmoid(apply_fn(params, batch))}
     [B]; the batch's arrays (numpy or tensors) are moved to the params'
@@ -128,10 +246,8 @@ def build_ctr_serve(apply_fn):
 
     def step(params, batch):
         with torch.inference_mode():
-            dev = device_of(params)
-            batch = {k: torch.as_tensor(v, device=dev)
-                     for k, v in batch.items()}
-            return {"prob": torch.sigmoid(apply_fn(params, batch))}
+            return {"prob": torch.sigmoid(apply_fn(params,
+                                                   _on(params, batch)))}
 
     return step
 
@@ -199,6 +315,47 @@ def build_retrieval_serve(k: int = 100):
     return step
 
 
+# ----------------------------------------------------------------- GNN ------
+def build_gnn_node_train(cfg, opt_kind="adamw_nomaster", **opt_kw):
+    """SchNet node classification -> (step, opt): the NLL of the fp32
+    ``log_softmax`` over ``cfg.n_out`` classes on all nodes, or weighted by
+    batch["node_mask"] (sum / max(sum(mask), 1)); metric ``nll``."""
+    from repro_torch.models.gnn import schnet_apply
+
+    def loss_fn(params, batch):
+        b = _on(params, batch)
+        out = schnet_apply(params, cfg, b["feats"], b["src"], b["dst"],
+                           b["dist"])
+        logp = torch.log_softmax(out.to(torch.float32), dim=-1)
+        nll = -torch.gather(logp, 1, b["labels"].long()[:, None])[:, 0]
+        if "node_mask" in b:
+            m = b["node_mask"]
+            loss = torch.sum(nll * m) / torch.clamp(m.sum(), min=1.0)
+        else:
+            loss = nll.mean()
+        return loss, {"nll": loss.detach()}
+
+    return build_train_step(loss_fn, opt_kind, **opt_kw)
+
+
+def build_gnn_energy_train(cfg, n_graphs: int, opt_kind="adamw_nomaster",
+                           **opt_kw):
+    """SchNet molecule energy regression -> (step, opt): the MSE of the
+    per-graph sums (batch["graph_ids"]) against batch["energy"]; metric
+    ``mse``."""
+    from repro_torch.models.gnn import schnet_apply
+
+    def loss_fn(params, batch):
+        b = _on(params, batch)
+        e = schnet_apply(params, cfg, b["types"], b["src"], b["dst"],
+                         b["dist"], graph_ids=b["graph_ids"],
+                         n_graphs=n_graphs)
+        loss = torch.mean((e[:, 0] - b["energy"]) ** 2)
+        return loss, {"mse": loss.detach()}
+
+    return build_train_step(loss_fn, opt_kind, **opt_kw)
+
+
 # ----------------------------------------------------------------- IRLI -----
 def build_irli_train_step(scorer_cfg, n_buckets: int,
                           opt_kind="adamw_nomaster", **opt_kw):
@@ -209,8 +366,7 @@ def build_irli_train_step(scorer_cfg, n_buckets: int,
     from repro_torch.core.partition import bucket_targets
 
     def loss_fn(params, batch):
-        dev = device_of(params)
-        b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        b = _on(params, batch)
         targets = bucket_targets(b["assign"], b["label_ids"],
                                  b["label_mask"], n_buckets)
         loss = scorer_loss(params, scorer_cfg, b["x"].float(), targets)

@@ -1,51 +1,83 @@
 """Training launcher CLI. Port of ``repro/launch/train.py``.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch irli
+    PYTHONPATH=src python -m repro_torch.launch.train --arch <id>
         [--steps N] [--ckpt DIR] [--devices N] [--metrics-log F]
         [--device cuda|cpu]
 
-``--arch irli`` is the paper's own workload: fit rounds (the eager train /
-re-partition round of ``fit/engine.py``) through the fault-tolerant
-``Trainer``, over ``configs/irli_deep1b.fit_config(reduced=True)`` on
-``clustered_ann``. ``--steps`` counts ROUNDS. A run whose checkpoints
-already reach ``--steps`` says so and stops; raise ``--steps`` to go on.
-``--metrics-log`` appends one JSONL row a round (``obs.MetricsLogger``).
+Every branch of the reference runs through the fault-tolerant ``Trainer``
+(auto-resume from the newest checkpoint under ``<ckpt>/<arch>``):
 
-``--devices N`` (N > 1) starts N ranks on this host (``torch.
-multiprocessing`` spawn, ``torch.distributed`` over ``tcp://localhost``
-with a free port: NCCL with one card a rank when there are N cards, gloo
-otherwise, on the CPU with ``--device cpu``) and fits on a (data × rep)
-mesh chosen as the reference chooses it (``launch/mesh.make_fit_mesh``).
-The checkpoint holds the WHOLE state: rank 0 writes it and every rank takes
-its rep rows of a restored one, so a fit checkpointed on one mesh shape
-resumes on another. Runs on the card unless ``--device cpu``.
+  * the LM archs (gemma-7b, yi-6b, qwen3-4b, mixtral-8x7b,
+    llama4-maverick-400b-a17b): ``LM_VARIANTS``, the reference's reduced
+    configs (its ``tests/test_smoke_archs.py:22-45``, value for value),
+    through ``build_lm_train_step`` (``adamw_nomaster``, ``n_micro=2``, lr
+    1e-3) on [4, 64] token batches with next-token labels;
+  * ``schnet``: a reduced SchNet (32 RBFs, width 32) through
+    ``build_gnn_energy_train`` on ``molecule_batch(16, 8, 16)``;
+  * ``irli``: the paper's own workload, fit rounds (the eager train /
+    re-partition round of ``fit/engine.py``) over
+    ``configs/irli_deep1b.fit_config(reduced=True)`` on ``clustered_ann``;
+    ``--steps`` counts ROUNDS;
+  * any other arch: the recsys family's reduced DLRM (3 sparse fields)
+    through ``build_ctr_train_step`` on a seeded synthetic stream.
 
-The reference's other branches wait, each for its ROADMAP item: the LM
-archs (item 7: their train step needs a backward through the attention),
-``schnet`` and the recsys/DLRM default (item 8).
+A batch is a pure function of the step (a ``torch.Generator`` or numpy
+generator seeded with it; RNG streams do not cross packages), so a resumed
+run replays the same batches. A run whose checkpoints already reach
+``--steps`` says so and stops; raise ``--steps`` to go on. ``--metrics-log``
+appends one JSONL row a step (``obs.MetricsLogger``).
+
+``--devices N`` (N > 1, ``irli`` only) starts N ranks on this host
+(``torch.multiprocessing`` spawn, ``torch.distributed`` over
+``tcp://localhost`` with a free port: NCCL with one card a rank when there
+are N cards, gloo otherwise, on the CPU with ``--device cpu``) and fits on
+a (data × rep) mesh chosen as the reference chooses it
+(``launch/mesh.make_fit_mesh``). The checkpoint holds the WHOLE state:
+rank 0 writes it and every rank takes its rep rows of a restored one, so a
+fit checkpointed on one mesh shape resumes on another. Runs on the card
+unless ``--device cpu``.
 """
 from __future__ import annotations
 
 import argparse
 import os
 
+from repro_torch.models.moe import MoEConfig
+from repro_torch.models.transformer import LMConfig
+
 LM_ARCHS = ("gemma-7b", "yi-6b", "qwen3-4b", "mixtral-8x7b",
             "llama4-maverick-400b-a17b")
 
 
-def unported(arch: str) -> str | None:
-    """Why ``arch``'s branch is not ported, or None for ``irli``."""
-    if arch == "irli":
-        return None
-    if arch in LM_ARCHS:
-        return (f"--arch {arch}: the LM train step waits for ROADMAP.md "
-                f"queue 1 item 7 (a backward pass through the attention)")
-    if arch == "schnet":
-        return ("--arch schnet: the GNN waits for ROADMAP.md queue 1 "
-                "item 8 (models/gnn.py)")
-    return (f"--arch {arch}: the recsys/DLRM train step waits for "
-            f"ROADMAP.md queue 1 item 8 (models/recsys DLRM, "
-            f"build_ctr_train_step)")
+def _tiny_lm(name, **kw):
+    base = dict(name=name, n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+                head_dim=16, d_ff=128, vocab=512, param_dtype="float32",
+                q_chunk=32, ce_chunk=64)
+    base.update(kw)
+    return LMConfig(**base)
+
+
+#: the reference's reduced LM configs (tests/test_smoke_archs.py:22-45)
+LM_VARIANTS = {
+    "gemma-7b": _tiny_lm("gemma-7b", act="gelu", embed_scale=True,
+                         tie_embeddings=True),
+    "yi-6b": _tiny_lm("yi-6b", n_kv_heads=2, tie_embeddings=False),
+    "qwen3-4b": _tiny_lm("qwen3-4b", n_kv_heads=2, qk_norm=True),
+    "mixtral-8x7b": _tiny_lm(
+        "mixtral-8x7b", attn_pattern=("swa",), window=32,
+        moe=MoEConfig(d_model=64, d_ff=128, n_experts=4, top_k=2,
+                      ffn_chunk=1 << 16)),
+    "llama4-maverick-400b-a17b": _tiny_lm(
+        "llama4", n_layers=4,
+        attn_pattern=("chunked", "chunked", "chunked", "full"), chunk=32,
+        nope_on_full=True,
+        moe=MoEConfig(d_model=64, d_ff=128, n_experts=8, top_k=1,
+                      n_shared_experts=1, ffn_chunk=1 << 16)),
+}
+
+#: the reduced DLRM of the recsys branch
+DLRM_REDUCED = dict(vocab_sizes=(1000, 500, 300), n_sparse=3, n_dense=8,
+                    embed_dim=16, bot_mlp=(32, 16), top_mlp=(32, 1))
 
 
 def fit_mesh_split(n_dev: int, n_reps: int, batch_size: int) -> int | None:
@@ -78,9 +110,9 @@ def parse(argv=None):
 
 def main(argv=None):
     args = parse(argv)
-    why = unported(args.arch)
-    if why is not None:
-        raise NotImplementedError(why)
+    if args.arch != "irli":
+        run_model(args)
+        return
     if args.devices > 1:
         import socket
 
@@ -91,6 +123,96 @@ def main(argv=None):
         mp.spawn(_rank, args=(args, port), nprocs=args.devices, join=True)
         return
     run_irli(args)
+
+
+def _log_metrics(args, out, start: int):
+    from repro_torch import obs
+    with obs.MetricsLogger(args.metrics_log) as mlog:
+        for i, m in enumerate(out["metrics"]):
+            mlog.log(dict(m, arch=args.arch), step=start + i)
+    print(f"metrics log -> {args.metrics_log}")
+
+
+def model_parts(arch: str, dev):
+    """(step, init_state, batch_fn) of the LM, ``schnet`` and recsys
+    branches on ``dev``, as the reference builds them."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import steps as S
+    from repro_torch.models.module import tensor_tree
+
+    if arch in LM_ARCHS:
+        from repro_torch.models.transformer import lm_init
+        cfg = LM_VARIANTS[arch]
+        step, opt = S.build_lm_train_step(cfg, "adamw_nomaster", n_micro=2,
+                                          lr=1e-3)
+
+        def init_state():
+            params = tensor_tree(lm_init(cfg, seed=0, device=dev))
+            return {"params": params, "opt": opt.init(params)}
+
+        def batch_fn(i):
+            g = torch.Generator().manual_seed(i)
+            t = torch.randint(0, cfg.vocab, (4, 64), generator=g,
+                              dtype=torch.int32)
+            return {"tokens": t, "labels": torch.roll(t, -1, 1)}
+    elif arch == "schnet":
+        from repro_torch.data.synthetic import molecule_batch
+        from repro_torch.models.gnn import SchNetConfig, schnet_init
+        cfg = SchNetConfig(d_in=0, n_types=10, n_out=1, readout="sum",
+                           n_rbf=32, d_hidden=32)
+        step, opt = S.build_gnn_energy_train(cfg, 16, lr=1e-3)
+
+        def init_state():
+            params = schnet_init(cfg, seed=0, device=dev)
+            return {"params": params, "opt": opt.init(params)}
+
+        def batch_fn(i):
+            return molecule_batch(16, 8, 16, seed=i)
+    else:  # recsys family: dlrm-style CTR on a synthetic stream
+        from repro_torch.models.recsys import (DLRMConfig, dlrm_apply,
+                                               dlrm_init)
+        cfg = dataclasses.replace(DLRMConfig(), **DLRM_REDUCED)
+        params0, offsets = dlrm_init(cfg, seed=0, device=dev)
+        step, opt = S.build_ctr_train_step(
+            lambda p, b: dlrm_apply(p, cfg, offsets, b["dense"],
+                                    b["sparse"]), lr=1e-3)
+
+        def init_state():
+            return {"params": params0, "opt": opt.init(params0)}
+
+        def batch_fn(i):
+            r = np.random.default_rng(i)
+            return {"dense": r.normal(size=(64, 8)).astype(np.float32),
+                    "sparse": r.integers(0, 300, (64, 3)).astype(np.int32),
+                    "label": r.integers(0, 2, 64).astype(np.float32)}
+    return step, init_state, batch_fn
+
+
+def run_model(args):
+    """The LM, ``schnet`` and recsys branches: ``--steps`` train steps
+    through the Trainer (checkpoint every 10 and at the end)."""
+    from repro_torch.kernels import resolve_device
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = resolve_device(args.device)
+    tr = Trainer(TrainerConfig(total_steps=args.steps, checkpoint_every=10),
+                 *model_parts(args.arch, dev),
+                 os.path.join(args.ckpt, args.arch), device=dev)
+    out = tr.run()
+    losses = [m["loss"] for m in out["metrics"]]
+    if not losses:       # restored a finished run: nothing left to do
+        print(f"{args.arch}: already complete at step {tr.start_step} "
+              f"(resumed={out['resumed']}); raise --steps to continue")
+        return out
+    print(f"{args.arch}: {len(losses)} steps, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, resumed={out['resumed']}")
+    if args.metrics_log:
+        _log_metrics(args, out, tr.start_step)
+    return out
 
 
 def _rank(rank: int, args, port: int):
@@ -160,11 +282,7 @@ def run_irli(args, device_type: str | None = None, quiet: bool = False):
         f"reassigned {moved[0]:.0f} -> {moved[-1]:.0f}, "
         f"resumed={out['resumed']}")
     if args.metrics_log and not quiet:
-        from repro_torch import obs
-        with obs.MetricsLogger(args.metrics_log) as mlog:
-            for i, m in enumerate(out["metrics"]):
-                mlog.log(dict(m, arch=args.arch), step=tr.start_step + i)
-        say(f"metrics log -> {args.metrics_log}")
+        _log_metrics(args, out, tr.start_step)
     return out
 
 

@@ -6,27 +6,34 @@ full. ``attend_train`` is [B, S] self-attention. Its causal full case
 (``kind="full"``, no logit cap, positions 0..S-1: what ``lm_backbone``
 passes) is one launch of the flash-attention kernel on the card
 (``kernels/flash_attention/ops.causal_attention``; the plain version on the
-CPU), which holds no score tensor. The other kinds run ``_sdpa`` in plain
-torch, in query chunks, as in the reference, and so do the cases the
-kernel does not take (float16, a head_dim that is not a multiple of 16 in
-[16, 256]); the choice is made from the config and the activation dtype
-alone (``uses_kernel``). ``attend_decode`` is one new token against a KV
-cache: the whole context for ``full`` and ``chunked`` (masked by ``_mask``
-at the absolute positions), a ring buffer of ``min(window, context)`` slots
-for ``swa`` (write slot pos % Sc); it writes the new K and V into the
-caches it is given, in place, and attends through ``_sdpa`` (the
-reference's decode attention is outside any Pallas kernel too). The
-reference's sequence sharding (``seq_shard``) is mesh machinery and is not
-ported.
+CPU), which holds no score tensor, when no gradient is asked. The other
+kinds run ``_sdpa`` in plain torch, in query chunks, as in the reference,
+and so do the cases the kernel does not take (float16, a head_dim that is
+not a multiple of 16 in [16, 256]); the choice is made from the config,
+the activation dtype and whether a gradient is asked (``uses_kernel``).
+Under a gradient ``attend_train`` runs the reference's own training
+algorithm (``attention.py:107-146``): the query-chunked ``_sdpa``, each
+chunk recomputed in the backward (``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint(body)``); the kernel has no backward, and the
+reference's train path never calls its Pallas kernel either.
+``attend_decode`` is one new token against a KV cache: the whole context
+for ``full`` and ``chunked`` (masked by ``_mask`` at the absolute
+positions), a ring buffer of ``min(window, context)`` slots for ``swa``
+(write slot pos % Sc); it writes the new K and V into the caches it is
+given, in place, and attends through ``_sdpa`` (the reference's decode
+attention is outside any Pallas kernel too). The reference's sequence
+sharding (``seq_shard``) is mesh machinery and is not ported.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import causal_attention
 from repro_torch.models import layers as L
+from repro_torch.models.module import grad_asked
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,22 +121,31 @@ def _sdpa(q, k, v, mask, cfg: AttnConfig):
     return out.reshape(B, Sq, H * D)
 
 
-def uses_kernel(cfg: AttnConfig, dtype: torch.dtype, positions=None) -> bool:
+def uses_kernel(cfg: AttnConfig, dtype: torch.dtype, positions=None,
+                grad: bool = False) -> bool:
     """Whether ``attend_train`` sends this config, at activation dtype
     ``dtype``, to the causal kernel: the function it computes (causal
     full attention, no logit cap, positions 0..S-1) on what it takes
-    (float32 or bfloat16, head_dim a multiple of 16 in [16, 256]), and
-    nothing else."""
-    return (cfg.kind == "full" and cfg.logit_cap == 0 and positions is None
+    (float32 or bfloat16, head_dim a multiple of 16 in [16, 256]) when no
+    gradient is asked (``grad``: ``models.module.grad_asked`` of the input
+    and the layer's params), and nothing else. The kernel has no backward:
+    its output, written through ctypes, carries no ``grad_fn``, so under a
+    gradient it would cut the graph (and ``flash_attention`` refuses)."""
+    return (not grad and cfg.kind == "full" and cfg.logit_cap == 0
+            and positions is None
             and dtype in (torch.float32, torch.bfloat16)
             and cfg.head_dim % 16 == 0 and 16 <= cfg.head_dim <= 256)
 
 
 def attend_train(p, cfg: AttnConfig, x, positions=None):
     """Causal self-attention over [B, S, d_model]. positions [B, S]
-    defaults to 0..S-1."""
+    defaults to 0..S-1. Under a gradient each query chunk's ``_sdpa`` is
+    recomputed in the backward (one chunk, S not a multiple of
+    ``q_chunk`` or S <= q_chunk, is not checkpointed, as in the
+    reference)."""
     B, S, _ = x.shape
-    kernel = uses_kernel(cfg, x.dtype, positions)
+    grad = grad_asked(x, p)
+    kernel = uses_kernel(cfg, x.dtype, positions, grad)
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _qkv(p, cfg, x, positions)
@@ -146,11 +162,16 @@ def attend_train(p, cfg: AttnConfig, x, positions=None):
     qc = min(cfg.q_chunk, S)
     if S % qc != 0:
         qc = S
+
+    def chunk(qi, pi, k, v):
+        return _sdpa(qi, k, v, _mask(cfg.kind, pi, positions, cfg.window,
+                                     cfg.chunk), cfg)
+
     outs = []
     for s0 in range(0, S, qc):
-        mask = _mask(cfg.kind, positions[:, s0:s0 + qc], positions,
-                     cfg.window, cfg.chunk)
-        outs.append(_sdpa(q[:, s0:s0 + qc], k, v, mask, cfg))
+        args = (q[:, s0:s0 + qc], positions[:, s0:s0 + qc], k, v)
+        outs.append(checkpoint(chunk, *args, use_reentrant=False)
+                    if grad and qc < S else chunk(*args))
     return L.dense_apply(p["o_proj"], torch.cat(outs, dim=1))
 
 

@@ -1,7 +1,7 @@
 """Core layers of the LM and recsys families: linear, embedding, norms,
 rotary, MLPs, recurrent cells.
 
-Port of ``repro/models/layers.py:23-190``. An ``*_init`` draws a nested
+Port of ``repro/models/layers.py:23-207``. An ``*_init`` draws a nested
 dict of tensors from a ``torch.Generator`` on its device, with the
 reference's distributions (its numbers differ: JAX's PRNG cannot be
 reproduced); an ``*_apply`` takes that dict (or the ``nn.ParameterDict``
@@ -15,8 +15,9 @@ an fp32 matmul of the upcast inputs (the reference's
 ``preferred_element_type=jnp.float32``), never a bf16 matmul rounded to
 bf16. The recurrent cells of the recsys family (``gru_cell``,
 ``augru_cell``, ``gru_scan``; reference ``:140-190``) follow the same
-rules; ``segment_softmax`` (GNN) and ``stable_bce_with_logits`` (the CTR
-train step) wait for their own paths.
+rules. ``segment_softmax`` (the graph edge softmax) and
+``stable_bce_with_logits`` (the CTR train step's loss) are the
+reference's ``:194-207``, term for term.
 """
 from __future__ import annotations
 
@@ -201,3 +202,34 @@ def gru_scan(p, xs, h0, cell=gru_cell, att=None):
             else cell(p, h, xs[:, t], att[:, t])
         ys[t] = h
     return ys.transpose(0, 1), h
+
+
+# ----------------------------------------------------------- segment ops ----
+def segment_softmax(scores, segment_ids, num_segments: int):
+    """Softmax over variable-size segments (edge softmax for graphs):
+    scores [n], segment_ids [n] -> [n]. A segment's max is a
+    ``scatter_reduce_("amax")`` from -inf (an empty segment keeps -inf,
+    which becomes 0 as in the reference), its sum an ``index_add_``; the
+    denominator carries the reference's + 1e-9."""
+    seg = segment_ids.long()
+    seg_max = torch.full((num_segments,), float("-inf"), dtype=scores.dtype,
+                         device=scores.device)
+    seg_max = seg_max.scatter_reduce(0, seg, scores, "amax")
+    seg_max = torch.where(torch.isneginf(seg_max), 0.0, seg_max)
+    ex = torch.exp(scores - seg_max[seg])
+    seg_sum = torch.zeros((num_segments,), dtype=ex.dtype,
+                          device=ex.device).index_add(0, seg, ex)
+    return ex / (seg_sum[seg] + 1e-9)
+
+
+def stable_bce_with_logits(logits, labels):
+    """Numerically stable elementwise BCE from logits, in fp32:
+    max(x, 0) - x·y + log1p(exp(-|x|)). At x = 0 the gradient is JAX's:
+    ``torch.maximum`` splits it half each way as ``jnp.maximum`` does, and
+    |x| is written so that its slope there is 1, as ``jnp.abs``'s (torch's
+    ``abs`` has 0)."""
+    x = logits.to(torch.float32)
+    y = labels.to(torch.float32)
+    ax = torch.where(x >= 0, x, -x)
+    return (torch.maximum(x, torch.zeros_like(x)) - x * y
+            + torch.log1p(torch.exp(-ax)))

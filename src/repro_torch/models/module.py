@@ -29,6 +29,7 @@ from torch import nn
 from repro_torch.checkpoint.checkpointer import flatten_with_paths
 
 __all__ = ["ShardRules", "Spec", "as_module", "cast_floating", "device_of",
+           "grad_asked", "layer_list", "tensor_tree", "tree_to",
            "flatten_with_paths", "map_with_paths", "mesh_sizes",
            "param_bytes", "param_count", "spec_axes", "tree_paths"]
 
@@ -41,7 +42,8 @@ def as_module(tree: Any) -> nn.Module:
     """A nested dict (or list) of tensors -> the same nesting as modules: a
     dict of tensors becomes an ``nn.ParameterDict``, a dict of dicts an
     ``nn.ModuleDict``, a list an ``nn.ModuleList``. The tensors become
-    parameters without gradients (the port's LM path is inference only)."""
+    parameters that require no gradient: a train step asks for one only
+    for its own call (``launch/steps.grads_of``)."""
     if isinstance(tree, (list, tuple)):
         return nn.ModuleList([as_module(t) for t in tree])
     if all(isinstance(v, torch.Tensor) for v in tree.values()):
@@ -51,6 +53,55 @@ def as_module(tree: Any) -> nn.Module:
         raise ValueError(f"a params dict mixes tensors and subtrees: "
                          f"{sorted(tree)}")
     return nn.ModuleDict({k: as_module(v) for k, v in tree.items()})
+
+
+def tensor_tree(params: Any) -> Any:
+    """A module (or nested dict / list) -> the same nesting as plain dicts
+    of its tensors (the same storage), a list level keyed "0", "1", ...:
+    the form a train step's state, its optimizer and a checkpoint take
+    (``checkpoint.flatten_with_paths`` walks dicts only)."""
+    if isinstance(params, torch.Tensor):
+        return params
+    if isinstance(params, (list, tuple, nn.ModuleList)):
+        return {str(i): tensor_tree(v) for i, v in enumerate(params)}
+    return {k: tensor_tree(v) for k, v in params.items()}
+
+
+def tree_to(tree: Any, device) -> Any:
+    """A copy of a nested dict of tensors on ``device`` (detached)."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.detach().to(device, copy=True)
+
+
+def layer_list(layers: Any) -> list:
+    """A model's layers in order, from an ``nn.ModuleList``, a list or the
+    {"0", "1", ...} dict of :func:`tensor_tree`."""
+    if isinstance(layers, (dict, nn.ModuleDict)):
+        return [layers[str(i)] for i in range(len(layers))]
+    return list(layers)
+
+
+def _tensors(tree: Any):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, (list, tuple, nn.ModuleList)):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        for v in tree.values():
+            yield from _tensors(v)
+
+
+def grad_asked(*trees: Any) -> bool:
+    """Whether autograd will want a gradient through a computation on
+    these tensors or parameter trees: grad mode is on and one of their
+    tensors requires grad. A kernel launched through ctypes writes into a
+    fresh tensor with no ``grad_fn``, so a caller that sees True must not
+    launch one that has no backward."""
+    if not torch.is_grad_enabled():
+        return False
+    return any(t.requires_grad for tree in trees for t in _tensors(tree))
 
 
 def _leaves(params) -> list[torch.Tensor]:

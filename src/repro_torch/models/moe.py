@@ -24,6 +24,12 @@ keeps the activation dtype, as the reference's. The top-k outputs of a
 token are summed in slot order in the activation dtype. The reference's
 mesh constraints (``constrain_first``) do nothing on one device and are
 not ported.
+
+Under a gradient the router's gates and the aux loss are differentiable
+torch ops; the dispatch indices are not (``kchoice`` returns ints, as the
+reference's scan does), and a recompute (``lm_backbone``'s remat) routes
+exactly as its forward: both routers are deterministic functions of the
+logits.
 """
 from __future__ import annotations
 
@@ -137,12 +143,40 @@ def _queue_positions(idx, E: int, C: int):
     return pos, (pos < C) & (pos >= 0)
 
 
+class _BmmF32Out(torch.autograd.Function):
+    """bf16 a @ b with an fp32 output (``torch.bmm(..., out_dtype=
+    torch.float32)``), differentiable: ``aten::bmm.dtype`` has no
+    derivative in torch 2.11 (probed on the card: "derivative for
+    aten::bmm is not implemented"). The backward makes the same bf16
+    products with an fp32 output, g·bᵀ and aᵀ·g (the incoming fp32
+    gradient rounded to bf16 first), each cast to its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(g, b.transpose(1, 2),
+                           out_dtype=torch.float32).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a.transpose(1, 2), g,
+                           out_dtype=torch.float32).to(b.dtype)
+        return ga, gb
+
+
 def _f32_bmm(a, b):
     """a [n, i, j] @ b [n, j, l], products summed in fp32 -> fp32: bf16
-    operands on the card go to one bf16 matmul with an fp32 output; on the
-    CPU (or fp32 operands) an fp32 matmul of the upcast operands."""
+    operands on the card go to one bf16 matmul with an fp32 output
+    (``_BmmF32Out``, which carries its own backward); on the CPU (or fp32
+    operands) an fp32 matmul of the upcast operands."""
     if a.is_cuda and a.dtype == b.dtype and a.dtype != torch.float32:
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return _BmmF32Out.apply(a, b)
     return torch.bmm(a.to(torch.float32), b.to(torch.float32))
 
 

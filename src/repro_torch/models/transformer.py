@@ -20,9 +20,18 @@ Sc the context, or a ring of min(window, context) slots on an SWA layer),
 against them. It writes each layer's new K and V into the caches it is
 given, in place, and returns them: the reference returns functional
 copies, and copying a 15 GB cache each step would cost more than the step
-(ROADMAP, the deliberate divergences). ``chunked_xent``, ``lm_loss`` and
-the train step wait (ROADMAP), and so do the reference's settings that only
-they or the mesh read (``ce_chunk``, ``remat``, ``seq_shard_attn``).
+(ROADMAP, the deliberate divergences).
+
+Training (``:159-255``): ``lm_backbone`` takes the module or its
+``models.module.tensor_tree`` (the form a train step's state holds, its
+layers keyed "0", "1", ...); under a gradient it recomputes each period
+group of layers in the backward when ``cfg.remat`` is set
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` over the
+scan body), and each attention takes the reference's chunked ``_sdpa``
+(``models/attention.py``). ``chunked_xent`` is the reference's sequence-
+chunked cross-entropy, each chunk's fp32 logits recomputed in the
+backward; ``lm_loss`` adds 0.01 · the MoE aux loss. The reference's
+``seq_shard_attn`` is mesh machinery and waits (ROADMAP).
 """
 from __future__ import annotations
 
@@ -31,13 +40,14 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (AttnConfig, attend_decode,
                                           attend_train, attn_init,
                                           decode_cache_len)
-from repro_torch.models.module import as_module
+from repro_torch.models.module import as_module, grad_asked, layer_list
 from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
 
 
@@ -65,6 +75,8 @@ class LMConfig:
     moe: Optional[MoEConfig] = None    # MoE (None => dense GLU MLP)
     param_dtype: str = "bfloat16"
     q_chunk: int = 1024
+    ce_chunk: int = 8192               # tokens a chunked-CE step
+    remat: bool = True                 # recompute each group in backward
 
     @property
     def period(self) -> int:
@@ -186,22 +198,40 @@ def _ffn(lp, cfg: LMConfig, h):
     return L.glu_mlp_apply(lp["mlp"], h, cfg.act), None
 
 
-def lm_backbone(params, cfg: LMConfig, tokens):
-    """tokens [B, S] -> (final hidden [B, S, d], aux loss: the MoE layers'
-    load-balance losses summed, 0 for a dense model). Every layer's
-    attention is one ``attend_train`` call (the flash-attention kernel on
-    the card for the full-attention configs)."""
-    x = _embed(params, cfg, tokens)
+def _group_apply(group, cfg: LMConfig, x):
+    """One period group of layers (the reference's ``_group_apply_train``)
+    -> (x, the group's aux loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer, lp in enumerate(params["layers"]):
-        acfg = cfg.attn_cfg(layer % cfg.period)
+    for i, lp in enumerate(group):
         h = L.rmsnorm_apply(lp["ln_attn"], x)
-        x = x + attend_train(lp["attn"], acfg, h)
+        x = x + attend_train(lp["attn"], cfg.attn_cfg(i), h)
         h = L.rmsnorm_apply(lp["ln_mlp"], x)
         y, a = _ffn(lp, cfg, h)
         if a is not None:
             aux = aux + a
         x = x + y
+    return x, aux
+
+
+def lm_backbone(params, cfg: LMConfig, tokens):
+    """tokens [B, S] -> (final hidden [B, S, d], aux loss: the MoE layers'
+    load-balance losses summed, 0 for a dense model). Every layer's
+    attention is one ``attend_train`` call (the flash-attention kernel on
+    the card for the full-attention configs when no gradient is asked).
+    Under a gradient with ``cfg.remat``, each period group is recomputed
+    in the backward; under ``no_grad``/``inference_mode`` nothing is."""
+    layers = layer_list(params["layers"])
+    x = _embed(params, cfg, tokens)
+    remat = cfg.remat and grad_asked(params)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g0 in range(0, len(layers), cfg.period):
+        group = layers[g0:g0 + cfg.period]
+        if remat:
+            x, a = checkpoint(_group_apply, group, cfg, x,
+                              use_reentrant=False)
+        else:
+            x, a = _group_apply(group, cfg, x)
+        aux = aux + a
     x = L.rmsnorm_apply(params["ln_final"], x)
     return x, aux
 
@@ -216,6 +246,48 @@ def _logits(params, cfg: LMConfig, h):
     if cfg.logit_cap > 0:
         out = cfg.logit_cap * torch.tanh(out / cfg.logit_cap)
     return out
+
+
+def chunked_xent(params, cfg: LMConfig, h, labels, mask):
+    """Cross-entropy without the [B, S, V] logits at once: h [B, S, d],
+    labels [B, S] int, mask [B, S] -> the masked mean of -log p(label).
+
+    The sequence is cut into chunks of Cs = max(1, min(ce_chunk // B, S))
+    positions (one chunk when S % Cs or S // Cs <= 1), the batch dim kept
+    whole, as the reference does; each chunk's fp32 logits -> logsumexp ->
+    the gold logit run under a checkpoint, so the backward recomputes them
+    and only one chunk's logits live at a time. The sum is divided by
+    max(sum(mask), 1)."""
+    B, S, _ = h.shape
+    mask = mask.to(torch.float32)
+    Cs = max(1, min(cfg.ce_chunk // max(B, 1), S))
+    if S % Cs != 0 or S // Cs <= 1:
+        Cs = S
+
+    def chunk_loss(hc, lc, mc):
+        logits = _logits(params, cfg, hc)                  # [B, Cs, V] fp32
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+        return torch.sum((lse - gold) * mc)
+
+    grad = grad_asked(h, params)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s0 in range(0, S, Cs):
+        args = (h[:, s0:s0 + Cs], labels[:, s0:s0 + Cs], mask[:, s0:s0 + Cs])
+        total = total + (checkpoint(chunk_loss, *args, use_reentrant=False)
+                         if grad else chunk_loss(*args))
+    return total / torch.clamp(mask.sum(), min=1.0)
+
+
+def lm_loss(params, cfg: LMConfig, tokens, labels, mask=None):
+    """tokens, labels [B, S] (mask [B, S], default all ones) -> (ce + 0.01
+    · aux, {"ce", "aux"})."""
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    h, aux = lm_backbone(params, cfg, tokens)
+    ce = chunked_xent(params, cfg, h, labels, mask)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------- decode ----
@@ -252,7 +324,7 @@ def decode_hidden(params, cfg: LMConfig, token, caches, pos):
     (an SWA ring buffer and a full cache differ in shape)."""
     with torch.inference_mode():
         x = _embed(params, cfg, token)[:, None, :]
-        for layer, lp in enumerate(params["layers"]):
+        for layer, lp in enumerate(layer_list(params["layers"])):
             acfg = cfg.attn_cfg(layer % cfg.period)
             c = caches[layer]
             h = L.rmsnorm_apply(lp["ln_attn"], x)

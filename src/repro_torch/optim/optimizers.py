@@ -2,9 +2,9 @@
 learning-rate schedules.
 
 Port of ``repro/optim/optimizers.py``. Parameters, gradients and moments
-are plain (nested, for Adafactor) dicts of tensors, as in the reference's
-pytrees. ``torch.optim.AdamW`` is not used: the reference's ``b2`` is 0.95,
-its update is ``base - lr·(m̂/(√v̂ + eps) + wd·base)`` with the bias
+are plain or nested dicts of tensors, as in the reference's pytrees.
+``torch.optim.AdamW`` is not used: the reference's ``b2`` is 0.95, its
+update is ``base - lr·(m̂/(√v̂ + eps) + wd·base)`` with the bias
 corrections taken from a float32 step, and its state is ``{"step", "m",
 "v"}``, which ``repro_torch.convert`` carries across both ways.
 
@@ -94,23 +94,37 @@ def _lr_at(lr, step: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(out, dtype=torch.float32)
 
 
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _leaves(tree) -> list:
+    return [v for _, v in flatten_with_paths(tree)]
+
+
 def adamw_init(cfg: AdamWConfig, params: dict) -> dict:
+    """{"step": host int32 0, "m", "v": fp32 zeros in the params' nesting
+    (a flat dict or nested dicts), "master": an fp32 copy when
+    ``master_fp32``}."""
+    zeros32 = lambda p: torch.zeros_like(p, dtype=torch.float32)
     state = {"step": torch.zeros((), dtype=torch.int32),   # host counter
-             "m": {k: torch.zeros_like(p, dtype=torch.float32)
-                   for k, p in params.items()},
-             "v": {k: torch.zeros_like(p, dtype=torch.float32)
-                   for k, p in params.items()}}
+             "m": _tree_map(zeros32, params),
+             "v": _tree_map(zeros32, params)}
     if cfg.master_fp32:
-        state["master"] = {k: p.detach().float().clone()
-                           for k, p in params.items()}
+        state["master"] = _tree_map(lambda p: p.detach().float().clone(),
+                                    params)
     return state
 
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict):
     """One AdamW step, in place: ``params`` and the moments of ``state``
-    are overwritten (``grads`` too, by the clip). Returns (params, state,
-    {"grad_norm", "lr"}), the reference's triple."""
+    are overwritten (``grads`` too, by the clip). ``params``, ``grads`` and
+    the moments share one nesting (flat or nested dicts; leaves are
+    walked in sorted key order). Returns (params, state, {"grad_norm",
+    "lr"}), the reference's triple."""
     gnorm = global_norm(grads)
     if math.isfinite(cfg.clip_norm):        # inf: the fit clips it itself
         apply_clip(grads, gnorm, cfg.clip_norm)
@@ -120,13 +134,15 @@ def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict):
     bc1 = 1 - torch.tensor(cfg.b1, dtype=torch.float32) ** stepf
     bc2 = 1 - torch.tensor(cfg.b2, dtype=torch.float32) ** stepf
     lr_f, bc1_f, bc2_f = float(lr), float(bc1), float(bc2)
-    for k, p in params.items():
-        g32 = grads[k].float()
-        m, v = state["m"][k], state["v"][k]
+    masters = _leaves(state["master"]) if cfg.master_fp32 else None
+    for i, (p, g, m, v) in enumerate(zip(
+            _leaves(params), _leaves(grads), _leaves(state["m"]),
+            _leaves(state["v"]))):
+        g32 = g.float()
         m.mul_(cfg.b1).add_(g32 * (1 - cfg.b1))
         v.mul_(cfg.b2).add_(torch.square(g32).mul_(1 - cfg.b2))
         del g32
-        base = state["master"][k] if cfg.master_fp32 else p.float()
+        base = masters[i] if cfg.master_fp32 else p.float()
         upd = torch.div(v, bc2_f).sqrt_().add_(cfg.eps)
         upd = torch.div(m, bc1_f).div_(upd)
         if cfg.weight_decay:

@@ -1743,3 +1743,154 @@ def test_moe_tokens_bf16_on_the_card_accumulates_in_fp32(card):
     assert LAUNCHES["kchoice"] == 1
     torch.testing.assert_close(gy.cpu().float(), y.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+# ------------------------------------------- train paths under a gradient --
+def _tiny_dien():
+    from repro_torch.models import recsys as PR
+    cfg = PR.DIENConfig(embed_dim=8, seq_len=12, gru_dim=16, mlp=(16, 8),
+                        item_vocab=200, cate_vocab=50)
+    rng = np.random.default_rng(0)
+    B = 16
+    batch = {"hist_items": rng.integers(0, 200, (B, 12)).astype(np.int32),
+             "hist_cates": rng.integers(0, 50, (B, 12)).astype(np.int32),
+             "target_item": rng.integers(0, 200, B).astype(np.int32),
+             "target_cate": rng.integers(0, 50, B).astype(np.int32),
+             "hist_mask": (rng.random((B, 12)) < 0.8).astype(np.float32),
+             "label": rng.integers(0, 2, B).astype(np.float32)}
+    return cfg, batch
+
+
+def _dien_table_grad(params, cfg, batch, dev):
+    from repro_torch.models import recsys as PR
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    table = params["item_emb"]["table"]
+    table.requires_grad_(True)
+    logit = PR.dien_apply(params, cfg, b["hist_items"], b["hist_cates"],
+                          b["target_item"], b["target_cate"],
+                          b["hist_mask"])
+    (g,) = torch.autograd.grad(logit.sum(), table)
+    table.requires_grad_(False)
+    return g
+
+
+def test_dien_table_gradient_on_the_card_equals_the_cpu(card):
+    """Plain autograd over dien_apply: the item table's gradient on the
+    card equals the CPU's, history rows included. A kernel launched
+    through ctypes has no grad_fn: had the history sum gone through
+    embedding_bag under the gradient, the history rows' share of it would
+    be missing on the card."""
+    import copy
+
+    from repro_torch.models import recsys as PR
+    cfg, batch = _tiny_dien()
+    cpu = PR.dien_init(cfg, seed=0, device="cpu")
+    dev = copy.deepcopy(cpu).to(card)
+    reset_launches()
+    g_card = _dien_table_grad(dev, cfg, batch, card)
+    launched = LAUNCHES["embedding_bag"]
+    g_cpu = _dien_table_grad(cpu, cfg, batch, "cpu")
+    scale = float(g_cpu.abs().max())
+    assert float((g_card.cpu() - g_cpu).abs().max()) <= 1e-5 * scale
+    assert launched == 0
+
+
+def test_kernel_entries_refuse_or_are_not_reached_under_a_gradient(card):
+    """The gradient table of the train paths: flash_attention and
+    embedding_bag raise under a gradient; attend_train (a full-attention
+    config the kernel takes) and dien_apply under a gradient launch no
+    kernel, and the serve forms still launch theirs."""
+    from repro_torch.kernels.embedding_bag import ops as eops
+    from repro_torch.models import attention as PA
+    from repro_torch.models import recsys as PR
+    from repro_torch.models.module import tensor_tree
+    ids = torch.zeros((4, 3), dtype=torch.int32, device=card)
+    w = torch.ones((4, 3), device=card)
+    table = torch.randn(10, 8, device=card, requires_grad=True)
+    with pytest.raises(ValueError, match="no backward"):
+        eops.embedding_bag(ids, w, table)
+    with torch.no_grad():
+        eops.embedding_bag(ids, w, table)
+    cfg = PA.AttnConfig(d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
+                        q_chunk=16)
+    gen = torch.Generator(device=card).manual_seed(0)
+    p = PA.attn_init(gen, cfg)
+    x = torch.randn(2, 64, 64, device=card, generator=gen)
+    reset_launches()
+    with torch.no_grad():
+        PA.attend_train(p, cfg, x)
+    assert LAUNCHES["flash_attention"] == 1
+    reset_launches()
+    y = PA.attend_train(p, cfg, x.requires_grad_(True))
+    y.sum().backward()
+    assert LAUNCHES["flash_attention"] == 0 and x.grad is not None
+    dcfg, batch = _tiny_dien()
+    params = tensor_tree(PR.dien_init(dcfg, seed=0, device=card))
+    b = {k: torch.as_tensor(v, device=card) for k, v in batch.items()}
+    args = (b["hist_items"], b["hist_cates"], b["target_item"],
+            b["target_cate"], b["hist_mask"])
+    reset_launches()
+    with torch.no_grad():
+        PR.dien_apply(params, dcfg, *args)
+    assert LAUNCHES["embedding_bag"] == 2
+    reset_launches()
+    _dien_table_grad(params, dcfg, batch, card)
+    assert LAUNCHES["embedding_bag"] == 0
+
+
+def test_f32_bmm_gradient_against_the_fp32_upcast_product(card):
+    """bf16 operands, fp32 output: the forward within fp32 rounding of the
+    upcast product, and both input gradients (bf16 products with an fp32
+    output, cast to bf16) within bf16 rounding of the upcast product's."""
+    from repro_torch.models.moe import _f32_bmm
+    gen = torch.Generator(device=card).manual_seed(1)
+    a = torch.randn(4, 96, 128, device=card, generator=gen).bfloat16()
+    b = torch.randn(4, 128, 80, device=card, generator=gen).bfloat16()
+    g = torch.randn(4, 96, 80, device=card, generator=gen)
+    a.requires_grad_(True)
+    b.requires_grad_(True)
+    y = _f32_bmm(a, b)
+    assert y.dtype == torch.float32
+    ga, gb = torch.autograd.grad(y, (a, b), g)
+    af, bf = a.detach().float().requires_grad_(), b.detach().float(
+        ).requires_grad_()
+    yf = torch.bmm(af, bf)
+    ra, rb = torch.autograd.grad(yf, (af, bf), g)
+    assert float((y - yf).detach().abs().max()) \
+        <= 1e-5 * float(yf.detach().abs().max())
+    assert ga.dtype == gb.dtype == torch.bfloat16
+    for got, want in ((ga, ra), (gb, rb)):
+        err = float((got.float() - want).abs().max())
+        assert err <= 1e-2 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("name", ["gemma-7b", "mixtral-8x7b kchoice",
+                                  "dlrm"],
+                         ids=["gemma-7b", "mixtral-8x7b", "dlrm"])
+def test_train_step_on_the_card_equals_the_cpu(card, name):
+    """One train step on the card and on the CPU from the same state and
+    batch (fp32, TF32 off): loss to 1e-4 relative, the gradient (AdamW's
+    first moment) leaf by leaf to 1e-4 of the leaf's largest |g|. The only
+    kernel a train step launches is kchoice, mixtral's k-choice router:
+    one a layer a microbatch forward and one a recompute."""
+    from repro_torch.checkpoint.checkpointer import flatten_with_paths
+    from repro_torch.launch.step_cases import step_cases
+    from repro_torch.models.module import tree_to
+    init, (step, opt), batch = step_cases(0)[name]
+    p_cpu = init("cpu")
+    p_card = tree_to(p_cpu, card)
+    reset_launches()
+    new_card, m_card = step({"params": p_card, "opt": opt.init(p_card)},
+                            batch)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in LAUNCHES.items() if v}
+    want = {"kchoice": 2 * 2 * 2} if name == "mixtral-8x7b kchoice" \
+        else {}
+    assert launched == want
+    new_cpu, m_cpu = step({"params": p_cpu, "opt": opt.init(p_cpu)}, batch)
+    assert abs(float(m_card["loss"]) - float(m_cpu["loss"])) \
+        <= 1e-4 * abs(float(m_cpu["loss"]))
+    for (path, a), (_, b) in zip(flatten_with_paths(new_card["opt"]["m"]),
+                                 flatten_with_paths(new_cpu["opt"]["m"])):
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-4 * max(float(b.abs().max()), 1e-30), (path, err)

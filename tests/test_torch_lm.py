@@ -595,9 +595,9 @@ def test_next_token_breaks_ties_toward_the_smaller_id():
 @pytest.mark.parametrize("jcfg,pcfg", [(J_GEMMA, P_GEMMA), (J_QWEN, P_QWEN),
                                        (J_YI, P_YI)])
 def test_configs_copy_the_reference_value_for_value(jcfg, pcfg):
-    """Every field the port has equals the reference's; the ones it leaves
-    out (the loss's, remat's and the mesh's) hold their defaults there, so
-    the forward they would change is the same."""
+    """Every field the port has equals the reference's; the one it leaves
+    out (the mesh's) holds its default there, so the forward it would
+    change is the same."""
     def same_fields(port, ref):
         got, want = dataclasses.asdict(port), dataclasses.asdict(ref)
         assert got == {k: want[k] for k in got}
@@ -606,7 +606,7 @@ def test_configs_copy_the_reference_value_for_value(jcfg, pcfg):
             {k: defaults[k] for k in want if k not in got}
         return set(want) - set(got)
 
-    assert same_fields(pcfg, jcfg) == {"ce_chunk", "remat", "seq_shard_attn"}
+    assert same_fields(pcfg, jcfg) == {"seq_shard_attn"}
     assert pcfg.n_params == jcfg.n_params
     assert pcfg.n_active_params == jcfg.n_active_params
     for i in range(pcfg.period):

@@ -523,16 +523,6 @@ def test_launch_train_irli_resumes_and_logs(tmp_path, capsys):
     assert "irli: already complete at round 3 (resumed=True)" in text
 
 
-@pytest.mark.parametrize("arch,item", [("gemma-7b", "item 7"),
-                                       ("qwen3-4b", "item 7"),
-                                       ("schnet", "item 8"),
-                                       ("dlrm", "item 8")])
-def test_launch_train_unported_arch_names_its_item(arch, item):
-    from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match=item):
-        train.main(["--arch", arch, "--device", "cpu"])
-
-
 def test_fit_mesh_split_is_the_references():
     from repro_torch.launch.train import fit_mesh_split
     assert fit_mesh_split(4, 4, 128) == 2
