@@ -241,7 +241,36 @@ path at its own:
     bit-equal to a straight 6-step run under
     ``torch.use_deterministic_algorithms(True)``. Each phase gives ms a
     step (CUDA events, after a warm step), tokens/s or samples/s, peak
-    memory and its launches.
+    memory and its launches;
+  * the registry and mesh cell (``registry_mesh_cell``, phase 18): (a)
+    ``configs/registry.all_cells()`` logged (42 cells, skips), then on a
+    world-size-1 NCCL DeviceMesh one call of each of these cells' own
+    steps through ``get_arch(...).cells[...]``, bit-equal to the direct
+    builder's output on the same inputs, its launches as counted:
+    gemma-7b prefill_32k at REG_PREFILL = [1, 2048] (28 layers: 28
+    flash_attention), DIEN serve_p99 (2 embedding_bag) and
+    retrieval_cand (1 distance_topk), irli-deep1b serve_query over the
+    cell's ``params(mesh)`` shapes with the corpus cut to L (irli_topk,
+    freq_topc, quant_rerank) and train_scorers with R and the batch cut
+    (no kernel; under deterministic algorithms); (b) gemma-7b's train_4k
+    cell (MESH_TRAIN_LAYERS = 4 layers, batch MESH_TRAIN_BATCH x 4096)
+    through ``cell.step(mesh)`` on DTensors placed by ``lm_rules`` and
+    ``opt_state_specs``, two steps held to the meshless step (loss and
+    grad_norm within 1e-5), both timed; (c) MESH_RANKS = 4 gloo ranks on
+    the card, a (data 2, model 2) mesh (``mesh_rank``): gemma-like,
+    qwen3-like with ``seq_shard_attn``, mixtral-like (8 TP experts, the
+    k-choice router, the per-row dispatch: kchoice launches) and
+    llama4-like (16 experts, EP, Adafactor) at MESH_D = 512, 4 layers,
+    vocabulary 32,000, [8, 256] from ``ShardedLoader``: two steps, the
+    loss and every gradient leaf within MESH_TOL of the meshless step,
+    placements kept, one step's collective record, the kchoice launches
+    of the mesh steps alone; ``compressed_psum`` int8 and top-k over
+    "data": rank 0's sum held to the reference's formula over its data
+    group's payloads, the error-feedback identity and the payload's
+    bytes. The functional
+    all-gather and all-to-all go through c10d's
+    (``gloo_cuda_collectives``: torch 2.11's functional all-gather ends
+    the process on CUDA tensors over gloo).
 
 Each path's counters are set to 0 just before it runs and read just after;
 the kernels line gives each kernel's launches by path.
@@ -284,7 +313,7 @@ recall, at L labels and N training queries, and prints them as JSON;
 distributed cell; ``--audit`` the build, that index and the audit cell;
 ``--train`` the build and the train cell; ``--lm`` the build, the LM
 cell and the MoE cell; ``--model-train`` the build and the model-train
-cell.
+cell; ``--mesh`` the build and the registry and mesh cell.
 
 Widths (configs/irli_deep1b.py): D=96, B=20000, R=32, H=1024. Search, the
 serve_query cell: int8 block 32, m=5, tau=2, k=10, topC=1024, refine_k auto
@@ -355,7 +384,14 @@ models, 137 GB and more, does not fit one card), the global batch of
 train_4k's cell (256) to 2, DLRM's five 40M-row tables to 2,000,000 rows
 (the full 104.5 GB table holds no state), reddit's degree from ~492 to
 50 (the host's build time), ogb_products left out (its RBF expansion
-alone is 74 GB).
+alone is 74 GB). The registry and mesh cell: the prefill_32k cell's [32,
+32768] to [1, 2048], serve_query's corpus from 2^27 rows to L (its
+members at max_load 200, as the search cell's), train_scorers' R from
+32 to 4, its batch from 32,768 to 4,096 and its corpus to L; train_4k's
+depth and batch as the model-train cell's; (c) at narrow widths, one
+microbatch a step and a sequence of 256 (of 512), to keep the phase under
+60 s (85.5 s at 512 with the vocabulary gathered for the loss, on an
+H100 80GB HBM3 at 700 W).
 """
 from __future__ import annotations
 
@@ -3398,12 +3434,24 @@ def spawn_ranks(fn, world: int, tmp: str, dev_type: str,
     spawn method (the card is initialised here already); raise with their
     tracebacks if any fails or outlives ``timeout`` s. Every process is
     stopped before this returns."""
+    join_ranks(start_ranks(fn, world, tmp, dev_type), tmp, timeout)
+
+
+def start_ranks(fn, world: int, tmp: str, dev_type: str) -> list:
+    """Start fn(rank, world, tmp, dev_type) in ``world`` processes with the
+    spawn method; ``join_ranks`` waits for them."""
     import multiprocessing
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=fn, args=(r, world, tmp, dev_type))
              for r in range(world)]
     for p in procs:
         p.start()
+    return procs
+
+
+def join_ranks(procs: list, tmp: str, timeout: float) -> None:
+    """Wait up to ``timeout`` s for ranks from ``start_ranks``; raise with
+    their tracebacks if any failed or is still running (it is killed)."""
     end = time.monotonic() + timeout
     for p in procs:
         p.join(max(0.0, end - time.monotonic()))
@@ -4848,6 +4896,747 @@ def model_train_cell(torch, dev) -> dict:
     return out
 
 
+# ------------------------------- 18. the registry and the LM on a mesh ------
+# (a) the registry's cells on the card: the gemma-7b prefill's shape, the
+# IRLI train cell's reps and batch; (b) gemma-7b's layers for train_4k on a
+# one-rank mesh and its batch (the model-train cell's cut); (c) the narrow
+# LM families on 4 gloo ranks: width, layers, vocabulary, batch and
+# sequence, and the relative tolerance against the meshless step
+REG_PREFILL = (1, 2048)
+REG_TRAIN_R, REG_TRAIN_BATCH = 4, 4096
+MESH_TRAIN_LAYERS, MESH_TRAIN_BATCH = 4, 2
+MESH_D, MESH_LAYERS, MESH_VOCAB = 512, 4, 32_000
+MESH_BATCH, MESH_SEQ, MESH_MICRO, MESH_TOL = 8, 256, 1, 1e-4
+MESH_RANKS = 4
+# the mixtral-like family's MoE ffn_chunk: below its 8 x 256 tokens, so
+# its microbatches take the per-row dispatch (moe._moe_rows, the path of
+# train_4k's microbatches at full size) in 2 sequence chunks of 1024 // 8
+MESH_ROWS_CHUNK = 1024
+
+
+@contextlib.contextmanager
+def module_values(mod, **values):
+    """Set module-level values for a block (a config cut) and restore
+    them."""
+    old = {k: getattr(mod, k) for k in values}
+    for k, v in values.items():
+        setattr(mod, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(mod, k, v)
+
+
+def tree_equal(torch, a, b) -> bool:
+    """Two nested dicts (or tensors) bit-equal, leaf for leaf."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(tree_equal(torch, a[k], b[k])
+                                            for k in a)
+    return torch.equal(a, b)
+
+
+def registry_phase(torch, dev, mesh) -> dict:
+    """(a) repro_torch.configs.registry on the card: all_cells() logged
+    (42 cells, each arch's cells and skip reasons), then one call of each
+    of these cells' own steps, built through get_arch(...).cells[...]
+    (step(mesh) where step_with_mesh), on random inputs of the cell's
+    shapes (cut where one card cannot hold them, each cut logged), held
+    bit-equal to the direct builder's output on the same inputs, with its
+    kernels' launches as counted: gemma-7b prefill_32k, dien serve_p99 and
+    retrieval_cand, irli-deep1b serve_query and train_scorers."""
+    import dataclasses
+
+    from repro_torch.configs import dien as DIEN
+    from repro_torch.configs import irli_deep1b as IRLI
+    from repro_torch.configs import registry as REG
+    from repro_torch.configs.gemma_7b import CONFIG as GEMMA
+    from repro_torch.core.index import IRLIConfig, IRLIIndex
+    from repro_torch.core.network import scorer_init
+    from repro_torch.data.synthetic import behavior_stream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps as S
+    from repro_torch.models.recsys import dien_init
+    from repro_torch.models.transformer import lm_init
+    from repro_torch.store.quantized import encode
+
+    t_ph = time.perf_counter()
+    cells = REG.all_cells()
+    if len(cells) != 42:
+        raise AssertionError(f"(a) registry: {len(cells)} cells, not 42")
+    for name in REG.ARCHS:
+        arch = REG.get_arch(name)
+        log(f"registry (a) {name} ({arch.family}, {arch.opt}): " + ", ".join(
+            c + (f" [skip: {d.skip}]" if d.skip else "")
+            for c, d in arch.cells.items()))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    launches, rows = {}, {}
+
+    def run(label, cell_call, direct_call, want):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = cell_call()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {n: c for n, c in LAUNCHES.items() if c}
+        ref = direct_call()
+        torch.cuda.synchronize()
+        if got != want:
+            raise AssertionError(f"(a) {label}: launches {got}, want {want}")
+        if not tree_equal(torch, out, ref):
+            raise AssertionError(f"(a) {label}: the registry's step and the "
+                                 f"direct builder's differ")
+        for n, c in got.items():
+            launches[n] = launches.get(n, 0) + c
+        rows[label] = round(ms, 1)
+        log(f"registry (a) {label}: bit-equal to the direct builder, "
+            f"launches {got}, {ms:.1f} ms (the first call)")
+        return out
+
+    # gemma-7b prefill_32k, [32, 32768] cut to REG_PREFILL, all 28 layers
+    cell = REG.get_arch("gemma-7b").cells["prefill_32k"]
+    shape = tuple(cell.inputs(mesh)["tokens"].shape)
+    model = lm_init(GEMMA, seed=SEED, device=dev)
+    tokens = torch.randint(0, GEMMA.vocab, REG_PREFILL, generator=gen,
+                           device=dev, dtype=torch.int32)
+    log(f"registry (a) gemma-7b prefill_32k: tokens {shape} cut to "
+        f"{REG_PREFILL} (one card), {GEMMA.n_layers} layers")
+    step = cell.step()
+    run("gemma-7b prefill_32k", lambda: step(model, {"tokens": tokens}),
+        lambda: S.build_lm_prefill(GEMMA)(model, {"tokens": tokens}),
+        {"flash_attention": GEMMA.n_layers})
+    del model, step
+    torch.cuda.empty_cache()
+
+    # dien serve_p99 (512) and retrieval_cand (1,048,576 x 36)
+    arch = REG.get_arch("dien")
+    params = dien_init(DIEN.CONFIG, seed=SEED, device=dev)
+    cell = arch.cells["serve_p99"]
+    bsz = cell.inputs(mesh)["label"].shape[0]
+    host = next(behavior_stream(bsz, DIEN.CONFIG.seq_len,
+                                DIEN.CONFIG.item_vocab, DIEN.CONFIG.cate_vocab,
+                                seed=SEED))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    step = cell.step()
+    run(f"dien serve_p99 [{bsz}]", lambda: step(params, batch),
+        lambda: S.build_ctr_serve(DIEN.apply)(params, batch),
+        {"embedding_bag": 2})
+    cell = arch.cells["retrieval_cand"]
+    tshape = tuple(cell.params(mesh)["item_table"]["table"].shape)
+    table = {"item_table": {"table": torch.randn(tshape, generator=gen,
+                                                 device=dev)}}
+    query = {"query": torch.randn(tuple(cell.inputs(mesh)["query"].shape),
+                                  generator=gen, device=dev)}
+    step = cell.step()
+    run(f"dien retrieval_cand {tshape}", lambda: step(table, query),
+        lambda: S.build_retrieval_serve()(table, query),
+        {"distance_topk": 1})
+    del params, batch, table, step
+    torch.cuda.empty_cache()
+
+    # irli-deep1b serve_query: the corpus cut from 2^27 rows to the search
+    # cell's L through the cell's own params(mesh) shapes
+    arch = REG.get_arch("irli-deep1b")
+    cell = arch.cells["serve_query"]
+    with module_values(IRLI, N_CORPUS=L):
+        shapes = cell.params(mesh)
+    corpus, _ = serve_data(torch, dev)
+    store8 = encode(corpus, "int8", BLOCK)
+    del corpus
+    idx = IRLIIndex(IRLIConfig(d=D, n_labels=L, n_buckets=B, n_reps=R,
+                               d_hidden=H, seed=SEED), device=dev)
+    idx.build_index()
+    local = {"scorer": idx.params, "members": idx.index.members,
+             "base_codes": store8.codes, "base_scales": store8.scales}
+    for k in ("members", "base_codes", "base_scales"):
+        want = tuple(shapes[k].shape)
+        if (1,) + tuple(local[k].shape) != want or \
+                local[k].dtype != shapes[k].dtype:
+            raise AssertionError(f"(a) serve_query {k}: {local[k].dtype} "
+                                 f"{tuple(local[k].shape)}, the cell "
+                                 f"declares {shapes[k].dtype} {want}")
+    qshape = tuple(cell.inputs(mesh)["queries"].shape)
+    queries = torch.randn(qshape, generator=gen, device=dev)
+    queries /= queries.norm(dim=1, keepdim=True)
+    log(f"registry (a) irli-deep1b serve_query: corpus cut from "
+        f"{IRLI.N_CORPUS:,} to {L:,} rows ({shapes['members'].shape} "
+        f"members, {shapes['base_codes'].shape} int8 codes), queries "
+        f"{qshape}")
+    step = cell.step(mesh)
+    run("irli-deep1b serve_query", lambda: step(local, {"queries": queries}),
+        lambda: S.build_irli_serve(
+            mesh, m=5, tau=2, k=10, store_dtype=IRLI.STORE_DTYPE,
+            store_block=IRLI.STORE_BLOCK)(local, {"queries": queries}),
+        {"irli_topk": 1, "freq_topc": 1, "quant_rerank": 1})
+    del idx, store8, local, queries, step
+    torch.cuda.empty_cache()
+
+    # irli-deep1b train_scorers: R and the batch cut (its loss is
+    # softmax_bce, plain torch: no kernel)
+    cell = arch.cells["train_scorers"]
+    cut = dataclasses.replace(IRLI.SCORER_CFG, n_reps=REG_TRAIN_R)
+    with module_values(IRLI, R=REG_TRAIN_R, N_CORPUS=L, SCORER_CFG=cut):
+        shapes = cell.inputs(mesh)
+        step = cell.step()
+    log(f"registry (a) irli-deep1b train_scorers: R cut from {IRLI.R} to "
+        f"{REG_TRAIN_R}, the batch from {shapes['x'].shape[0]:,} to "
+        f"{REG_TRAIN_BATCH:,}, the corpus to {L:,} labels ({cut.loss})")
+    nb = REG_TRAIN_BATCH
+    batch = {"x": torch.randn((nb, D), generator=gen, device=dev),
+             "label_ids": torch.randint(0, L, (nb, K_NEIGH), generator=gen,
+                                        device=dev, dtype=torch.int32),
+             "label_mask": torch.ones((nb, K_NEIGH), device=dev),
+             "assign": torch.randint(0, B, tuple(shapes["assign"].shape),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    direct, opt = S.build_irli_train_step(cut, B)
+
+    def fresh():
+        p = scorer_init(cut, torch.Generator(device=dev).manual_seed(SEED))
+        return {"params": p, "opt": opt.init(p)}
+
+    def train_out(fn):
+        state, metrics = fn(fresh(), batch)
+        return {"state": state["params"], "loss": metrics["loss"]}
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        run("irli-deep1b train_scorers", lambda: train_out(step),
+            lambda: train_out(direct), {})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del batch, step, direct
+    torch.cuda.empty_cache()
+    log(f"registry (a): {time.perf_counter() - t_ph:.1f} s, launches "
+        f"{launches}")
+    return {"launches": launches, "ms": rows}
+
+
+def mesh_train_phase(torch, dev, mesh) -> dict:
+    """(b) gemma-7b's train_4k cell through the registry on the one-rank
+    NCCL mesh: full width, MESH_TRAIN_LAYERS of 28 layers, the batch cut
+    from 256 to MESH_TRAIN_BATCH x 4096; the state placed as DTensors by
+    lm_rules and opt_state_specs (each holding its tensor's storage), two
+    steps of the cell's step(mesh) held to two meshless steps of the same
+    config from the same state (loss and grad_norm within 1e-5 relative),
+    every leaf's placements kept; both step times (CUDA-synchronized wall
+    time: the difference is DTensor's overhead at world size 1)."""
+    import dataclasses
+
+    from repro_torch.configs import gemma_7b as G
+    from repro_torch.configs.base import dp
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps as S
+    from repro_torch.models.module import (flatten_with_paths, place,
+                                           tensor_tree)
+    from repro_torch.models.transformer import lm_init
+
+    t_ph = time.perf_counter()
+    cut = dataclasses.replace(G.CONFIG, n_layers=MESH_TRAIN_LAYERS)
+    with module_values(G, CONFIG=cut):
+        arch = G.get_arch()
+    cell = arch.cells["train_4k"]
+    seq = cell.inputs(mesh)["tokens"].shape[1]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    host = {k: torch.randint(0, cut.vocab, (MESH_TRAIN_BATCH, seq),
+                             generator=gen, device=dev, dtype=torch.int32)
+            for k in ("tokens", "labels")}
+    opt = S.make_opt(arch.opt, **arch.opt_kw)
+
+    def fresh():
+        params = tensor_tree(lm_init(cut, seed=SEED, device=dev))
+        return params, {"params": params, "opt": opt.init(params)}
+
+    def steps(step, state, batch):
+        out = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            out.append((float(m["loss"]), float(m["grad_norm"]),
+                        (time.perf_counter() - t0) * 1e3))
+        return state, out
+
+    _, state = fresh()
+    plain, _ = S.build_lm_train_step(cut, arch.opt, **arch.opt_kw)
+    state, want = steps(plain, state, host)
+    del state, plain
+    torch.cuda.empty_cache()
+    params, state = fresh()
+    pspecs = arch.rules().specs(params)
+    placed = S.place_train_state(
+        state, pspecs, S.opt_state_specs(arch.opt, params, pspecs, mesh),
+        mesh)
+    shared = all(t.to_local().data_ptr() == w.data_ptr() for (_, t), (_, w)
+                 in zip(flatten_with_paths(placed["params"]),
+                        flatten_with_paths(params)))
+    before = {p: tuple(t.placements) for p, t in flatten_with_paths(placed)
+              if hasattr(t, "placements")}
+    specs = cell.in_specs(mesh)
+    batch = {k: place(v, specs[k], mesh) for k, v in host.items()}
+    step = cell.step(mesh)
+    reset_launches()
+    placed, got = steps(step, placed, batch)
+    launches = {n: c for n, c in LAUNCHES.items() if c}
+    after = {p: tuple(t.placements) for p, t in flatten_with_paths(placed)
+             if hasattr(t, "placements")}
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    for (wl, wg, _), (gl, gg, _) in zip(want, got):
+        if abs(gl - wl) > 1e-5 * abs(wl) or abs(gg - wg) > 1e-5 * abs(wg):
+            raise AssertionError(f"(b) mesh step {(gl, gg)} against the "
+                                 f"meshless {(wl, wg)}")
+    if before != after or not shared or launches:
+        raise AssertionError(f"(b) placements kept {before == after}, "
+                             f"storage shared {shared}, launches "
+                             f"{launches}")
+    del placed, params, state, batch, step
+    torch.cuda.empty_cache()
+    log(f"mesh (b) gemma-7b train_4k through the registry on a 1 x 1 NCCL "
+        f"mesh, {MESH_TRAIN_LAYERS} of 28 layers, batch {MESH_TRAIN_BATCH} x "
+        f"{seq} (dp {dp(mesh)}), {arch.opt}: meshless (loss, grad_norm, ms) "
+        f"{want}, mesh {got}; {len(after)} DTensor leaves kept their "
+        f"placements, each on its tensor's storage; DTensor's overhead at "
+        f"world size 1: {got[1][2] - want[1][2]:+.1f} ms on the second step "
+        f"({(got[1][2] / want[1][2] - 1) * 100:+.2f}%); peak "
+        f"{peak:.1f} GB; {time.perf_counter() - t_ph:.1f} s")
+    return {"meshless_ms": [w[2] for w in want],
+            "mesh_ms": [g[2] for g in got]}
+
+
+def mesh_families():
+    """(c)'s LM families at narrow widths (MESH_D, MESH_LAYERS,
+    MESH_VOCAB, fp32): name -> (LMConfig, optimizer, grouping)."""
+    import dataclasses
+
+    from repro_torch.configs.gemma_7b import CONFIG as GEMMA
+    from repro_torch.configs.llama4_maverick import CONFIG as LLAMA4
+    from repro_torch.configs.mixtral_8x7b import CONFIG as MIXTRAL
+    from repro_torch.configs.qwen3_4b import CONFIG as QWEN
+    from repro_torch.models.moe import MoEConfig
+    narrow = dict(n_layers=MESH_LAYERS, d_model=MESH_D, n_heads=8,
+                  head_dim=64, vocab=MESH_VOCAB, param_dtype="float32")
+    rep = dataclasses.replace
+    return {
+        "gemma-like": (rep(GEMMA, **narrow, n_kv_heads=8, d_ff=2048),
+                       "adamw", "strided"),
+        "qwen3-like seq_shard_attn": (
+            rep(QWEN, **narrow, n_kv_heads=2, d_ff=1536,
+                seq_shard_attn=True), "adamw", "strided"),
+        "mixtral-like irli_kchoice rows": (
+            rep(MIXTRAL, **narrow, n_kv_heads=2, d_ff=1024, window=128,
+                moe=MoEConfig(d_model=MESH_D, d_ff=1024, n_experts=8,
+                              top_k=2, router="irli_kchoice",
+                              ffn_chunk=MESH_ROWS_CHUNK)),
+            "adamw", "plain"),
+        "llama4-like EP adafactor": (
+            rep(LLAMA4, **narrow, n_kv_heads=2, d_ff=512, chunk=128,
+                moe=MoEConfig(d_model=MESH_D, d_ff=512, n_experts=16,
+                              top_k=1, n_shared_experts=1)),
+            "adafactor", "strided"),
+    }
+
+
+def kchoice_per_step(cfg) -> int:
+    """The kchoice launches of one (c) train step of ``cfg``: one a MoE
+    call (each sequence chunk of the per-row dispatch is one), in every
+    layer's forward and, under remat, its recompute, for each of the
+    MESH_MICRO microbatches; 0 without the k-choice router."""
+    if cfg.moe is None or cfg.moe.router != "irli_kchoice":
+        return 0
+    b, seq = MESH_BATCH // MESH_MICRO, MESH_SEQ
+    s_chunk = max(1, cfg.moe.ffn_chunk // b)
+    rows = b * seq > cfg.moe.ffn_chunk and seq % s_chunk == 0 \
+        and seq // s_chunk > 1
+    return (cfg.n_layers * (2 if cfg.remat else 1)
+            * (seq // s_chunk if rows else 1) * MESH_MICRO)
+
+
+@contextlib.contextmanager
+def keeping_grads(steps, sink: list):
+    """Within the block, each ``steps.lm_grads`` call (the gradient a
+    ``build_lm_train_step`` step computes, DTensors on a mesh) appends a
+    copy of its gradient to ``sink``: the step's own gradient, read
+    without a second forward and backward."""
+    from repro_torch.models.module import flatten_with_paths
+    lm_grads = steps.lm_grads
+
+    def kept(*args, **kw):
+        loss, grads = lm_grads(*args, **kw)
+        sink.append({p: g.detach().clone()
+                     for p, g in flatten_with_paths(grads)})
+        return loss, grads
+
+    steps.lm_grads = kept
+    try:
+        yield
+    finally:
+        steps.lm_grads = lm_grads
+
+
+def mesh_rank_work(torch, dev, world: int, tmp: str) -> dict:
+    """(c) on one of MESH_RANKS gloo ranks on the card, a (data 2, model 2)
+    mesh: each family of ``mesh_families`` two steps meshless (this rank
+    alone) and, from a copy of each step's meshless state placed on the
+    mesh, the mesh step, the batches fed by ShardedLoader (a discrete
+    router turns the two trajectories' last-bit differences into other
+    routings, so each step starts from the same state); per step the
+    losses and the largest relative error of any gradient leaf, the
+    gradient each step computes (``lm_grads``, kept by ``keeping_grads``)
+    on both sides; placements kept by each mesh step, the collective record of
+    the second mesh step, and the kchoice launches of each step, counted
+    from 0 just before it and read just after. Then compressed_psum
+    (int8, top-k) over "data" on the gemma-like family's gradient tree,
+    with noise drawn once: the sum, each payload of a rank in rank 0's
+    data group (int8 codes and scales, top-k's kept ids and values) for
+    the parent to recompute it, the error-feedback identity g + e_old =
+    deq + e_new per leaf, and the payload's all-reduce bytes beside the
+    fp32 tree's."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.analysis.collectives import CollectiveRecorder, profile
+    from repro_torch.configs.lm_common import lm_rules
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps as S
+    from repro_torch.models.module import (flatten_with_paths,
+                                           map_with_paths, tensor_tree)
+    from repro_torch.models.transformer import lm_init
+    from repro_torch.optim.compression import (CompressionConfig,
+                                               compress_grads,
+                                               compressed_psum, ef_init)
+
+    mesh = init_device_mesh(dev.type, (2, world // 2),
+                            mesh_dim_names=("data", "model"))
+
+    def copy(tree):
+        return map_with_paths(lambda _, t: t.clone(), tree)
+
+    def leaf_err(a, b) -> float:
+        b = b.full_tensor() if hasattr(b, "full_tensor") else b
+        return float((a - b).abs().max() / (a.abs().max() + 1e-30))
+
+    out = {"families": {}}
+    grads0 = None
+    for name, (cfg, opt_kind, split) in mesh_families().items():
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(SEED)
+        host = [{k: rng.integers(0, cfg.vocab, (MESH_BATCH, MESH_SEQ))
+                 .astype(np.int32) for k in ("tokens", "labels")}
+                for _ in range(2)]
+        params = tensor_tree(lm_init(cfg, seed=SEED, device=dev))
+        kw = dict(n_micro=MESH_MICRO, micro_split=split, lr=1e-3)
+        plain, opt = S.build_lm_train_step(cfg, opt_kind, **kw)
+        step, _ = S.build_lm_train_step(cfg, opt_kind, mesh=mesh, **kw)
+        pspecs = lm_rules(cfg).specs(params)
+        ospecs = S.opt_state_specs(opt_kind, params, pspecs, mesh)
+        state = {"params": params, "opt": opt.init(params)}
+        loader = ShardedLoader(iter(host), mesh,
+                               lambda k: (("data",), None))
+        row = {"loss": [], "mesh_loss": [], "grad_err": [], "plain_s": 0.0,
+               "mesh_s": 0.0, "placements_kept": True, "kchoice": [],
+               "kchoice_want": kchoice_per_step(cfg)}
+        for i, b in enumerate(host):
+            placed = S.place_train_state(copy(state), pspecs, ospecs, mesh)
+            before = {p: tuple(t.placements)
+                      for p, t in flatten_with_paths(placed)
+                      if hasattr(t, "placements")}
+            mb = next(loader)
+            grads = []
+            with keeping_grads(S, grads):
+                t1 = time.perf_counter()
+                state, m = plain(state, b)
+                t2 = time.perf_counter()
+                reset_launches()
+                if i == 1:
+                    with CollectiveRecorder() as rec:
+                        placed, mm = step(placed, mb)
+                    row["collectives"] = profile(rec.record)
+                    row["collective_calls"] = len(rec.record)
+                else:
+                    placed, mm = step(placed, mb)
+                row["kchoice"].append(LAUNCHES["kchoice"])
+                row["plain_s"] += t2 - t1
+                row["mesh_s"] += time.perf_counter() - t2
+            g, mg = grads
+            row["grad_err"].append(max(leaf_err(g[p], mg[p]) for p in g))
+            if grads0 is None:
+                grads0 = map_with_paths(lambda p, _: g[p], params)
+            row["loss"].append(float(m["loss"]))
+            row["mesh_loss"].append(float(mm["loss"]))
+            row["placements_kept"] &= before == {
+                p: tuple(t.placements) for p, t in flatten_with_paths(placed)
+                if hasattr(t, "placements")}
+            row["dtensors"] = len(before)
+            del g, mg, placed
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        row["s"] = time.perf_counter() - t0
+        out["families"][name] = row
+        del state, params
+    # compressed_psum over "data" on the gemma-like gradient tree
+    t_c = time.perf_counter()
+    comp = {}
+
+    def nonzeros(t):
+        flat = t.reshape(-1)
+        ids = flat.nonzero().reshape(-1)
+        return ids.cpu(), flat[ids].cpu()
+
+    group = dist.get_process_group_ranks(mesh.get_group("data"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + mesh.get_rank())
+    leaves = flatten_with_paths(grads0)
+    fp32_bytes = sum(t.numel() * 4 for _, t in leaves)
+    for kind in ("int8", "topk"):
+        cfg = CompressionConfig(kind=kind, topk_frac=0.01)
+        noise = [torch.rand(t.shape, generator=gen, device=dev) - 0.5
+                 for _, t in leaves]
+        ef = ef_init(grads0)
+        payload, dec, new_ef = compress_grads(cfg, grads0, ef, noise)
+        deq = dec(payload)
+        ident = max(float((g + e - d - n).abs().max())
+                    for (_, g), (_, e), (_, d), (_, n) in zip(
+                        leaves, flatten_with_paths(ef),
+                        flatten_with_paths(deq), flatten_with_paths(new_ef)))
+        with CollectiveRecorder() as rec:
+            summed, _ = compressed_psum(cfg, grads0, ef, noise, "data",
+                                        mesh=mesh)
+        c = {"ef_identity": ident, "payload": profile(rec.record),
+             "calls": len(rec.record), "group": group}
+        if 0 in group:      # rank 0's data group: its sum's inputs
+            c["sent"] = [(q.cpu(), float(sc)) for q, sc in payload] \
+                if kind == "int8" else [nonzeros(t) for t in payload]
+        if mesh.get_rank() == 0:    # top-k's sum is sparse too
+            c["summed"] = [t.cpu() if kind == "int8" else nonzeros(t)
+                           for _, t in flatten_with_paths(summed)]
+        comp[kind] = c
+        del payload, deq, new_ef, summed
+    comp["fp32_all_reduce_bytes"] = fp32_bytes
+    comp["s"] = time.perf_counter() - t_c
+    out["compression"] = comp
+    return out
+
+
+def check_compressed_psum(torch, kind: str, ranks: list) -> float:
+    """Rank 0's compressed_psum of ``kind`` against the reference's
+    formula over the payloads its data group sent: int8, the sum of the
+    int32 codes times the mean scale; top-k, the sum of the kept values
+    at their ids. Returns the largest error of a leaf relative to its
+    largest |value|."""
+    comp = [r["compression"][kind] for r in ranks]
+    group = comp[0]["group"]
+    err = 0.0
+    for i, got in enumerate(comp[0]["summed"]):
+        sent = [comp[r]["sent"][i] for r in group]
+        if kind == "int8":
+            codes = sum(q.to(torch.int32) for q, _ in sent)
+            scale = torch.tensor(sum(sc for _, sc in sent),
+                                 dtype=torch.float32) / len(sent)
+            want = codes.to(torch.float32) * scale
+        else:       # dense over the ids either side kept
+            ids = torch.cat([got[0]] + [k for k, _ in sent]).unique()
+            want = torch.zeros(int(ids.max()) + 1, dtype=torch.float32)
+            for kept, vals in sent:
+                want.index_add_(0, kept, vals)
+            dense = torch.zeros_like(want)
+            dense[got[0]] = got[1]
+            want, got = want[ids], dense[ids]
+        err = max(err, float((got - want).abs().max()
+                             / (want.abs().max() + 1e-30)))
+    return err
+
+
+_GLOO_CUDA_LIB = []
+
+
+def gloo_cuda_collectives(torch) -> None:
+    """On the card, torch 2.11's functional all_gather_into_tensor (the
+    gathers of DTensor's redistributions) ends the process (SIGSEGV) on
+    CUDA tensors over gloo, on the world group and on a mesh's subgroup
+    alike, while c10d's all_gather_into_tensor and all_to_all_single and
+    the functional all_reduce and reduce_scatter work (probed on the card,
+    PERF.md). For gloo ranks that share one card (NCCL refuses two ranks
+    on one device), this registers a CUDA kernel for the functional
+    all-gather and all-to-all that calls c10d's: the same collective,
+    carried by the call gloo takes on CUDA tensors."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    if _GLOO_CUDA_LIB:
+        return
+
+    def gather(x, group_size, group_name):
+        out = x.new_empty((x.shape[0] * group_size, *x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous(),
+                                    group=_resolve_process_group(group_name))
+        return out
+
+    def all_to_all(x, output_split_sizes, input_split_sizes, group_name):
+        out = x.new_empty((sum(output_split_sizes), *x.shape[1:]))
+        dist.all_to_all_single(out, x.contiguous(), list(output_split_sizes),
+                               list(input_split_sizes),
+                               group=_resolve_process_group(group_name))
+        return out
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", gather, "CUDA")
+    lib.impl("all_to_all_single", all_to_all, "CUDA")
+    _GLOO_CUDA_LIB.append(lib)
+
+
+def wait_for(path: Path, seconds: float = 600.0) -> None:
+    """Wait until ``path`` exists (a signal file another process writes);
+    raise after ``seconds``."""
+    end = time.monotonic() + seconds
+    while not path.exists():
+        if time.monotonic() > end:
+            raise TimeoutError(f"no {path.name} signal in {seconds} s")
+        time.sleep(0.05)
+
+
+def mesh_rank(rank: int, world: int, tmp: str, dev_type: str) -> None:
+    """One of the MESH_RANKS gloo ranks of (c) (spawned by
+    registry_mesh_cell); writes its results to tmp/mesh<rank>.pt, or its
+    traceback to tmp/err<rank>.txt."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    try:
+        dev = torch.device(dev_type, 0 if dev_type == "cuda" else None)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(str(Path(tmp) / "store"), world),
+            rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=300))
+        # started while the parent runs (b); the card's context and a
+        # first matmul once (b)'s peak is over (72-74 GB on an H100 80GB
+        # HBM3 at 700 W), while (a) runs; the work at the parent's go
+        wait_for(Path(tmp) / "card")
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+            gloo_cuda_collectives(torch)
+            torch.ones((64, 64), device=dev).matmul(
+                torch.ones((64, 64), device=dev)).sum().item()
+        wait_for(Path(tmp) / "go")
+        torch.save(mesh_rank_work(torch, dev, world, tmp),
+                   Path(tmp) / f"mesh{rank}.pt")
+        dist.destroy_process_group()
+    except BaseException:
+        (Path(tmp) / f"err{rank}.txt").write_text(traceback.format_exc())
+        raise
+
+
+def check_mesh_ranks(torch, tmp: str) -> int:
+    """(c)'s gates and log lines over the MESH_RANKS ranks' results in
+    tmp (``mesh_rank_work``): per family the losses and gradient leaves
+    within MESH_TOL, the placements kept on every rank and each mesh
+    step's kchoice launches on every rank equal to ``kchoice_per_step``;
+    compressed_psum's sums against the reference's formula
+    (``check_compressed_psum``) and the error-feedback identity. Returns
+    the mesh steps' kchoice launches over all ranks."""
+    ranks = [torch.load(Path(tmp) / f"mesh{r}.pt", weights_only=False)
+             for r in range(MESH_RANKS)]
+    kchoice = 0
+    for name, row in ranks[0]["families"].items():
+        counts = [r["families"][name]["kchoice"] for r in ranks]
+        if max(row["grad_err"]) > MESH_TOL or any(
+                abs(a - b) > MESH_TOL * abs(a)
+                for a, b in zip(row["loss"], row["mesh_loss"])) \
+                or not all(r["families"][name]["placements_kept"]
+                           for r in ranks) \
+                or any(n != row["kchoice_want"] for c in counts for n in c):
+            raise AssertionError(f"(c) {name}: kchoice by rank and step "
+                                 f"{counts}; {row}")
+        kchoice += sum(map(sum, counts))
+        log(f"mesh (c) {name} on {MESH_RANKS} gloo ranks (data 2, model 2), "
+            f"[{MESH_BATCH}, {MESH_SEQ}] by ShardedLoader, n_micro "
+            f"{MESH_MICRO}: losses meshless "
+            f"{row['loss']} mesh {row['mesh_loss']}, largest gradient leaf "
+            f"error {max(row['grad_err']):.2e} (of its max |g|), each step "
+            f"from the meshless state; {row['dtensors']} DTensor leaves kept "
+            f"their placements, "
+            f"kchoice launches {row['kchoice']} by mesh step on rank 0 "
+            f"({row['kchoice_want']} a step wanted); one step's "
+            f"collectives on rank 0 ({row['collective_calls']} calls) by "
+            f"kind, bytes: {row['collectives']}; the two steps "
+            f"{row['plain_s']:.2f} s meshless, {row['mesh_s']:.2f} s on the "
+            f"mesh (4 ranks time-share the card); {row['s']:.1f} s")
+    comp = ranks[0]["compression"]
+    t_check = time.perf_counter()
+    for kind in ("int8", "topk"):
+        c = comp[kind]
+        err = check_compressed_psum(torch, kind, ranks)
+        if c["ef_identity"] > 1e-6 or err > 1e-6:
+            raise AssertionError(f"(c) compressed_psum {kind}: the sum's "
+                                 f"error {err}, the identity's "
+                                 f"{c['ef_identity']}")
+        log(f"mesh (c) compressed_psum {kind} over \"data\" on the "
+            f"gemma-like gradient tree: rank 0's sum against the "
+            f"reference's formula over ranks {c['group']}' payloads to "
+            f"{err:.1e} of each leaf's max; g + e_old = deq + e_new to "
+            f"{c['ef_identity']:.1e}; the payload's collectives on rank 0 "
+            f"({c['calls']} calls) by kind, bytes: {c['payload']} against "
+            f"{comp['fp32_all_reduce_bytes']:,} bytes of the fp32 tree's "
+            f"all-reduce")
+    log(f"mesh (c) compressed_psum: {comp['s']:.1f} s on rank 0, its "
+        f"check here {time.perf_counter() - t_check:.1f} s")
+    if kchoice < 1:
+        raise AssertionError("(c) the k-choice router launched no kchoice")
+    return kchoice
+
+
+def registry_mesh_cell(torch, dev, smi: str) -> dict:
+    """Phase 18, the registry and the LM on a mesh: (b) mesh_train_phase
+    and (a) registry_phase, in this order, on a world-size-1 NCCL
+    DeviceMesh in this process; (c) MESH_RANKS gloo ranks on the card
+    (mesh_rank): every LM family's train step on a (data 2, model 2) mesh
+    held to the meshless step (loss and every gradient leaf within
+    MESH_TOL), placements kept, exact kchoice launches, the collective
+    record of a step, and compressed_psum's sum against the reference's
+    formula, its error-feedback identity and payload bytes
+    (``check_mesh_ranks``)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    t_cell = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="irli_mesh_")
+    # (c)'s ranks start first and set up (imports, gloo) while (b) runs
+    # here, take the card (tmp/card) while (a) runs, and work at tmp/go
+    procs = start_ranks(mesh_rank, MESH_RANKS, tmp, dev.type)
+    try:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            str(Path(tmp) / "solo_store"), 1), rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            train = mesh_train_phase(torch, dev, mesh)
+            (Path(tmp) / "card").touch()
+            reg = registry_phase(torch, dev, mesh)
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.join()
+        raise
+    t0 = time.perf_counter()
+    (Path(tmp) / "go").touch()
+    join_ranks(procs, tmp, timeout=240.0)
+    kchoice = check_mesh_ranks(torch, tmp)
+    log(f"mesh (c): {time.perf_counter() - t0:.1f} s from the go (the "
+        f"ranks set up during (b) and (a)); {smi}")
+    log(f"registry and mesh cell: {time.perf_counter() - t_cell:.1f} s")
+    return {"launches": {"registry": reg["launches"],
+                         "mesh": {"kchoice": kchoice}},
+            "train": train}
+
+
 def main() -> int:
     import argparse
 
@@ -4869,6 +5658,8 @@ def main() -> int:
     ap.add_argument("--lm", action="store_true",
                     help="only the build, the LM cell (prefill, decode, "
                          "vocabulary head) and the MoE cell")
+    ap.add_argument("--mesh", action="store_true",
+                    help="only the build and the registry and mesh cell")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -4929,6 +5720,10 @@ def main() -> int:
     if args.model_train:
         out = model_train_cell(torch, dev)
         print(json.dumps({"model_train": out["launches"]}), flush=True)
+        return 0
+    if args.mesh:
+        out = registry_mesh_cell(torch, dev, smi)
+        print(json.dumps({"mesh": out["launches"]}), flush=True)
         return 0
     if args.lm:
         lm = lm_cell(torch, dev)
@@ -5631,6 +6426,17 @@ def main() -> int:
         for n in KERNELS:
             if n in ("flash_attention", "embedding_bag", "kchoice"):
                 by_path[n][path] = counts.get(n, 0)
+    main_launches = {n: sum(paths.values()) for n, paths in by_path.items()}
+    log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
+        f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
+    clock("18. the registry and the LM on a mesh")
+    # -------------------------- 18. the registry and the LM on a mesh --
+    torch.cuda.empty_cache()
+    rm = registry_mesh_cell(torch, dev, smi)
+    for path, counts in rm["launches"].items():
+        for n, c in counts.items():
+            by_path.setdefault(n, {})[path] = c
     main_launches = {n: sum(paths.values()) for n, paths in by_path.items()}
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")

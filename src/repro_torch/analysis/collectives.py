@@ -4,7 +4,9 @@ Port of the collective profile of ``repro/analysis/hlo.py``.
 The reference reads the compiled program's collective ops. Here the op
 recorder (``analysis/trace.py``) sees every ``torch.distributed``
 collective as a ``c10d`` op, however it was called (``dist.all_gather``,
-``all_gather_into_tensor``, a DeviceMesh helper), and :func:`note` keeps
+``all_gather_into_tensor``, a DeviceMesh helper), and every functional
+collective a DTensor's redistribution issues (``_c10d_functional``), and
+:func:`note` keeps
 one :class:`Collective` a call: its kind as the reference names it
 (``"all-gather"``, ``"all-reduce"``, ...), the ``torch.distributed``
 function it stands for, and the bytes of its result tensors on this rank
@@ -44,7 +46,30 @@ _KINDS = {
     "gather_": ("gather", "gather"),
     "scatter_": ("scatter", "scatter"),
     "barrier": ("barrier", "barrier"),
+    # the functional collectives (DTensor's redistributions)
+    "all_reduce": ("all-reduce", "all_reduce"),
+    "all_reduce_coalesced": ("all-reduce", "all_reduce_coalesced"),
+    "all_gather_into_tensor": ("all-gather", "all_gather_into_tensor"),
+    "all_gather_into_tensor_coalesced": ("all-gather",
+                                         "all_gather_into_tensor"),
+    "reduce_scatter_tensor": ("reduce-scatter", "reduce_scatter_tensor"),
+    "reduce_scatter_tensor_coalesced": ("reduce-scatter",
+                                        "reduce_scatter_tensor"),
+    "all_to_all_single": ("all-to-all", "all_to_all_single"),
+    "broadcast": ("broadcast", "broadcast"),
 }
+
+#: the functional collectives' namespaces
+_FUNCTIONAL = ("_c10d_functional", "c10d_functional")
+
+
+def is_collective(namespace: str, op_name: str) -> bool:
+    """Whether an op (its namespace and name, ``"c10d.allreduce_.default"``)
+    is a collective: a ``c10d`` op, or a functional collective (not its
+    ``wait_tensor`` or tensor wrappers)."""
+    if namespace == "c10d":
+        return True
+    return namespace in _FUNCTIONAL and op_name.split(".")[1] in _KINDS
 
 
 @dataclasses.dataclass(frozen=True)

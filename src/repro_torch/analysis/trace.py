@@ -145,17 +145,24 @@ class CallTrace:
 
 class _OpRecorder(TorchDispatchMode):
     """Records every op's output tensors into a CallTrace; collectives
-    (the ``c10d`` namespace) go to its collective record instead."""
+    (the ``c10d`` namespace, and the functional collectives DTensor issues)
+    go to its collective record instead. An op on DTensors is handed back
+    (``NotImplemented``) so that DTensor runs it and the local ops and
+    collectives it turns into come here, as torch's ``CommDebugMode``
+    does."""
 
     def __init__(self, trace: CallTrace):
         super().__init__()
         self.trace = trace
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _DTENSOR is not None and any(issubclass(t, _DTENSOR)
+                                        for t in types):
+            return NotImplemented
         out = func(*args, **(kwargs or {}))
         name = str(func)
-        if func.namespace == "c10d":
-            from repro_torch.analysis.collectives import note
+        from repro_torch.analysis.collectives import is_collective, note
+        if is_collective(func.namespace, name):
             note(self.trace.collectives, name, out)
             return out
         rets = func._schema.returns
@@ -169,6 +176,16 @@ class _OpRecorder(TorchDispatchMode):
                         name, tuple(t.shape), dtype_name(t.dtype),
                         t.numel() * t.element_size(), alias))
         return out
+
+
+def _dtensor_type():
+    if not torch.distributed.is_available():
+        return None
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+_DTENSOR = _dtensor_type()
 
 
 def site_functions() -> dict:

@@ -4,8 +4,7 @@
 MLPerf 40M row cap; total 204,184,588 rows, padded (+500) to a multiple of
 512. The reference's ``configs/dlrm_mlperf.py``: ``CONFIG``, the padded
 vocabularies and offsets (int32, as the reference's), its batch unpacking
-(``apply``) and sharding rules (``rules``). The cells are mesh machinery
-and wait (ROADMAP)."""
+(``apply``), sharding rules (``rules``) and cells (``get_arch``)."""
 import dataclasses
 
 import numpy as np
@@ -43,3 +42,31 @@ def apply(params, batch):
     offsets = torch.as_tensor(_OFFSETS, device=batch["sparse"].device)
     return dlrm_apply(params, CONFIG, offsets, batch["dense"],
                       batch["sparse"])
+
+
+def _inputs(batch):
+    import torch
+    from repro_torch.configs.base import sds
+    return {"dense": sds((batch, CONFIG.n_dense)),
+            "sparse": sds((batch, CONFIG.n_sparse), torch.int32),
+            "label": sds((batch,))}
+
+
+def _specs(mesh, batch):
+    from repro_torch.configs.base import dp, grid_axes
+    ax = dp(mesh) if batch <= 65536 else grid_axes(mesh)
+    return {"dense": (ax, None), "sparse": (ax, None), "label": (ax,)}
+
+
+def get_arch():
+    from repro_torch.configs import recsys_common as RC
+    from repro_torch.configs.base import ArchDef, abstract
+    cells = RC.ctr_cells(_inputs, _specs, apply)
+    cells["retrieval_cand"] = RC.retrieval_cell(CONFIG.embed_dim)
+    return ArchDef(
+        name="dlrm-mlperf", family="recsys",
+        abstract_params=lambda: abstract(init, seed=0, device="cpu"),
+        rules=rules, cells=cells, opt="adamw_nomaster",
+        notes=f"mega-table {TOTAL_ROWS} rows x 128 "
+              f"(~{TOTAL_ROWS * 128 * 4 / 2 ** 30:.0f} GiB fp32) "
+              "row-sharded over grid; IRLI accelerates retrieval_cand")

@@ -1,16 +1,27 @@
 """irli-deep1b — the paper's own production configuration (§5.3): 100M
 (padded to 2^27 ≈ 134M) 96-d vectors, B=20000 buckets, R=32 scorer
-repetitions, hidden 1024. Port of ``repro/configs/irli_deep1b.py``'s
-constants and functions (``:23-79``, ``:138-151``), value for value.
+repetitions, hidden 1024. Port of ``repro/configs/irli_deep1b.py``, value
+for value.
 
 ``rules()`` is the reference's ``_rules`` (``:93-100``): the R axis over
-"model". The reference's two cells (``train_scorers``, ``serve_query``)
-are ``CellDef``/``ArchDef`` mesh machinery and wait for ``dryrun``; the
-``serve_query`` cell's step is ``launch/steps.build_irli_serve``, which is
-ported. ``fit_config()`` carries the FitEngine hyperparameters: full size
-for a deployment, ``reduced=True`` for the CPU tests.
+"model". ``get_arch`` holds the reference's two cells:
+
+  train_scorers   the scorer's BCE train step on 32k-query batches
+                  (``launch/steps.build_irli_train_step``)
+  serve_query     the sharded multiprobe search, 4096 queries, int8
+                  tiered store (``launch/steps.build_irli_serve``)
+
+The serve cell's ``params(mesh)`` declares the global arrays, a leading
+shard axis of the mesh's size over every mesh axis; each rank's step
+takes its own shard, that axis dropped. ``fit_config()`` carries the
+FitEngine hyperparameters: full size for a deployment, ``reduced=True``
+for the CPU tests.
 """
 from __future__ import annotations
+
+import math
+
+import torch
 
 from repro_torch.core.network import ScorerConfig
 
@@ -86,3 +97,91 @@ def serve_store_bytes(n_shards: int) -> dict:
         "members_per_shard": R * B_BUCKETS
         * (2 * max(1, l_loc // B_BUCKETS)) * 4,
     }
+
+
+def _abstract_params():
+    from repro_torch.configs.base import abstract
+    from repro_torch.core.network import scorer_init
+    return abstract(lambda: scorer_init(
+        SCORER_CFG, torch.Generator(device="cpu").manual_seed(0)))
+
+
+def _train_cell():
+    from repro_torch.configs.base import CellDef, dp, sds
+    from repro_torch.launch import steps as S
+    # 32k queries a step: the BCE targets are [R, batch, B], streamed
+    # minibatches as the paper trains
+    BATCH = 1 << 15
+
+    def inputs(mesh):
+        return {"x": sds((BATCH, D)),
+                "label_ids": sds((BATCH, K_NEIGH), torch.int32),
+                "label_mask": sds((BATCH, K_NEIGH)),
+                "assign": sds((R, N_CORPUS), torch.int32)}
+
+    def in_specs(mesh):
+        ax = dp(mesh)
+        return {"x": (ax, None), "label_ids": (ax, None),
+                "label_mask": (ax, None),
+                "assign": ("model", ("data",))}
+
+    return CellDef(
+        kind="train", inputs=inputs, in_specs=in_specs,
+        step=lambda: S.build_irli_train_step(SCORER_CFG, B_BUCKETS)[0])
+
+
+def _mesh_size(mesh) -> int:
+    from repro_torch.models.module import mesh_sizes
+    return math.prod(mesh_sizes(mesh).values())
+
+
+def _serve_cell():
+    from repro_torch.configs.base import CellDef, sds
+    from repro_torch.launch import steps as S
+    from repro_torch.models.module import map_with_paths
+    QBATCH = 4096
+
+    def params_for(mesh):
+        n_shards = _mesh_size(mesh)
+        l_loc = N_CORPUS // n_shards
+        max_load = 2 * max(1, l_loc // B_BUCKETS)
+        return {
+            "scorer": _abstract_params(),
+            "members": sds((n_shards, R, B_BUCKETS, max_load), torch.int32),
+            # the int8 tiered store is the declared vector payload: no
+            # fp32 base array exists anywhere in the serve cell
+            "base_codes": sds((n_shards, l_loc, D), torch.int8),
+            "base_scales": sds((n_shards, l_loc, N_SCALE_BLOCKS)),
+        }
+
+    def param_specs(mesh, params_sds):
+        axes = tuple(mesh.mesh_dim_names)
+        return {
+            "scorer": map_with_paths(lambda p, _: (), params_sds["scorer"]),
+            "members": (axes, None, None, None),
+            "base_codes": (axes, None, None),
+            "base_scales": (axes, None, None),
+        }
+
+    return CellDef(
+        kind="serve",
+        inputs=lambda mesh: {"queries": sds((QBATCH, D))},
+        in_specs=lambda mesh: {"queries": ()},
+        params=params_for, param_specs=param_specs,
+        step=lambda mesh: S.build_irli_serve(
+            mesh, m=5, tau=2, k=10, store_dtype=STORE_DTYPE,
+            store_block=STORE_BLOCK),
+        step_with_mesh=True,
+        note="every chip = one paper node; sorted-frequency candidate path; "
+             "int8 block-scaled store + fp32 refine of the top-k' "
+             "survivors; single [Q,P*k] all_gather merge")
+
+
+def get_arch():
+    from repro_torch.configs.base import ArchDef
+    return ArchDef(
+        name="irli-deep1b", family="irli",
+        abstract_params=_abstract_params, rules=rules,
+        cells={"train_scorers": _train_cell(), "serve_query": _serve_cell()},
+        opt="adamw_nomaster",
+        notes="the paper's own 100M-point distributed config (§5.3)")

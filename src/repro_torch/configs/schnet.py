@@ -1,7 +1,7 @@
 """schnet [arXiv:1706.08566]: n_interactions=3 d_hidden=64 rbf=300
 cutoff=10. The reference's ``configs/schnet.py``: ``BASE``, the per-cell
-variants and the padded cell shapes, value for value, and its sharding
-rules (``rules``). The ``CellDef`` cells wait (ROADMAP).
+variants and the padded cell shapes, value for value, its sharding rules
+(``rules``) and its cells (``get_arch``).
 
   full_graph_sm   cora-like: 2,708 nodes / 10,556 edges / d_feat 1,433
   minibatch_lg    reddit-like: 233k nodes, fanout (15, 10) sampler, 1,024
@@ -46,3 +46,80 @@ def rules():
     everything is replicated."""
     from repro_torch.models.module import ShardRules
     return ShardRules([(r".*", ())])
+
+
+def _node_cell(name: str):
+    import torch
+
+    from repro_torch.configs.base import CellDef, abstract, grid_axes, sds
+    from repro_torch.launch import steps as S
+    from repro_torch.models.gnn import schnet_init
+    sh = CELL_SHAPES[name]
+    cfg = sh["cfg"]
+    N, E = sh["pad_nodes"], sh["pad_edges"]
+    replicate = N < 100_000  # small graphs: replication beats scatter traffic
+
+    def inputs(mesh):
+        return {"feats": sds((N, cfg.d_in)), "src": sds((E,), torch.int32),
+                "dst": sds((E,), torch.int32), "dist": sds((E,)),
+                "labels": sds((N,), torch.int32), "node_mask": sds((N,))}
+
+    def in_specs(mesh):
+        if replicate:
+            return {k: () for k in
+                    ("feats", "src", "dst", "dist", "labels", "node_mask")}
+        g = grid_axes(mesh)
+        return {"feats": (g, None), "src": (g,), "dst": (g,), "dist": (g,),
+                "labels": (g,), "node_mask": (g,)}
+
+    return CellDef(
+        kind="train", inputs=inputs, in_specs=in_specs,
+        params=lambda mesh: abstract(schnet_init, cfg, seed=0,
+                                     device="cpu"),
+        step=lambda: S.build_gnn_node_train(cfg)[0])
+
+
+def _molecule_cell():
+    import torch
+
+    from repro_torch.configs.base import CellDef, abstract, grid_axes, sds
+    from repro_torch.launch import steps as S
+    from repro_torch.models.gnn import schnet_init
+    sh = CELL_SHAPES["molecule"]
+    cfg = sh["cfg"]
+    N, E, G = sh["pad_nodes"], sh["pad_edges"], sh["n_graphs"]
+
+    def inputs(mesh):
+        return {"types": sds((N,), torch.int32), "src": sds((E,), torch.int32),
+                "dst": sds((E,), torch.int32), "dist": sds((E,)),
+                "graph_ids": sds((N,), torch.int32), "energy": sds((G,))}
+
+    def in_specs(mesh):
+        g = grid_axes(mesh)
+        return {"types": (g,), "src": (g,), "dst": (g,), "dist": (g,),
+                "graph_ids": (g,), "energy": ()}
+
+    return CellDef(
+        kind="train", inputs=inputs, in_specs=in_specs,
+        params=lambda mesh: abstract(schnet_init, cfg, seed=0,
+                                     device="cpu"),
+        step=lambda: S.build_gnn_energy_train(cfg, G)[0])
+
+
+def get_arch():
+    from repro_torch.configs.base import ArchDef, abstract
+    from repro_torch.models.gnn import schnet_init
+    cells = {
+        "full_graph_sm": _node_cell("full_graph_sm"),
+        "minibatch_lg": _node_cell("minibatch_lg"),
+        "ogb_products": _node_cell("ogb_products"),
+        "molecule": _molecule_cell(),
+    }
+    return ArchDef(
+        name="schnet", family="gnn",
+        abstract_params=lambda: abstract(schnet_init, CFG_SM, seed=0,
+                                         device="cpu"),
+        rules=rules, cells=cells, opt="adamw_nomaster",
+        notes=("segment_sum message passing; params replicated (tiny), "
+               "edges/nodes sharded over the full grid for large cells; "
+               "IRLI inapplicable — no large discrete retrieval space"))

@@ -22,9 +22,14 @@ donated); a serve step is ``step(params, batch) -> outputs`` under
     candidate scoring that IRLI accelerates, ``distance_topk`` on the card;
   * ``build_irli_serve`` (``:300-331``): the sharded-corpus IRLI query over
     ``core/distributed.make_production_search``;
+  * ``opt_state_specs`` (``:25-48``): the optimizer state's specs, ZeRO
+    style (``configs/base.zero_state_spec``) for AdamW, the factored
+    moments' for Adafactor; ``place_train_state`` places a whole state on
+    a mesh by them;
   * ``build_lm_train_step`` (``:80-134``): microbatched gradient
     accumulation in fp32 over ``models.transformer.lm_loss``, both of the
-    reference's microbatch groupings, one optimizer update;
+    reference's microbatch groupings, one optimizer update; on a mesh
+    (``mesh=``) the same body on DTensors;
   * ``build_ctr_train_step`` (``:166-176``): the mean stable BCE of a CTR
     model's logits;
   * ``build_gnn_node_train`` (``:198``) and ``build_gnn_energy_train``
@@ -34,17 +39,74 @@ donated); a serve step is ``step(params, batch) -> outputs`` under
 Every train step's params are a plain nested dict of tensors
 (``models.module.tensor_tree`` of a model module). Under a gradient no
 kernel without a backward is launched (``models/attention.uses_kernel``,
-``models/recsys.dien_apply``); the port's kernels stay on the serve paths.
-``opt_state_specs`` and the mesh (``mesh=``) wait for the config machinery
-(ROADMAP).
+``models/recsys.dien_apply``): the port's kernels stay on the serve
+paths, but for the MoE's ``kchoice`` router, whose output is integer
+assignments.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.module import (device_of, flatten_with_paths,
-                                       map_with_paths)
+from repro_torch.models.module import (data_axes, device_of,
+                                       flatten_with_paths, is_dtensor,
+                                       map_with_paths, mesh_sizes, place,
+                                       place_tree)
 from repro_torch.optim.optimizers import make_optimizer
+
+
+# ---------------------------------------------------------------- states ----
+def opt_state_specs(opt_kind: str, params_sds, param_specs, mesh):
+    """The optimizer state's spec tree for params ``params_sds`` (anything
+    with ``shape``: meta, fake or real tensors) under ``param_specs`` on
+    ``mesh`` (a DeviceMesh or {axis: size}): AdamW's moments and master
+    copy mirror the params' specs plus the "data" axis on the first
+    divisible unsharded dimension (``zero_state_spec``), Adafactor's
+    factored moments drop the last (rows) or the second-to-last (columns)
+    dimension of the param's spec. The step counter is replicated
+    (``()``)."""
+    from repro_torch.configs.base import zero_state_spec
+    dsize = mesh_sizes(mesh).get("data", 1)
+
+    def zero():
+        return map_with_paths(
+            lambda path, s: zero_state_spec(_spec_at(param_specs, path),
+                                            tuple(s.shape), "data", dsize),
+            params_sds)
+
+    if opt_kind == "adamw":
+        z = zero()
+        return {"step": (), "m": z, "v": z, "master": z}
+    if opt_kind == "adamw_nomaster":
+        z = zero()
+        return {"step": (), "m": z, "v": z}
+    if opt_kind == "adafactor":
+        def leaf(path, s):
+            sp = _spec_at(param_specs, path)
+            spec = list(sp) + [None] * (len(s.shape) - len(sp))
+            if len(s.shape) >= 2 and min(s.shape[-2:]) >= 128:
+                return {"vr": tuple(spec[:-1]),
+                        "vc": tuple(spec[:-2]) + (spec[-1],)}
+            return {"v": tuple(spec)}
+        return {"step": (), "v": map_with_paths(leaf, params_sds)}
+    raise ValueError(opt_kind)
+
+
+def _spec_at(specs, path: str):
+    for k in path.split("/"):
+        specs = specs[k]
+    return specs
+
+
+def place_train_state(state: dict, param_specs, opt_specs, mesh) -> dict:
+    """A whole train state {"params", "opt"} (the same tensors on every
+    rank) -> this rank's DTensors on ``mesh``: the params under
+    ``param_specs`` (an arch's ``rules().specs(params)``), the optimizer
+    state under ``opt_specs`` (``opt_state_specs``). The step counter
+    stays a host tensor: the optimizer reads it on the host. On a
+    one-rank mesh every DTensor holds its whole tensor's storage."""
+    return {"params": place_tree(state["params"], param_specs, mesh),
+            "opt": place_tree(state["opt"], dict(opt_specs, step=None),
+                              mesh)}
 
 
 # ------------------------------------------------------------ generic step --
@@ -126,9 +188,13 @@ def lm_grads(params, cfg, tokens, labels, n_micro: int,
     labs = split_micro(labels, M, grouping)
     acc = loss_sum = None
     for i in range(M):
+        mt, ml = toks[i], labs[i]
+        if is_dtensor(tokens):
+            # each microbatch split over the data axes as the batch was
+            mt = mt.redistribute(tokens.device_mesh, tokens.placements)
+            ml = ml.redistribute(labels.device_mesh, labels.placements)
         loss, _, g = grads_of(
-            lambda p, t, lb: lm_loss(p, cfg, t, lb), params, toks[i],
-            labs[i])
+            lambda p, t, lb: lm_loss(p, cfg, t, lb), params, mt, ml)
         g = [t for _, t in flatten_with_paths(g)]
         if acc is None:
             acc = [t.to(torch.float32) for t in g]
@@ -154,23 +220,87 @@ def build_lm_train_step(cfg, opt_kind: str, n_micro: int = 8, mesh=None,
     ``opt.update``, in place. ``micro_split``: "strided" or "plain", the
     reference's two groupings (the mean loss is the same either way; the
     per-microbatch losses match the reference's only under the same
-    grouping). A ``mesh`` waits for the config machinery (ROADMAP)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "build_lm_train_step(mesh=...): the LM mesh waits for port "
-            "slice 13 (ROADMAP: the config and mesh machinery)")
+    grouping).
+
+    ``mesh`` (a DeviceMesh): the reference partitions this step by jit's
+    in and out shardings; here the same body runs on DTensors. The state
+    arrives placed (``place_train_state`` by the arch's rules and
+    ``opt_state_specs``), the batch as DTensors placed by the cell's
+    in_specs (``data/loader.ShardedLoader``; a whole numpy or plain batch
+    is split over the data axes here); each accumulated gradient is
+    redistributed to its param's placements, and the in-place update
+    keeps every state leaf's placements, as ``out_shardings=state_specs``
+    does. The metrics come back as plain tensors. Where DTensor cannot
+    carry the single-device code, the site changes on a mesh only:
+
+      * ``transformer._embed``: the embedding lookup reads the row-sharded
+        table whole (DTensor's masked lookup fails to reduce);
+      * ``transformer.chunked_xent``: a chunk's logsumexp and gold logit
+        from the vocabulary-sharded logits (``_lse_gold_sharded``: the
+        max and the sum of exponentials reduced across ranks, each rank
+        picking the labels in its vocabulary slice; the same masked
+        gather fails);
+      * ``layers.rope`` and ``attention.attend_train``: rope's
+        frequencies and the default positions are replicated DTensors
+        (DTensor refuses to mix plain tensors in);
+      * ``attention._attend_mesh``: the attention runs on each rank's
+        block from local tensors (its heads over "model", or with
+        ``cfg.seq_shard_attn`` its block of q's sequence against the
+        whole k and v): DTensor cannot carry ``_sdpa``'s grouped einsums
+        over a sharded head dimension; ``attention._heads``: a head
+        count the "model" axis does not divide gathers the projection's
+        features whole first (DTensor will not unflatten an uneven
+        split);
+      * ``transformer._group_apply`` and the MoE: each branch's output
+        and the residual are split over the data axes only
+        (``models.module.pin_batch``, the reference's ``_pin_residual``),
+        which keeps DTensor from reduce-scattering the activations;
+      * ``moe._moe_tokens`` / ``_moe_rows``: routing (``core/topk.
+        topk_stable``'s row writes, the ``kchoice`` kernel on local
+        tensors) and the capacity scatter and combine run on local
+        tensors: the flat block's whole on every rank (``models.module.
+        on_whole``, what ``local_map`` does with replicated
+        placements), the per-row dispatch's rows on their own data rank
+        (``models.module.on_rows``); the expert products run on the
+        sharded stacks;
+      * ``moe._f32_bmm``: the fp32 matmul of upcast operands (DTensor
+        has no rule for ``bmm`` with ``out_dtype``);
+      * ``lm_grads``: each microbatch is split over the data axes again
+        after the grouping.
+
+    Without a mesh the step is the single-device one, unchanged."""
     opt = make_opt(opt_kind, **opt_kw)
     grouping = micro_split
 
     def step(state, batch):
         params, opt_state = state["params"], state["opt"]
-        b = _on(params, batch)
+        b = _on(params, batch) if mesh is None else _placed(params, batch,
+                                                            mesh)
         loss, grads = lm_grads(params, cfg, b["tokens"], b["labels"],
                                n_micro, grouping)
+        if mesh is not None:
+            grads = map_with_paths(
+                lambda path, g: g.redistribute(
+                    g.device_mesh, _spec_at(params, path).placements),
+                grads)
         params, opt_state, info = opt.update(params, grads, opt_state)
-        return {"params": params, "opt": opt_state}, dict(loss=loss, **info)
+        metrics = dict(loss=loss, **info)
+        if mesh is not None:
+            metrics = {k: v.full_tensor() if is_dtensor(v) else v
+                       for k, v in metrics.items()}
+        return {"params": params, "opt": opt_state}, metrics
 
     return step, opt
+
+
+def _placed(params, batch: dict, mesh) -> dict:
+    """A train batch on a mesh: DTensor leaves as they are, any other leaf
+    (the whole batch, the same on every rank) split over the data axes on
+    its first dimension, on the params' device."""
+    dev = device_of(params)
+    return {k: v if is_dtensor(v) else place(
+        torch.as_tensor(v).to(dev), (data_axes(mesh),), mesh)
+        for k, v in batch.items()}
 
 
 def next_token(logits):

@@ -21,8 +21,15 @@ for ``full`` and ``chunked`` (masked by ``_mask`` at the absolute
 positions), a ring buffer of ``min(window, context)`` slots for ``swa``
 (write slot pos % Sc); it writes the new K and V into the caches it is
 given, in place, and attends through ``_sdpa`` (the reference's decode
-attention is outside any Pallas kernel too). The reference's sequence
-sharding (``seq_shard``) is mesh machinery and is not ported.
+attention is outside any Pallas kernel too).
+
+On a mesh (DTensor activations, ``launch/steps.build_lm_train_step(
+mesh=)``) the positions and rope's frequencies are replicated DTensors,
+and the attention runs on each rank's block of heads (``_attend_mesh``);
+``seq_shard`` (the reference's opt-in context-parallel layout,
+``attention.py:114-126``) gives each rank a block of q's sequence
+against the whole k and v instead, and turns the query chunking off;
+without a mesh only the latter remains, as in the reference.
 """
 from __future__ import annotations
 
@@ -33,7 +40,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import causal_attention
 from repro_torch.models import layers as L
-from repro_torch.models.module import grad_asked
+from repro_torch.models.module import (data_axes, grad_asked, is_dtensor,
+                                       place, placements, replicated_like,
+                                       unshard_dim)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +59,7 @@ class AttnConfig:
     rope_theta: float = 10000.0
     q_chunk: int = 1024         # query chunking of the plain path
     logit_cap: float = 0.0      # soft cap (0 = off)
+    seq_shard: bool = False     # q's sequence over "model" on a mesh
 
 
 def attn_init(gen: torch.Generator, cfg: AttnConfig,
@@ -65,15 +75,27 @@ def attn_init(gen: torch.Generator, cfg: AttnConfig,
     return p
 
 
+def _model_size(mesh) -> int:
+    names = list(mesh.mesh_dim_names)
+    return mesh.size(names.index("model")) if "model" in names else 1
+
+
+def _heads(t, n: int, D: int):
+    """[B, S, n·D] -> [B, S, n, D]. On a mesh whose "model" axis does not
+    divide n the features are gathered whole first: DTensor will not
+    unflatten a dimension split unevenly across heads."""
+    if is_dtensor(t) and n % _model_size(t.device_mesh):
+        t = unshard_dim(t, -1)
+    B, S = t.shape[:2]
+    return t.reshape(B, S, n, D)
+
+
 def _qkv(p, cfg: AttnConfig, x, positions):
     """x [B, S, d] -> q [B, S, H, D], k, v [B, S, Kv, D]."""
-    B, S, _ = x.shape
-    q = L.dense_apply(p["q_proj"], x).reshape(B, S, cfg.n_heads,
-                                              cfg.head_dim)
-    k = L.dense_apply(p["k_proj"], x).reshape(B, S, cfg.n_kv_heads,
-                                              cfg.head_dim)
-    v = L.dense_apply(p["v_proj"], x).reshape(B, S, cfg.n_kv_heads,
-                                              cfg.head_dim)
+    H, Kv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _heads(L.dense_apply(p["q_proj"], x), H, D)
+    k = _heads(L.dense_apply(p["k_proj"], x), Kv, D)
+    v = _heads(L.dense_apply(p["v_proj"], x), Kv, D)
     if cfg.qk_norm:
         q = L.rmsnorm_apply(p["q_norm"], q)
         k = L.rmsnorm_apply(p["k_norm"], k)
@@ -137,17 +159,100 @@ def uses_kernel(cfg: AttnConfig, dtype: torch.dtype, positions=None,
             and cfg.head_dim % 16 == 0 and 16 <= cfg.head_dim <= 256)
 
 
+def _attend_chunks(cfg: AttnConfig, q, k, v, q_pos, k_pos, grad: bool):
+    """The plain attention of q [B, Sq, H, D] at positions q_pos [B, Sq]
+    against k, v [B, Sk, Kv, D] at k_pos [B, Sk] -> [B, Sq, H*D], in query
+    chunks of ``q_chunk`` (one chunk when Sq is not a multiple or with
+    ``seq_shard``), each recomputed in the backward under a gradient."""
+    Sq = q.shape[1]
+    qc = min(cfg.q_chunk, Sq)
+    if Sq % qc != 0 or cfg.seq_shard:
+        qc = Sq     # seq-sharding bounds each rank's scores already
+
+    def chunk(qi, pi, k, v):
+        return _sdpa(qi, k, v, _mask(cfg.kind, pi, k_pos, cfg.window,
+                                     cfg.chunk), cfg)
+
+    outs = []
+    for s0 in range(0, Sq, qc):
+        args = (q[:, s0:s0 + qc], q_pos[:, s0:s0 + qc], k, v)
+        outs.append(checkpoint(chunk, *args, use_reentrant=False)
+                    if grad and qc < Sq else chunk(*args))
+    return torch.cat(outs, dim=1)
+
+
+def _attend_mesh(cfg: AttnConfig, q, k, v, positions, grad: bool):
+    """``_attend_chunks`` of DTensor q, k, v [B, S, heads, D] on their
+    mesh, each rank on its own block (DTensor cannot carry the grouped
+    einsums of ``_sdpa`` over a sharded head dimension) -> DTensor [B, S,
+    H*D]. The batch is split over the data axes, and over "model":
+
+      * ``seq_shard``: q's sequence; k and v whole (the reference's
+        context-parallel layout, ``attention.py:114-121``), the output's
+        sequence gathered whole again for o_proj;
+      * else the heads, when H divides by the axis: q's heads and, when
+        Kv divides too, k's and v's (each rank's query heads then read
+        its own kv heads), else k and v whole, each rank taking its
+        query heads' kv heads;
+      * else nothing (every rank computes every head).
+
+    A k or v read whole by ranks that each use part of it gets its
+    gradient as their sum (``to_local(grad_placements=Partial)``)."""
+    from torch.distributed.tensor import DTensor, Partial
+    mesh = q.device_mesh
+    names = list(mesh.mesh_dim_names)
+    dp = data_axes(mesh)
+    m = _model_size(mesh)
+    H, Kv = cfg.n_heads, cfg.n_kv_heads
+    heads = not cfg.seq_shard and H % m == 0
+    kv_split = heads and Kv % m == 0
+    q_spec = ((dp, "model", None, None) if cfg.seq_shard else
+              (dp, None, "model" if heads else None, None))
+    kv_spec = (dp, None, "model" if kv_split else None, None)
+    out_spec = ((dp, "model", None) if cfg.seq_shard else
+                (dp, None, "model" if heads else None))
+    kv_pl = placements(kv_spec, mesh)
+    kv_grad = list(kv_pl)
+    if m > 1 and (cfg.seq_shard or (heads and not kv_split)):
+        kv_grad[names.index("model")] = Partial()
+    q_l = q.redistribute(mesh, placements(q_spec, mesh)).to_local()
+    k_l = k.redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
+    v_l = v.redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
+    pos = positions.full_tensor() if is_dtensor(positions) else positions
+    q_pos = place(pos, q_spec[:2], mesh).to_local()
+    k_pos = place(pos, (dp, None), mesh).to_local()
+    if heads and not kv_split and m > 1:
+        H_l = q_l.shape[2]
+        h0 = mesh.get_local_rank("model") * H_l
+        kv_idx = torch.arange(h0, h0 + H_l, device=q_l.device) // (H // Kv)
+        k_l, v_l = k_l[:, :, kv_idx], v_l[:, :, kv_idx]
+    out = _attend_chunks(cfg, q_l, k_l, v_l, q_pos, k_pos, grad)
+    B, S = q.shape[:2]
+    out = DTensor.from_local(out, mesh, placements(out_spec, mesh),
+                             run_check=False,
+                             shape=torch.Size((B, S, H * cfg.head_dim)),
+                             stride=(S * H * cfg.head_dim,
+                                     H * cfg.head_dim, 1))
+    if cfg.seq_shard:
+        # o_proj contracts the heads: the sequence is gathered whole
+        # first (DTensor will not flatten a sharded sequence into rows)
+        out = out.redistribute(mesh, placements((dp, None, None), mesh))
+    return out
+
+
 def attend_train(p, cfg: AttnConfig, x, positions=None):
     """Causal self-attention over [B, S, d_model]. positions [B, S]
     defaults to 0..S-1. Under a gradient each query chunk's ``_sdpa`` is
     recomputed in the backward (one chunk, S not a multiple of
-    ``q_chunk`` or S <= q_chunk, is not checkpointed, as in the
-    reference)."""
+    ``q_chunk``, S <= q_chunk or ``seq_shard``, is not checkpointed, as
+    in the reference). On DTensors (a mesh) the attention itself runs on
+    each rank's block (``_attend_mesh``)."""
     B, S, _ = x.shape
     grad = grad_asked(x, p)
-    kernel = uses_kernel(cfg, x.dtype, positions, grad)
+    kernel = uses_kernel(cfg, x.dtype, positions, grad) and not is_dtensor(x)
     if positions is None:
-        positions = torch.arange(S, device=x.device).expand(B, S)
+        positions = replicated_like(
+            torch.arange(S, device=x.device).expand(B, S), x)
     q, k, v = _qkv(p, cfg, x, positions)
     H, D = cfg.n_heads, cfg.head_dim
 
@@ -159,20 +264,11 @@ def attend_train(p, cfg: AttnConfig, x, positions=None):
         out = out.transpose(1, 2).reshape(B, S, H * D)
         return L.dense_apply(p["o_proj"], out)
 
-    qc = min(cfg.q_chunk, S)
-    if S % qc != 0:
-        qc = S
-
-    def chunk(qi, pi, k, v):
-        return _sdpa(qi, k, v, _mask(cfg.kind, pi, positions, cfg.window,
-                                     cfg.chunk), cfg)
-
-    outs = []
-    for s0 in range(0, S, qc):
-        args = (q[:, s0:s0 + qc], positions[:, s0:s0 + qc], k, v)
-        outs.append(checkpoint(chunk, *args, use_reentrant=False)
-                    if grad and qc < S else chunk(*args))
-    return L.dense_apply(p["o_proj"], torch.cat(outs, dim=1))
+    if is_dtensor(q):
+        out = _attend_mesh(cfg, q, k, v, positions, grad)
+    else:
+        out = _attend_chunks(cfg, q, k, v, positions, positions, grad)
+    return L.dense_apply(p["o_proj"], out)
 
 
 def attend_decode(p, cfg: AttnConfig, x, cache_k, cache_v, pos):

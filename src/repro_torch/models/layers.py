@@ -103,11 +103,14 @@ def layernorm_apply(p, x, eps: float = 1e-5):
 # ----------------------------------------------------------------- rotary ---
 def rope(x, positions, theta: float = 10000.0):
     """Rotary embedding of the two halves of the head (not interleaved
-    pairs), in fp32, cast back. x: [..., S, H, D]; positions: [..., S]."""
+    pairs), in fp32, cast back. x: [..., S, H, D]; positions: [..., S].
+    On a DTensor ``x`` the frequencies are a replicated DTensor."""
+    from repro_torch.models.module import replicated_like
     half = x.shape[-1] // 2
     exponent = -torch.arange(half, dtype=torch.float32, device=x.device)
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32), exponent
-                      / half)
+    freqs = replicated_like(torch.pow(torch.tensor(theta,
+                                                   dtype=torch.float32),
+                                      exponent / half), x)
     angles = positions[..., None].to(torch.float32) * freqs  # [.., S, half]
     angles = angles[..., None, :]                          # [.., S, 1, half]
     cos, sin = torch.cos(angles), torch.sin(angles)

@@ -10,10 +10,21 @@ as in the reference and the parameter names follow its paths
 ``ShardRules`` (reference ``:46-88``) maps "a/b/c" paths to a
 per-dimension spec: a tuple whose entries are an axis name, a tuple of
 axis names or None, where the reference has a ``PartitionSpec`` (``()``
-replicates, as ``P()`` does). Placement on a ``torch.distributed``
-DeviceMesh uses the port's own local shards (``train/elastic.
-reshard_tree``: each rank keeps its contiguous block of a dimension, the
-layout of the fit engine's ``shard_state``), not DTensor placements.
+replicates, as ``P()`` does).
+
+Two placements on a ``torch.distributed`` DeviceMesh exist side by side:
+
+  * the fit engine and the Trainer keep plain local tensors, each rank its
+    contiguous block of a dimension (``train/elastic.reshard_tree``, the
+    layout of the fit engine's ``shard_state``);
+  * the LM's train step on a mesh (``launch/steps.build_lm_train_step(
+    mesh=)``) takes DTensors: ``placements`` turns a spec into DTensor
+    placements (``Shard(dim)`` on each mesh dimension the spec names for
+    ``dim``, ``Replicate()`` on the others), ``place`` and ``place_tree``
+    make this rank's DTensor of a whole tensor or tree, and ``on_whole``
+    runs plain code on the whole tensors of replicated DTensors (the
+    sites DTensor cannot carry).
+
 ``constrain`` and ``constrain_first`` are not ported: the port's mesh code
 places every tensor itself, and without a mesh they are no-ops in the
 reference too.
@@ -28,10 +39,13 @@ from torch import nn
 
 from repro_torch.checkpoint.checkpointer import flatten_with_paths
 
-__all__ = ["ShardRules", "Spec", "as_module", "cast_floating", "device_of",
-           "grad_asked", "layer_list", "tensor_tree", "tree_to",
+__all__ = ["ShardRules", "Spec", "as_module", "cast_floating", "data_axes",
+           "device_of", "grad_asked", "is_dtensor", "layer_list",
+           "on_whole", "pin_batch", "place", "place_tree", "placements",
+           "replicated_like", "tensor_tree", "tree_to",
            "flatten_with_paths", "map_with_paths", "mesh_sizes",
-           "param_bytes", "param_count", "spec_axes", "tree_paths"]
+           "param_bytes", "param_count", "spec_axes", "tree_paths",
+           "unshard_dim"]
 
 #: a per-dimension sharding spec: entry i names the mesh axis (or tuple of
 #: axes) dimension i is split over, None keeps it whole; () replicates
@@ -207,3 +221,162 @@ class ShardRules:
                         f"{path}: shape {tuple(leaf.shape)} dim {dim} not "
                         f"divisible by {names}={total}")
         return problems
+
+
+# --------------------------------------------------------------- DTensor --
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a ``torch.distributed.tensor.DTensor`` (without
+    importing ``torch.distributed`` where it is not)."""
+    if not isinstance(t, torch.Tensor) or not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def replicated_like(t: torch.Tensor, ref):
+    """``t`` (the same on every rank: a constant the code builds) as a
+    replicated DTensor on ``ref``'s mesh when ``ref`` is a DTensor, else
+    ``t``: DTensor refuses to mix its tensors with plain ones."""
+    if not is_dtensor(ref):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def unshard_dim(t, dim: int):
+    """A DTensor with dimension ``dim`` gathered whole on every rank (its
+    other placements kept); a plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    dim %= t.ndim
+    pl = [Replicate() if getattr(p, "dim", None) == dim else p
+          for p in t.placements]
+    return t.redistribute(t.device_mesh, pl)
+
+
+def data_axes(mesh) -> tuple[str, ...]:
+    """The data-parallel axes of a DeviceMesh: ("pod", "data") or
+    ("data",), those it has."""
+    return tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
+
+
+def pin_batch(t):
+    """A DTensor split over the data axes on its first dimension and
+    replicated over the others (a Partial sum reduced): the reference's
+    residual-stream pin (``transformer._pin_residual``). It keeps DTensor
+    from choosing other layouts, reduce-scatters among them, for the
+    activations; a plain tensor passes as it is."""
+    if not is_dtensor(t):
+        return t
+    mesh = t.device_mesh
+    return t.redistribute(mesh, placements((data_axes(mesh),), mesh))
+
+
+def placements(spec: Spec, mesh) -> list:
+    """A spec -> DTensor placements on ``mesh``: mesh dimension ``a`` gets
+    ``Shard(dim)`` when the spec names ``a`` for ``dim``, ``Replicate()``
+    otherwise. A dimension split over several axes is cut in the mesh's
+    order (block i·nb + j at coordinates (i, j)), the order of the
+    reference's ``NamedSharding`` and of ``train/elastic.shard_leaf``; an
+    axis the mesh lacks is ignored, as the reference's specs on a smaller
+    mesh."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for dim, part in enumerate(spec):
+        if part is None:
+            continue
+        axes = [a for a in spec_axes(part) if a in names]
+        if [names.index(a) for a in axes] != sorted(names.index(a)
+                                                    for a in axes):
+            raise ValueError(f"spec {spec}: the axes of dim {dim} must "
+                             f"follow the mesh's order {names}")
+        for a in axes:
+            out[names.index(a)] = Shard(dim)
+    return out
+
+
+def place(t: torch.Tensor, spec: Spec, mesh):
+    """This rank's DTensor of the whole tensor ``t`` (the same on every
+    rank) under ``spec``: its block is cut locally (no collective), and a
+    dimension whole on this rank keeps ``t``'s storage."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    pl = placements(spec, mesh)
+    shape, offset = compute_local_shape_and_global_offset(t.shape, mesh, pl)
+    local = t
+    for dim, (n, at) in enumerate(zip(shape, offset)):
+        if n != t.shape[dim]:
+            local = local.narrow(dim, at, n)
+    if local is not t:
+        local = local.contiguous()
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def place_tree(tree: Any, specs: Any, mesh) -> Any:
+    """``place`` over a nested dict of whole tensors and its spec tree (the
+    same nesting); a spec of None leaves its leaf as it is (a host
+    counter)."""
+    if isinstance(tree, dict):
+        return {k: place_tree(v, specs[k], mesh) for k, v in tree.items()}
+    return tree if specs is None else place(tree, specs, mesh)
+
+
+def on_whole(fn: Callable, *args):
+    """``fn`` on the whole tensors of its DTensor arguments, each
+    redistributed to ``Replicate()`` so that every rank computes the same,
+    its tensor outputs (one, or a tuple) returned as replicated DTensors on
+    the same mesh; other arguments and outputs pass through. It is what
+    ``torch.distributed.tensor.experimental.local_map`` does with
+    replicated placements, written with ``to_local`` / ``from_local`` so
+    that the outputs need no declared placements; both are
+    differentiable, a replicated input's gradient the local one. Without
+    a DTensor argument it is ``fn(*args)``."""
+    mesh = next((a.device_mesh for a in args if is_dtensor(a)), None)
+    if mesh is None:
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Replicate
+    rep = [Replicate()] * mesh.ndim
+    out = fn(*[a.redistribute(mesh, rep).to_local() if is_dtensor(a)
+               else a for a in args])
+
+    def wrap(o):
+        if isinstance(o, torch.Tensor):
+            return DTensor.from_local(o, mesh, rep, run_check=False)
+        return o
+
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+def on_rows(fn: Callable, *args):
+    """``fn`` on each data rank's own rows: its DTensor arguments, whose
+    first dimension is the batch, redistributed to that dimension split
+    over the data axes and whole over the others (``pin_batch``'s
+    layout), ``fn`` called on their local blocks, and its tensor outputs
+    (one, or a tuple; each with the batch as its first dimension) returned
+    as DTensors in the same layout. For row-local work (each row routed
+    and dispatched on its own), no rank holds another data rank's rows.
+    Without a DTensor argument it is ``fn(*args)``."""
+    ref = next((a for a in args if is_dtensor(a)), None)
+    if ref is None:
+        return fn(*args)
+    from torch.distributed.tensor import DTensor
+    mesh, rows = ref.device_mesh, ref.shape[0]
+    pl = placements((data_axes(mesh),), mesh)
+    out = fn(*[a.redistribute(mesh, pl).to_local() if is_dtensor(a)
+               else a for a in args])
+
+    def wrap(o):
+        if not isinstance(o, torch.Tensor):
+            return o
+        shape = (rows, *o.shape[1:])
+        stride = torch.empty(shape, device="meta").stride()
+        return DTensor.from_local(o, mesh, pl, run_check=False, shape=shape,
+                                  stride=stride)
+
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)

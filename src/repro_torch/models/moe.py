@@ -25,6 +25,19 @@ token are summed in slot order in the activation dtype. The reference's
 mesh constraints (``constrain_first``) do nothing on one device and are
 not ported.
 
+On a mesh (DTensor activations and expert stacks, ``launch/steps.
+build_lm_train_step(mesh=)``) the routing, the capacity scatter into the
+dispatch buffer and the combine run on local tensors (DTensor carries
+neither the boolean row writes of ``topk_stable`` nor the accumulating
+``index_put_``, and the ``kchoice`` kernel takes the local tensors, never
+a DTensor's pointer): ``_moe_tokens``' flat block, whose queues run over
+every token, on the whole block on every rank (``models.module.
+on_whole``); ``_moe_rows``' row-local work on each data rank's own rows
+(``models.module.on_rows``), so its [B, E, C, d] buffer is split over
+the data axes as the reference pins it. The expert products run on the
+DTensors, sharded as the stacks are (tensor-parallel over d_ff, or
+experts over "model").
+
 Under a gradient the router's gates and the aux loss are differentiable
 torch ops; the dispatch indices are not (``kchoice`` returns ints, as the
 reference's scan does), and a recompute (``lm_backbone``'s remat) routes
@@ -34,13 +47,17 @@ logits.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.core.topk import topk_stable
 from repro_torch.kernels.kchoice.ops import kchoice_assign
 from repro_torch.models import layers as L
+from repro_torch.models.module import (is_dtensor, on_rows, on_whole,
+                                       pin_batch)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +80,8 @@ def _expert_stack(gen: torch.Generator, E: int, shape, scale: float,
     the fp32 draw never holds more than one expert (llama4's stacks are
     10.7 GB each in bf16, 21.5 GB in fp32)."""
     out = torch.empty((E, *shape), dtype=dtype, device=gen.device)
+    if is_fake(out):        # shapes only (``configs/base.abstract``)
+        return out
     for e in range(E):
         out[e] = L._normal(gen, shape, scale, dtype)
     return out
@@ -173,9 +192,11 @@ class _BmmF32Out(torch.autograd.Function):
 def _f32_bmm(a, b):
     """a [n, i, j] @ b [n, j, l], products summed in fp32 -> fp32: bf16
     operands on the card go to one bf16 matmul with an fp32 output
-    (``_BmmF32Out``, which carries its own backward); on the CPU (or fp32
-    operands) an fp32 matmul of the upcast operands."""
-    if a.is_cuda and a.dtype == b.dtype and a.dtype != torch.float32:
+    (``_BmmF32Out``, which carries its own backward); on the CPU, on
+    DTensors (DTensor has no rule for ``bmm`` with ``out_dtype``) or with
+    fp32 operands an fp32 matmul of the upcast operands."""
+    if a.is_cuda and a.dtype == b.dtype and a.dtype != torch.float32 \
+            and not is_dtensor(a):
         return _BmmF32Out.apply(a, b)
     return torch.bmm(a.to(torch.float32), b.to(torch.float32))
 
@@ -191,65 +212,107 @@ def _experts_f32(p, cfg: MoEConfig, disp, dtype):
     return _f32_bmm(h, ex["down"]).to(dtype)
 
 
-def _moe_tokens(p, cfg: MoEConfig, xt):
-    """Dispatch + expert compute + combine for a flat token block [T, d]
-    -> (y [T, d], aux)."""
+def _dispatch_tokens(cfg: MoEConfig, logits, xt):
+    """Routing and the capacity scatter of a flat token block: router
+    logits [T, E], xt [T, d] -> (disp [E, C, d], w [T, k] (0 where
+    dropped), idx [T, k], pos [T, k] clamped to the capacity, keep
+    [T, k], aux)."""
     T, d = xt.shape
     k, E = cfg.top_k, cfg.n_experts
-    w, idx, aux = _route(L.dense_apply(p["router"], xt), cfg)  # [T, k]
+    w, idx, aux = _route(logits, cfg)                          # [T, k]
     C = _capacity(cfg, T)
     pos, keep = _queue_positions(idx, E, C)
     w = torch.where(keep, w, 0.0)
-    e_flat = idx.reshape(-1)
-    c_flat = pos.reshape(-1).clamp(0, C - 1)
+    pos = pos.clamp(0, C - 1)
     tok_flat = torch.arange(T, device=xt.device).repeat_interleave(k)
     keep_flat = keep.reshape(-1)
     vals = torch.where(keep_flat[:, None], xt[tok_flat], 0.0)
     disp = torch.zeros((E, C, d), dtype=xt.dtype, device=xt.device)
-    disp.index_put_((e_flat, c_flat), vals, accumulate=True)
-    out_e = _experts_f32(p, cfg, disp, xt.dtype)               # [E, C, d]
-    gathered = out_e[e_flat, c_flat] * (w.reshape(-1, 1)
-                                        * keep_flat[:, None]).to(xt.dtype)
+    disp.index_put_((idx.reshape(-1), pos.reshape(-1)), vals,
+                    accumulate=True)
+    return disp, w, idx, pos, keep, aux
+
+
+def _combine_tokens(out_e, w, idx, pos, keep):
+    """The experts' outputs out_e [E, C, d] back to their tokens, weighted
+    and summed over a token's k slots in slot order -> y [T, d]."""
+    T, k = idx.shape
+    keep_flat = keep.reshape(-1)
+    gathered = out_e[idx.reshape(-1), pos.reshape(-1)] * (
+        w.reshape(-1, 1) * keep_flat[:, None]).to(out_e.dtype)
     # the reference's segment_sum over a token's k slots, in slot order
-    gathered = gathered.reshape(T, k, d)
-    y = torch.zeros_like(xt)
+    gathered = gathered.reshape(T, k, -1)
+    y = torch.zeros_like(gathered[:, 0])
     for j in range(k):
         y = y + gathered[:, j]
+    return y
+
+
+def _moe_tokens(p, cfg: MoEConfig, xt):
+    """Dispatch + expert compute + combine for a flat token block [T, d]
+    -> (y [T, d], aux)."""
+    disp, w, idx, pos, keep, aux = on_whole(
+        functools.partial(_dispatch_tokens, cfg),
+        L.dense_apply(p["router"], xt), xt)
+    out_e = _experts_f32(p, cfg, disp, xt.dtype)               # [E, C, d]
+    y = pin_batch(on_whole(_combine_tokens, out_e, w, idx, pos, keep))
     if cfg.n_shared_experts > 0:
-        y = y + L.glu_mlp_apply(p["shared"], xt, cfg.act)
+        y = y + pin_batch(L.glu_mlp_apply(p["shared"], xt, cfg.act))
     return y, aux
+
+
+def _dispatch_rows(cfg: MoEConfig, logits, x):
+    """Row-local routing and capacity scatter: logits [B, T, E], x [B, T,
+    d] -> (disp [B, E, C, d], w, idx, pos (clamped), keep [B, T, k], aux
+    [B] of each row)."""
+    B, T, d = x.shape
+    k, E = cfg.top_k, cfg.n_experts
+    w, idx, aux = _route(logits, cfg)                          # [B, T, k]
+    aux = aux.expand(B).contiguous()
+    C = _capacity(cfg, T)
+    pos, keep = _queue_positions(idx, E, C)
+    w = torch.where(keep, w, 0.0)
+    pos = pos.clamp(0, C - 1)
+    b_idx = torch.arange(B, device=x.device)[:, None].expand(B, T)
+    disp = torch.zeros((B, E, C, d), dtype=x.dtype, device=x.device)
+    for j in range(k):
+        v_j = torch.where(keep[:, :, j, None], x, 0.0)
+        disp.index_put_((b_idx, idx[:, :, j], pos[:, :, j]), v_j,
+                        accumulate=True)
+    return disp, w, idx, pos, keep, aux
+
+
+def _combine_rows(out_e, w, idx, pos, keep):
+    """out_e [B, E, C, d] back to the rows' tokens -> y [B, T, d]."""
+    B, T, k = idx.shape
+    b_idx = torch.arange(B, device=out_e.device)[:, None].expand(B, T)
+    y = torch.zeros((B, T, out_e.shape[-1]), dtype=out_e.dtype,
+                    device=out_e.device)
+    for j in range(k):
+        o_j = out_e[b_idx, idx[:, :, j], pos[:, :, j]]
+        y = y + o_j * (w[:, :, j, None] * keep[:, :, j, None]).to(
+            out_e.dtype)
+    return y
 
 
 def _moe_rows(p, cfg: MoEConfig, x):
     """Per-batch-row capacity dispatch. x [B, T, d] -> (y [B, T, d], aux):
     routing (each row its own loads), queue positions, the [B, E, C_row, d]
     dispatch and the combine are row-local; the expert products keep the
-    activation dtype."""
-    B, T, d = x.shape
-    k, E = cfg.top_k, cfg.n_experts
-    w, idx, aux = _route(L.dense_apply(p["router"], x), cfg)   # [B, T, k]
-    aux = aux.mean()
-    C = _capacity(cfg, T)
-    pos, keep = _queue_positions(idx, E, C)
-    w = torch.where(keep, w, 0.0)
-    b_idx = torch.arange(B, device=x.device)[:, None].expand(B, T)
-    disp = torch.zeros((B, E, C, d), dtype=x.dtype, device=x.device)
-    for j in range(k):
-        v_j = torch.where(keep[:, :, j, None], x, 0.0)
-        disp.index_put_((b_idx, idx[:, :, j], pos[:, :, j].clamp(0, C - 1)),
-                        v_j, accumulate=True)
+    activation dtype. On a mesh each data rank does its own rows'
+    (``on_rows``)."""
+    disp, w, idx, pos, keep, aux = on_rows(
+        functools.partial(_dispatch_rows, cfg),
+        L.dense_apply(p["router"], x), x)
     ex = p["experts"]
     h = torch.einsum("becd,edf->becf", disp, ex["gate"])
     u = torch.einsum("becd,edf->becf", disp, ex["up"])
     h = (L.ACTS[cfg.act](h) * u).to(x.dtype)
     out_e = torch.einsum("becf,efd->becd", h, ex["down"]).to(x.dtype)
-    y = torch.zeros_like(x)
-    for j in range(k):
-        o_j = out_e[b_idx, idx[:, :, j], pos[:, :, j].clamp(0, C - 1)]
-        y = y + o_j * (w[:, :, j, None] * keep[:, :, j, None]).to(x.dtype)
+    y = on_rows(_combine_rows, out_e, w, idx, pos, keep)
     if cfg.n_shared_experts > 0:
-        y = y + L.glu_mlp_apply(p["shared"], x, cfg.act)
-    return y, aux
+        y = y + pin_batch(L.glu_mlp_apply(p["shared"], x, cfg.act))
+    return y, aux.mean()
 
 
 def moe_apply(p, cfg: MoEConfig, x):

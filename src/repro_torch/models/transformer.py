@@ -30,8 +30,19 @@ group of layers in the backward when ``cfg.remat`` is set
 scan body), and each attention takes the reference's chunked ``_sdpa``
 (``models/attention.py``). ``chunked_xent`` is the reference's sequence-
 chunked cross-entropy, each chunk's fp32 logits recomputed in the
-backward; ``lm_loss`` adds 0.01 · the MoE aux loss. The reference's
-``seq_shard_attn`` is mesh machinery and waits (ROADMAP).
+backward; ``lm_loss`` adds 0.01 · the MoE aux loss.
+
+On a mesh the same code runs on DTensors (``launch/steps.
+build_lm_train_step(mesh=)``). Three sites here differ: the embedding
+lookup reads the table whole (``_embed``: DTensor's masked lookup of a
+row-sharded table does not reduce), ``chunked_xent`` takes a chunk's
+logsumexp and gold logit from the vocabulary-sharded logits without
+gathering them (``_lse_gold_sharded``: the same masked gather fails),
+and ``_group_apply`` pins each branch's output and the residual to the
+batch split (``models.module.pin_batch``, the reference's
+``_pin_residual``). ``seq_shard_attn`` is the reference's opt-in
+context-parallel attention (``AttnConfig.seq_shard``, for configs whose
+head count is not a multiple of 16).
 """
 from __future__ import annotations
 
@@ -47,7 +58,8 @@ from repro_torch.models import layers as L
 from repro_torch.models.attention import (AttnConfig, attend_decode,
                                           attend_train, attn_init,
                                           decode_cache_len)
-from repro_torch.models.module import as_module, grad_asked, layer_list
+from repro_torch.models.module import (as_module, grad_asked, is_dtensor,
+                                       layer_list, pin_batch, unshard_dim)
 from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
 
 
@@ -77,6 +89,7 @@ class LMConfig:
     q_chunk: int = 1024
     ce_chunk: int = 8192               # tokens a chunked-CE step
     remat: bool = True                 # recompute each group in backward
+    seq_shard_attn: bool = False       # opt-in context-parallel attention
 
     @property
     def period(self) -> int:
@@ -90,7 +103,11 @@ class LMConfig:
             window=self.window, chunk=self.chunk,
             use_rope=not (self.nope_on_full and kind == "full"),
             qk_norm=self.qk_norm, rope_theta=self.rope_theta,
-            q_chunk=self.q_chunk, logit_cap=self.logit_cap)
+            q_chunk=self.q_chunk, logit_cap=self.logit_cap,
+            # opt-in only, as the reference (measured worse for llama4 on
+            # its mesh): heads that split over a 16-wide "model" axis
+            # keep the head layout
+            seq_shard=self.seq_shard_attn and self.n_heads % 16 != 0)
 
     def _attn_params(self) -> int:
         return (self.d_model * self.n_heads * self.head_dim * 2
@@ -183,7 +200,10 @@ def lm_init(cfg: LMConfig, *, seed: int = 0,
 
 # --------------------------------------------------------------- forward ----
 def _embed(params, cfg: LMConfig, tokens):
-    x = L.embedding_apply(params["embed"], tokens)
+    table = params["embed"]["table"]
+    # on a mesh the lookup reads the row-sharded table whole: DTensor's
+    # masked lookup (MaskPartial) fails to reduce
+    x = L.embedding_apply({"table": unshard_dim(table, 0)}, tokens)
     if cfg.embed_scale:
         # rounded to the activation dtype first, as the reference does:
         # sqrt(3072) = 55.4256 is 55.5 in bf16
@@ -203,13 +223,16 @@ def _group_apply(group, cfg: LMConfig, x):
     -> (x, the group's aux loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(group):
+        # on a mesh each branch's output and the residual stay split over
+        # the data axes only (``pin_batch``, the reference's _pin_residual)
+        x = pin_batch(x)
         h = L.rmsnorm_apply(lp["ln_attn"], x)
-        x = x + attend_train(lp["attn"], cfg.attn_cfg(i), h)
+        x = x + pin_batch(attend_train(lp["attn"], cfg.attn_cfg(i), h))
         h = L.rmsnorm_apply(lp["ln_mlp"], x)
         y, a = _ffn(lp, cfg, h)
         if a is not None:
             aux = aux + a
-        x = x + y
+        x = pin_batch(x + pin_batch(y))
     return x, aux
 
 
@@ -248,6 +271,42 @@ def _logits(params, cfg: LMConfig, h):
     return out
 
 
+def _vocab_split(logits) -> bool:
+    """Whether DTensor logits' last (vocabulary) dimension is split across
+    more than one rank."""
+    if not is_dtensor(logits):
+        return False
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    return any(getattr(p, "dim", None) == last and mesh.size(i) > 1
+               for i, p in enumerate(logits.placements))
+
+
+def _lse_gold_sharded(logits, labels):
+    """The logsumexp and the gold logit of DTensor logits [B, Cs, V] whose
+    vocabulary is split across ranks (the head over "model"), without
+    gathering the vocabulary: the max and the sum of exponentials reduce
+    across ranks ([B, Cs] each), and each rank picks the labels that fall
+    in its own vocabulary slice, a Partial sum. (DTensor's masked gather
+    from sharded logits fails to reduce.)"""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = logits.device_mesh
+    mx = logits.detach().amax(-1, keepdim=True)
+    lse = torch.log(torch.exp(logits - mx).sum(-1)) + mx[..., 0]
+    shape, offset = compute_local_shape_and_global_offset(
+        logits.shape, mesh, logits.placements)
+    rows = [p if isinstance(p, Shard) and p.dim < 2 else Replicate()
+            for p in logits.placements]
+    lab = labels.redistribute(mesh, rows).to_local().long()
+    ids = torch.arange(offset[-1], offset[-1] + shape[-1],
+                       device=lab.device)
+    pick = DTensor.from_local(lab[..., None] == ids, mesh, logits.placements,
+                              run_check=False, shape=logits.shape,
+                              stride=logits.stride())
+    return lse, torch.where(pick, logits, 0.0).sum(-1)
+
+
 def chunked_xent(params, cfg: LMConfig, h, labels, mask):
     """Cross-entropy without the [B, S, V] logits at once: h [B, S, d],
     labels [B, S] int, mask [B, S] -> the masked mean of -log p(label).
@@ -266,8 +325,12 @@ def chunked_xent(params, cfg: LMConfig, h, labels, mask):
 
     def chunk_loss(hc, lc, mc):
         logits = _logits(params, cfg, hc)                  # [B, Cs, V] fp32
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+        if _vocab_split(logits):
+            lse, gold = _lse_gold_sharded(logits, lc)
+        else:
+            logits = unshard_dim(logits, -1)   # whole on each rank already
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
         return torch.sum((lse - gold) * mc)
 
     grad = grad_asked(h, params)
@@ -283,8 +346,7 @@ def lm_loss(params, cfg: LMConfig, tokens, labels, mask=None):
     """tokens, labels [B, S] (mask [B, S], default all ones) -> (ce + 0.01
     · aux, {"ce", "aux"})."""
     if mask is None:
-        mask = torch.ones(labels.shape, dtype=torch.float32,
-                          device=labels.device)
+        mask = torch.ones_like(labels, dtype=torch.float32)
     h, aux = lm_backbone(params, cfg, tokens)
     ce = chunked_xent(params, cfg, h, labels, mask)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}

@@ -1894,3 +1894,154 @@ def test_train_step_on_the_card_equals_the_cpu(card, name):
                                  flatten_with_paths(new_cpu["opt"]["m"])):
         err = float((a.cpu() - b).abs().max())
         assert err <= 1e-4 * max(float(b.abs().max()), 1e-30), (path, err)
+
+
+# ------------------------------------------------- the LM on a mesh --------
+@pytest.fixture
+def nccl_mesh(card, tmp_path):
+    """A (data 1, model 1) DeviceMesh over an NCCL group of world size 1 in
+    this process (a FileStore rendezvous in tmp_path)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "nccl_store"), 1), rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1, 1),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name", ["gemma-7b", "mixtral-8x7b"])
+def test_one_rank_dtensor_lm_step_equals_the_meshless_step(nccl_mesh, name):
+    """build_lm_train_step(mesh=) on the card at world size 1: two steps
+    from the same state equal the meshless steps (loss, grad_norm, every
+    state leaf), and every DTensor leaf keeps its placements."""
+    from repro_torch.configs.lm_common import lm_rules
+    from repro_torch.launch import steps as PS
+    from repro_torch.launch.train import LM_VARIANTS
+    from repro_torch.models.module import (flatten_with_paths,
+                                           tensor_tree, tree_to)
+    from repro_torch.models.transformer import lm_init
+    cfg = LM_VARIANTS[name]
+    dev = torch.device("cuda", 0)
+    params = tensor_tree(lm_init(cfg, seed=0, device=dev))
+    rng = np.random.default_rng(0)
+    batches = [{k: rng.integers(0, cfg.vocab, (4, 64)).astype(np.int32)
+                for k in ("tokens", "labels")} for _ in range(2)]
+    step, opt = PS.build_lm_train_step(cfg, "adamw", n_micro=2, lr=1e-3)
+    mstep, _ = PS.build_lm_train_step(cfg, "adamw", n_micro=2, lr=1e-3,
+                                      mesh=nccl_mesh)
+    state = {"params": tree_to(params, dev), "opt": opt.init(params)}
+    specs = lm_rules(cfg).specs(params)
+    placed = PS.place_train_state(
+        {"params": params, "opt": opt.init(params)}, specs,
+        PS.opt_state_specs("adamw", params, specs, nccl_mesh), nccl_mesh)
+    before = {p: tuple(t.placements) for p, t in flatten_with_paths(placed)
+              if hasattr(t, "placements")}
+    for b in batches:
+        state, m = step(state, b)
+        placed, mm = mstep(placed, b)
+        assert float(mm["loss"]) == float(m["loss"])
+        assert float(mm["grad_norm"]) == float(m["grad_norm"])
+    for (p, a), (_, c) in zip(flatten_with_paths(state),
+                              flatten_with_paths(placed)):
+        got = c.to_local() if hasattr(c, "to_local") else c
+        assert torch.equal(got.to(a.device), a), p
+    assert {p: tuple(t.placements) for p, t in flatten_with_paths(placed)
+            if hasattr(t, "placements")} == before
+
+
+def test_kchoice_kernel_routes_a_dtensor_moe_block(nccl_mesh):
+    """The k-choice router on DTensors: the routing runs on the whole
+    token block's local tensors (models.module.on_whole), one kchoice
+    launch, the block's output equal to the meshless block's."""
+    from repro_torch.configs.lm_common import lm_rules
+    from repro_torch.launch.train import LM_VARIANTS
+    from repro_torch.models import moe as MO
+    from repro_torch.models.module import place, place_tree
+    cfg = MO.MoEConfig(d_model=64, d_ff=128, n_experts=8, top_k=2,
+                       router="irli_kchoice")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = MO.moe_init(gen, cfg)
+    x = torch.randn((2, 64, 64), generator=gen, device=dev)
+    rules = lm_rules(dataclasses.replace(LM_VARIANTS["mixtral-8x7b"],
+                                         moe=cfg))
+    placed = place_tree(p, rules.specs({"moe": p})["moe"], nccl_mesh)
+    xd = place(x, (("data",), None, None), nccl_mesh)
+    with torch.no_grad():
+        want, _ = MO.moe_apply(p, cfg, x)
+        reset_launches()
+        got, _ = MO.moe_apply(placed, cfg, xd)
+        torch.cuda.synchronize()
+    assert LAUNCHES["kchoice"] == 1
+    assert torch.equal(got.full_tensor(), want)
+
+
+def test_kchoice_kernel_routes_a_dtensor_moe_block_by_rows(nccl_mesh):
+    """The per-row dispatch (ffn_chunk below the block's tokens: 2
+    sequence chunks) on DTensors: each chunk's routing runs on the data
+    rank's own rows (models.module.on_rows), one kchoice launch a chunk,
+    the output split over "data" and equal to the meshless block's."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.configs.lm_common import lm_rules
+    from repro_torch.launch.train import LM_VARIANTS
+    from repro_torch.models import moe as MO
+    from repro_torch.models.module import place, place_tree
+    cfg = MO.MoEConfig(d_model=64, d_ff=128, n_experts=8, top_k=2,
+                       router="irli_kchoice", ffn_chunk=64)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = MO.moe_init(gen, cfg)
+    x = torch.randn((2, 64, 64), generator=gen, device=dev)
+    rules = lm_rules(dataclasses.replace(LM_VARIANTS["mixtral-8x7b"],
+                                         moe=cfg))
+    placed = place_tree(p, rules.specs({"moe": p})["moe"], nccl_mesh)
+    xd = place(x, (("data",), None, None), nccl_mesh)
+    with torch.no_grad():
+        want, _ = MO.moe_apply(p, cfg, x)
+        reset_launches()
+        got, _ = MO.moe_apply(placed, cfg, xd)
+        torch.cuda.synchronize()
+    assert LAUNCHES["kchoice"] == 2
+    assert got.placements[0] == Shard(0)
+    assert torch.equal(got.full_tensor(), want)
+
+
+@pytest.mark.parametrize("kind", ["int8", "topk"])
+def test_compression_on_cuda_tensors_equals_the_cpu(nccl_mesh, kind):
+    """compress_grads on the card = on the CPU with the same noise (int8
+    codes and top-k carriers exactly, scales and residuals to 1e-6), and
+    compressed_psum over a one-rank "data" axis = the decompressed
+    payload."""
+    from repro_torch.models.module import flatten_with_paths
+    from repro_torch.optim import compression as C
+    rng = np.random.default_rng(0)
+    g = {"a": rng.standard_normal((33, 17)).astype(np.float32),
+         "b": np.round(rng.standard_normal((64,)), 1).astype(np.float32)}
+    u = [rng.uniform(-0.5, 0.5, v.shape).astype(np.float32)
+         for _, v in sorted(g.items())]
+    cfg = C.CompressionConfig(kind=kind, topk_frac=0.1)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        gt = {k: torch.from_numpy(v).to(dev) for k, v in g.items()}
+        noise = [torch.from_numpy(x).to(dev) for x in u]
+        payload, dec, ef = C.compress_grads(cfg, gt, C.ef_init(gt), noise)
+        out[dev] = (payload, dec(payload), ef)
+        if dev == "cuda":
+            summed, ef2 = C.compressed_psum(cfg, gt, C.ef_init(gt), noise,
+                                            "data", mesh=nccl_mesh)
+            for (_, a), (_, b) in zip(flatten_with_paths(summed),
+                                      flatten_with_paths(dec(payload))):
+                torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+    for a, b in zip(out["cpu"][0], out["cuda"][0]):
+        if kind == "int8":
+            assert torch.equal(a[0], b[0].cpu())
+            torch.testing.assert_close(a[1], b[1].cpu(), rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(a, b.cpu())
+    for (_, a), (_, b) in zip(flatten_with_paths(out["cpu"][2]),
+                              flatten_with_paths(out["cuda"][2])):
+        torch.testing.assert_close(a, b.cpu(), rtol=1e-6, atol=1e-6)

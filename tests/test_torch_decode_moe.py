@@ -374,7 +374,7 @@ def test_kchoice_ref_slots_one_is_unchanged():
 def test_moe_configs_copy_the_reference_value_for_value(jcfg, pcfg):
     got, want = dataclasses.asdict(pcfg), dataclasses.asdict(jcfg)
     assert got == {k: want[k] for k in got}
-    assert set(want) - set(got) == {"seq_shard_attn"}
+    assert set(want) == set(got)
     assert dataclasses.asdict(pcfg.moe) == dataclasses.asdict(jcfg.moe)
     assert pcfg.n_params == jcfg.n_params
     assert pcfg.n_active_params == jcfg.n_active_params

@@ -595,9 +595,8 @@ def test_next_token_breaks_ties_toward_the_smaller_id():
 @pytest.mark.parametrize("jcfg,pcfg", [(J_GEMMA, P_GEMMA), (J_QWEN, P_QWEN),
                                        (J_YI, P_YI)])
 def test_configs_copy_the_reference_value_for_value(jcfg, pcfg):
-    """Every field the port has equals the reference's; the one it leaves
-    out (the mesh's) holds its default there, so the forward it would
-    change is the same."""
+    """Every field equals the reference's, the mesh's seq_shard_attn and
+    the attention's seq_shard included, with it off and on."""
     def same_fields(port, ref):
         got, want = dataclasses.asdict(port), dataclasses.asdict(ref)
         assert got == {k: want[k] for k in got}
@@ -606,9 +605,11 @@ def test_configs_copy_the_reference_value_for_value(jcfg, pcfg):
             {k: defaults[k] for k in want if k not in got}
         return set(want) - set(got)
 
-    assert same_fields(pcfg, jcfg) == {"seq_shard_attn"}
+    assert same_fields(pcfg, jcfg) == set()
     assert pcfg.n_params == jcfg.n_params
     assert pcfg.n_active_params == jcfg.n_active_params
-    for i in range(pcfg.period):
-        assert same_fields(pcfg.attn_cfg(i), jcfg.attn_cfg(i)) == \
-            {"seq_shard"}
+    for on in (False, True):
+        p = dataclasses.replace(pcfg, seq_shard_attn=on)
+        j = dataclasses.replace(jcfg, seq_shard_attn=on)
+        for i in range(pcfg.period):
+            assert same_fields(p.attn_cfg(i), j.attn_cfg(i)) == set()

@@ -36,7 +36,8 @@ from repro_torch.launch import steps as PS  # noqa: E402
 from repro_torch.launch.train import LM_VARIANTS  # noqa: E402
 from repro_torch.models import attention as PA  # noqa: E402
 from repro_torch.models import transformer as PT  # noqa: E402
-from repro_torch.models.module import tensor_tree  # noqa: E402
+from repro_torch.models.module import (map_with_paths,  # noqa: E402
+                                       tensor_tree)
 
 from test_smoke_archs import LM_VARIANTS as J_VARIANTS  # noqa: E402
 from torch_grad_check import (ZERO_LEAF, _grad_tree, _leaves,  # noqa: E402
@@ -252,10 +253,50 @@ def test_lm_train_step_matches_reference(name, n_micro, grouping):
     assert rest < 0.1 * n, (rest, n)
 
 
-def test_lm_train_step_mesh_waits():
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        PS.build_lm_train_step(LM_VARIANTS["gemma-7b"], "adamw_nomaster",
-                               mesh=object())
+def test_lm_train_step_mesh_waits(tmp_path):
+    """build_lm_train_step(mesh=) builds a step (it raised before the
+    mesh machinery came); on a one-rank gloo mesh, from the JAX draws, the
+    gradient it takes (``lm_grads`` on the placed state, two microbatches)
+    and its loss equal ``jax.value_and_grad`` of the reference's
+    ``lm_loss`` on the whole batch (a dense model: the mean of the
+    microbatch means is the batch mean), and its first step's loss and
+    grad_norm equal the meshless step's (``tests/test_torch_mesh_lm.py``
+    holds every LM family on 4 ranks)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.lm_common import lm_rules
+    from torch_dist_ranks import one_rank_group
+    pc = LM_VARIANTS["gemma-7b"]
+    tree = convert.lm_tree_from_reference(jax.device_get(_j_params(
+        "gemma-7b")), pc, device="cpu")
+    toks, labs = _batch(pc.vocab)
+    batch = {"tokens": toks, "labels": labs}
+    step, opt = PS.build_lm_train_step(pc, "adamw_nomaster", n_micro=2)
+    _, want = step({"params": tree, "opt": opt.init(tree)}, batch)
+    tree = convert.lm_tree_from_reference(jax.device_get(_j_params(
+        "gemma-7b")), pc, device="cpu")
+    with one_rank_group(tmp_path):
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        mstep, _ = PS.build_lm_train_step(pc, "adamw_nomaster", n_micro=2,
+                                          mesh=mesh)
+        specs = lm_rules(pc).specs(tree)
+        state = PS.place_train_state(
+            {"params": tree, "opt": opt.init(tree)}, specs,
+            PS.opt_state_specs("adamw_nomaster", tree, specs, mesh), mesh)
+        mb = PS._placed(state["params"], batch, mesh)
+        mloss, mg = PS.lm_grads(state["params"], pc, mb["tokens"],
+                                mb["labels"], 2)
+        mloss = float(mloss.full_tensor() if hasattr(mloss, "full_tensor")
+                      else mloss)
+        mg = map_with_paths(lambda _, t: t.full_tensor(), mg)
+        _, got = mstep(state, batch)
+    (jl, _), jg = _j_loss_grad("gemma-7b")(
+        _j_params("gemma-7b"), jnp.asarray(toks), jnp.asarray(labs))
+    np.testing.assert_allclose(mloss, float(jl), rtol=1e-5)
+    assert_grads(convert.lm_params_to_reference(mg, pc), jax.device_get(jg))
+    assert float(got["loss"]) == float(want["loss"])
+    assert float(got["grad_norm"]) == float(want["grad_norm"])
 
 
 def test_remat_and_chunks_recompute_the_same_loss():
