@@ -981,8 +981,8 @@ def fit_cell(torch, dev, check_irli) -> dict:
     nb_lib = time_ms(torch, nb_library, n=3, warmup=1)
     # its bound: the distances' operations, and the rows, queries, the
     # stride-0 mask and the k ids and values each moved once
-    nb_bound = bound(2 * 1024 * FIT_L * D, (FIT_L + 1024) * D * 4 + FIT_L
-                     + 1024 * K_NEIGH * 8)
+    nb_cost = dops.cost(1024, FIT_L, D, K_NEIGH)
+    nb_bound = bound(nb_cost["flops"], nb_cost["bytes"])
     log(f"neighbours (exact_topk, k={K_NEIGH}) of one chunk of 1024 "
         f"training queries over {FIT_L} rows: {nb_ms:.4f} ms (at most "
         f"{NEIGHBOURS_MS_MAX}); bound {nb_bound[0]:.4f} ms ({nb_bound[1]}: "
@@ -1070,7 +1070,8 @@ def fit_cell(torch, dev, check_irli) -> dict:
 
     bce_lib = time_ms(torch, bce_library, n=3, warmup=1)
     n_el = xb.numel()
-    bce_bound = bound(12 * n_el, 12 * n_el + 4 * wt.numel())
+    bce_cost = bops.cost(*xb.shape, wt.numel())
+    bce_bound = bound(bce_cost["flops"], bce_cost["bytes"])
     log(f"bce_logits: {12 * n_el / 1e9:.2f} GB in+out -> bound "
         f"{bce_bound[0]:.4f} ms ({bce_bound[1]}); kernel {bce_ms:.4f} ms "
         f"({12 * n_el / bce_ms / 1e6:.1f} GB/s), plain {bce_plain:.4f} ms, "
@@ -1286,9 +1287,10 @@ def flash_bound(torch, q, k, v):
     """flash_attention's least time at these inputs: the causal pairs'
     operations at the bf16 (or fp32) peak against q, k, v and o once at the
     memory rate -> (ms, bound_by, flops)."""
+    from repro_torch.kernels.flash_attention import ops as faops
     B, H, S, D = q.shape
-    flops = 2.0 * B * H * S * (S + 1) * D      # QKᵀ and PV, keys <= query
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    c = faops.cost(B, H, k.shape[1], S, D, itemsize=q.element_size())
+    flops, nbytes = float(c["flops"]), c["bytes"]
     peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
     ms, by = max((flops / peak * 1e3, "operations"),
                  (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
@@ -2315,10 +2317,10 @@ def bag_bound(torch, ids, table) -> tuple[float, str, int]:
     once, each distinct table row it touches read once, the output written
     once, at the memory rate -> (ms, "bytes", distinct rows). Its 2·N·P·D
     flops are far below the fp32 peak."""
-    N, P = ids.shape
-    row = table.shape[1] * table.element_size()
+    from repro_torch.kernels.embedding_bag import ops as eops
     rows = int(torch.unique(ids[ids >= 0]).numel())
-    nbytes = N * P * 8 + rows * row + N * row
+    nbytes = eops.cost(*ids.shape, *table.shape,
+                       itemsize=table.element_size(), rows=rows)["bytes"]
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", rows
 
 
@@ -2764,8 +2766,8 @@ def stream_cell(torch, dev, idx, corpus, queries, plain_search, agree):
     dist_lib = time_ms(torch, library, n=3, warmup=1)
     dist_alone = time_ms(torch, lambda: torch.mm(queries, vecs.T), n=5,
                          warmup=1)
-    dist_bound = bound(2 * Q * n * D,
-                       n * D * 4 + Q * D * 4 + n + Q * K * 8)
+    dist_cost = dops.cost(Q, n, D, K)
+    dist_bound = bound(dist_cost["flops"], dist_cost["bytes"])
     log(f"stream stages: insert batch of {INSERT_BATCH} median "
         f"{statistics.median(batch_s) * 1e3:.2f} ms (first "
         f"{batch_s[0] * 1e3:.2f} ms, all {sum(batch_s):.3f} s), delete of "
@@ -4128,8 +4130,10 @@ def retrieval_phase(torch, dev) -> dict:
     plain = time_ms(torch, lambda: distance_topk_ref(query, table, every,
                                                      k=k), n=5)
     lib = time_ms(torch, lambda: torch.topk(torch.mm(query, table.T), k))
-    nbytes = table.numel() * 4 + query.numel() * 4 + k * 8
-    bound_ms, by = bound(2 * table.numel(), nbytes)
+    from repro_torch.kernels.distance_topk import ops as dops
+    # as before: the shared mask row (N bytes) is not counted
+    c = dops.cost(query.shape[0], *table.shape, k, mask_rows=0)
+    bound_ms, by = bound(c["flops"], c["bytes"])
     log(f"train cell (c) retrieval_cand: query {tuple(query.shape)} x item "
         f"table {tuple(table.shape)} fp32, k={k}: build_retrieval_serve "
         f"{ms:.4f} ms (one distance_topk launch), plain version "
@@ -4481,6 +4485,7 @@ def lm_train_phase(torch, dev) -> dict:
         f"({times}), {tok / ms * 1e3:.0f} tokens/s, peak {peak:.2f} GB; "
         f"launches in {GEMMA_TRAIN_STEPS} steps {launches}; "
         f"{split_line(split)}")
+    dry = dryrun_train(torch, GEMMA_DRY_LABEL, plain_step, state, batch)
     shares = lm_shares(torch, dev, tree, cfg, batch["labels"], ms)
     log(f"model train (a) gemma-7b, measured alone: the fp32 tied head "
         f"(chunked_xent forward + backward, one microbatch) "
@@ -4491,7 +4496,8 @@ def lm_train_phase(torch, dev) -> dict:
         f"{shares['attention_share']:.1%}")
     out["gemma"] = {"ms": ms, "times": times, "tokens_s": tok / ms * 1e3,
                     "peak_gb": peak, "losses": losses, "ref_loss": ref_loss,
-                    "grad_norm_rel": rel, "split": split[1], **shares}
+                    "grad_norm_rel": rel, "split": split[1], **shares,
+                    "dryrun": dry}
     out["launches"]["model train (a) no-grad loss"] = prefill
     out["launches"]["model train (a) gemma step"] = launches
     del state, tree, opt, step, batch
@@ -5637,6 +5643,168 @@ def registry_mesh_cell(torch, dev, smi: str) -> dict:
             "train": train}
 
 
+# ------------------------------------------------------- 19. the dry run --
+# launch/dryrun.py on the card's machine: (a) irli-deep1b serve_query on
+# the fake 256-rank production mesh, its record printed and its store
+# accounting checked; then the dry run's prediction of one call at world
+# size 1, held against the same call on the card under the same recorder
+# (analysis/cost.CostRecorder): (a') build_irli_serve over the search
+# cell's index, int8 store and queries, (b) the model-train cell's gemma-7b
+# step. Launches and argument bytes equal, FLOPs within DRY_FLOPS_TOL, the
+# predicted peak within DRY_PEAK_TOL of torch.cuda.max_memory_allocated()
+DRY_FLOPS_TOL, DRY_PEAK_TOL = 1e-3, 0.10
+DRY_MS_MAX = 45_000                         # the phase's budget
+
+
+def dry_peak_call(torch, fn, args) -> tuple:
+    """fn(*args) once on the card under the cost recorder -> (record,
+    result, measured peak bytes): torch.cuda.max_memory_allocated() over
+    the call, after reset_peak_memory_stats() with the arguments resident,
+    less what was resident besides them."""
+    from repro_torch.analysis.cost import CostRecorder, local_bytes
+    arg_bytes = local_bytes(args)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rec = CostRecorder(device="cuda")
+    rec.hold_arguments(args)
+    with rec:
+        out = fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base + arg_bytes
+    return rec.record(arg_bytes, local_bytes(out)), out, peak
+
+
+def hold_prediction(label: str, pred: dict, real: dict, peak: int) -> dict:
+    """The dry run's record ``pred`` against the card's ``real`` (and its
+    measured ``peak``): each gate's two numbers logged, raise on a miss."""
+    flops_rel = abs(pred["flops"] - real["flops"]) / max(real["flops"], 1)
+    peak_rel = abs(pred["peak_bytes"] - peak) / max(peak, 1)
+    log(f"dry run (19) {label}: launches predicted {pred['launches']}, on "
+        f"the card {real['launches']}; argument bytes {pred['argument_bytes']}"
+        f", {real['argument_bytes']}; FLOPs {pred['flops']}, {real['flops']}"
+        f" (rel {flops_rel:.2e}); peak bytes {pred['peak_bytes']}, "
+        f"max_memory_allocated {peak} (rel {peak_rel:.4f}; the recorder's "
+        f"tally on the card {real['peak_bytes']}); HBM bytes "
+        f"{pred['hbm_bytes']}, {real['hbm_bytes']}; host reads "
+        f"{pred['host_reads']}, {real['host_reads']}; collectives "
+        f"{pred['collective_count']}, {real['collective_count']}; trace "
+        f"{pred['trace_s']} s")
+    if pred["launches"] != real["launches"]:
+        raise AssertionError(f"dry run {label}: launches {pred['launches']}"
+                             f" predicted, {real['launches']} on the card")
+    if pred["argument_bytes"] != real["argument_bytes"]:
+        raise AssertionError(f"dry run {label}: argument bytes "
+                             f"{pred['argument_bytes']} predicted, "
+                             f"{real['argument_bytes']} on the card")
+    if flops_rel > DRY_FLOPS_TOL:
+        raise AssertionError(f"dry run {label}: FLOPs {pred['flops']} "
+                             f"predicted, {real['flops']} on the card")
+    if peak_rel > DRY_PEAK_TOL:
+        raise AssertionError(f"dry run {label}: peak {pred['peak_bytes']} "
+                             f"predicted, {peak} measured")
+    return {"predicted": pred, "card": real, "measured_peak": peak,
+            "flops_rel": flops_rel, "peak_rel": peak_rel}
+
+
+def dryrun_train(torch, label: str, step, state, batch) -> dict:
+    """(b) one train step's dry run (its arguments' fakes,
+    dryrun.fake_like) against the same step on the card."""
+    from repro_torch.launch import dryrun as DR
+    t0 = time.perf_counter()
+    pred = DR.dry_record(step, lambda: DR.fake_like((state, batch)))
+    real, _, peak = dry_peak_call(torch, step, (state, batch))
+    out = hold_prediction(label, pred, real, peak)
+    out["ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"dry run (19) {label}: {out['ms'] / 1e3:.1f} s")
+    return out
+
+
+def dryrun_cell(torch, dev, idx, store8, queries) -> dict:
+    """19. (a) the production cell's dry run and (a') the world-size-1
+    serve call's (see the section's comment). Needs no default process
+    group on entry and leaves none."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import (make_host_mesh,
+                                         make_production_mesh)
+    from repro_torch.launch.steps import build_irli_serve
+
+    if dist.is_initialized():
+        raise AssertionError("dry run (19): a default process group is "
+                             "already up")
+    t0 = time.perf_counter()
+    out = {}
+    DR.fake_world(256)
+    try:
+        rec = DR.run_cell("irli-deep1b", "serve_query",
+                          make_production_mesh(device_type="cuda"))
+        log(f"dry run (19a) irli-deep1b/serve_query on the fake 256-rank "
+            f"mesh: {json.dumps(rec)}")
+        out["serve_query"] = rec
+
+        DR.fake_world(1)
+
+        def step_of():
+            return build_irli_serve(make_host_mesh(1, device_type="cuda"),
+                                    M, TAU, K, store_dtype="int8",
+                                    store_block=BLOCK)
+
+        params = {"scorer": idx.params, "members": idx.index.members,
+                  "base_codes": store8.codes, "base_scales": store8.scales}
+        batch = {"queries": queries}
+        pred = DR.dry_record(step_of(), lambda: DR.fake_like((params,
+                                                              batch)))
+    finally:
+        dist.destroy_process_group()
+    tmp = tempfile.mkdtemp(prefix="irli_dry_")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(Path(tmp) / "solo_store"), 1), rank=0, world_size=1)
+    try:
+        step_of()(params, batch)                        # warm-up, a step of
+        torch.cuda.synchronize()                        # its own
+        real, _, peak = dry_peak_call(torch, step_of(), (params, batch))
+    finally:
+        dist.destroy_process_group()
+    out["serve_world1"] = hold_prediction(
+        f"build_irli_serve at world size 1 (Q={queries.shape[0]}, m={M}, "
+        f"tau={TAU}, k={K}, int8 store of {store8.codes.shape[0]} rows)",
+        pred, real, peak)
+    out["ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"dry run (19a): {out['ms'] / 1e3:.1f} s")
+    return out
+
+
+def dryrun_gemma(torch, dev) -> dict:
+    """(b) when phase 19 runs alone (--dryrun): the model-train cell's
+    gemma-7b step (GEMMA_TRAIN_LAYERS layers, batch 2 x TRAIN_SEQ,
+    adamw_nomaster, n_micro 2) built here, one warm step, then
+    :func:`dryrun_train`."""
+    import dataclasses
+
+    from repro_torch.configs import gemma_7b
+    from repro_torch.launch.steps import build_lm_train_step
+    from repro_torch.models.module import tensor_tree
+    from repro_torch.models.transformer import lm_init
+    cfg = dataclasses.replace(gemma_7b.CONFIG, n_layers=GEMMA_TRAIN_LAYERS)
+    tree = tensor_tree(lm_init(cfg, seed=SEED, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    t = torch.randint(0, cfg.vocab, (2, TRAIN_SEQ), generator=gen,
+                      device=dev, dtype=torch.int32)
+    batch = {"tokens": t, "labels": torch.roll(t, -1, 1)}
+    step, opt = build_lm_train_step(cfg, "adamw_nomaster", n_micro=2,
+                                    lr=TRAIN_LR)
+    state, _ = step({"params": tree, "opt": opt.init(tree)}, batch)
+    return dryrun_train(torch, GEMMA_DRY_LABEL, step, state, batch)
+
+
+GEMMA_DRY_LABEL = (f"gemma-7b train step ({GEMMA_TRAIN_LAYERS} of 28 "
+                   f"layers, [2, {TRAIN_SEQ}], n_micro 2)")
+
+
 def main() -> int:
     import argparse
 
@@ -5660,6 +5828,9 @@ def main() -> int:
                          "vocabulary head) and the MoE cell")
     ap.add_argument("--mesh", action="store_true",
                     help="only the build and the registry and mesh cell")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="only the build, the search cell's index and the "
+                         "dry run (phase 19)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -5761,6 +5932,21 @@ def main() -> int:
         torch.cuda.empty_cache()
         out = audit_cell(torch, dev, idx, store8, queries)
         print(json.dumps({"audit": out}), flush=True)
+        return 0
+    if args.dryrun:
+        del store16, corpus
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = dryrun_cell(torch, dev, idx, store8, queries)
+        del idx, store8
+        torch.cuda.empty_cache()
+        gemma = dryrun_gemma(torch, dev)
+        log(f"dry run (19): {time.perf_counter() - t0:.1f} s (the gemma "
+            f"state's build and warm step included)")
+        print(json.dumps({"dryrun": {
+            "serve_query": out["serve_query"],
+            "serve_world1_peak_rel": out["serve_world1"]["peak_rel"],
+            "gemma_peak_rel": gemma["peak_rel"]}}), flush=True)
         return 0
 
     # ----------------------------------- 3. kernels against plain versions --
@@ -6136,8 +6322,8 @@ def main() -> int:
         return torch.topk(logits, M, dim=-1)
 
     library_irli = time_ms(torch, library_pair, n=5, warmup=2)
-    irli_flops = 2 * R * Q * H * B
-    irli_bytes = (R * Q * H + R * H * B + R * B) * 4 + R * Q * M * 8
+    irli_cost = iops.cost(R, Q, H, B, M)
+    irli_flops, irli_bytes = irli_cost["flops"], irli_cost["bytes"]
     bounds = {"irli_topk": bound(irli_flops, irli_bytes)}
     log(f"irli_topk: {irli_flops / 1e12:.4f} TFLOP, {irli_bytes / 1e9:.3f} "
         f"GB -> bound {bounds['irli_topk'][0]:.4f} ms "
@@ -6161,7 +6347,7 @@ def main() -> int:
         f"{wide_ms:.4f} ms")
 
     plain_freq = time_ms(torch, lambda: freq_topc_ref(cands, C=TOPC), n=10)
-    freq_bytes = cands.numel() * 4 + Q * TOPC * 8
+    freq_bytes = fops.cost(*cands.shape, TOPC)["bytes"]
     bounds["freq_topc"] = bound(0, freq_bytes)
     plan = fops.radix_plan(cands.shape[1], int(cands.max()))
     top = freq_topc_ref(cands, C=1)[1][:, 0]          # each row's top count
@@ -6185,9 +6371,9 @@ def main() -> int:
         scales once, the outputs written once; 2·D flops a valid slot."""
         valid = (cid_m >= 0) & (cnt_m >= tau)
         rows = int(torch.unique(cid_m[valid]).numel())
-        nbytes = (Q * D * 4 + Q * TOPC * 8 + rows * (D + D // BLOCK * 4)
-                  + Q * kp * 8)
-        flops = int(valid.sum()) * 2 * D
+        c = qops.cost(Q, TOPC, D, kp, store8.codes.shape[0],
+                      n_blocks=D // BLOCK, valid=int(valid.sum()), rows=rows)
+        nbytes, flops = c["bytes"], c["flops"]
         b = bound(flops, nbytes)
         return b, (f"{int(valid.sum())} valid slots, {rows} distinct "
                    f"rows, {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} "
@@ -6237,12 +6423,12 @@ def main() -> int:
         bidx.long() + torch.arange(R, device=dev)[:, None, None] * B).numel())
     code_rows = int(torch.unique(cid_m[valid]).numel())
     refine_rows = int(torch.unique(cids_m[cids_m >= 0]).numel())
-    mega_flops = (2 * R * Q * (D * H + H * B)
-                  + (int(valid.sum()) + int((cids_m >= 0).sum())) * 2 * D)
-    mega_bytes = ((R * D * H + R * H + R * H * B + R * B + Q * D) * 4
-                  + n_buckets * members.shape[2] * 4
-                  + (code_rows + refine_rows) * (D + D // BLOCK * 4)
-                  + Q * (2 * K + 1) * 4)
+    mega_cost = mops.cost(
+        R, Q, D, H, B, members.shape[2], store8.codes.shape[0], m=M,
+        topC=TOPC, refine_k=0, k=K, block=BLOCK, valid=int(valid.sum()),
+        refine=int((cids_m >= 0).sum()), buckets=n_buckets,
+        code_rows=code_rows, refine_rows=refine_rows)
+    mega_flops, mega_bytes = mega_cost["flops"], mega_cost["bytes"]
     bounds["mega_query"] = bound(mega_flops, mega_bytes)
     log(f"mega_query: {mega_flops / 1e12:.4f} TFLOP, {mega_bytes / 1e9:.3f} "
         f"GB ({n_buckets} probed buckets, {code_rows} code rows, "
@@ -6340,6 +6526,11 @@ def main() -> int:
     # ----------------------------------------------------- 11. the audit --
     torch.cuda.empty_cache()
     audit = audit_cell(torch, dev, idx, store8, queries)
+
+    clock("19. the dry run (a), on the search cell's index")
+    # ------------------------------------------------- 19. the dry run --
+    torch.cuda.empty_cache()
+    dry = dryrun_cell(torch, dev, idx, store8, queries)
     del idx, store8
 
     clock("12. the fit")
@@ -6477,6 +6668,13 @@ def main() -> int:
         for n in KERNELS]
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel did not run on its path: {kernels}")
+    dry_ms = dry["ms"] + mt["lm"]["gemma"]["dryrun"]["ms"]
+    log(f"dry run (19): (a) {dry['ms'] / 1e3:.1f} s + (b) "
+        f"{mt['lm']['gemma']['dryrun']['ms'] / 1e3:.1f} s = "
+        f"{dry_ms / 1e3:.1f} s of the run (budget {DRY_MS_MAX / 1e3:.0f} s)")
+    if dry_ms > DRY_MS_MAX:
+        raise AssertionError(f"phase 19 took {dry_ms / 1e3:.1f} s, over its "
+                             f"{DRY_MS_MAX / 1e3:.0f} s")
     log(f"chip_smoke: the whole run, build included, took "
         f"{time.perf_counter() - t_start:.1f} s")
     log(smi)

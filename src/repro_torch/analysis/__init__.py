@@ -16,9 +16,11 @@ The analysers and the contract DSL:
     require_dtype_free, require_donated, max_trace_count,
     allowed_collectives), the process-wide
     :data:`~repro_torch.analysis.contracts.REGISTRY`, and ``audit()``
-
-The reference's ``hlo.py`` cost model (FLOPs and bytes of a compiled HLO
-module) has no HLO to read here and is not ported with this package.
+  * :mod:`repro_torch.analysis.cost`        — the cost model of one call
+    (the reference's ``hlo.py`` ``analyze_hlo``): FLOPs, unfused HBM
+    bytes, collectives, argument / temporary / peak bytes, kernel
+    launches billed by their declared work, host reads; the dry run's
+    recorder (``launch/dryrun.py``)
 
 Contracts are declared beside the entry points they govern; importing those
 modules is what populates the registry — :func:`load_all` imports them all,

@@ -37,6 +37,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import importlib
+import os
 import sys
 from typing import Any, Callable
 
@@ -149,33 +150,71 @@ class _OpRecorder(TorchDispatchMode):
     go to its collective record instead. An op on DTensors is handed back
     (``NotImplemented``) so that DTensor runs it and the local ops and
     collectives it turns into come here, as torch's ``CommDebugMode``
-    does."""
+    does; the global-shape ops of its sharding propagation are not
+    recorded (:func:`in_sharding_propagation`): the records are the
+    rank's own, on local shapes."""
 
     def __init__(self, trace: CallTrace):
         super().__init__()
         self.trace = trace
+        self.dtensors = False
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if _DTENSOR is not None and any(issubclass(t, _DTENSOR)
-                                        for t in types):
+        if DTENSOR is not None and any(issubclass(t, DTENSOR)
+                                       for t in types):
+            self.dtensors = True
             return NotImplemented
         out = func(*args, **(kwargs or {}))
+        if self.dtensors and in_sharding_propagation():
+            return out
         name = str(func)
         from repro_torch.analysis.collectives import is_collective, note
         if is_collective(func.namespace, name):
             note(self.trace.collectives, name, out)
             return out
-        rets = func._schema.returns
-        outs = out if isinstance(out, (tuple, list)) else (out,)
-        for i, o in enumerate(outs):
-            alias = (rets[min(i, len(rets) - 1)].alias_info is not None
-                     if rets else False)
-            for t in (o if isinstance(o, (tuple, list)) else (o,)):
-                if isinstance(t, torch.Tensor) and t.layout == torch.strided:
-                    self.trace.ops.append(OpRecord(
-                        name, tuple(t.shape), dtype_name(t.dtype),
-                        t.numel() * t.element_size(), alias))
+        for t, alias in op_outputs(func, out):
+            self.trace.ops.append(OpRecord(
+                name, tuple(t.shape), dtype_name(t.dtype),
+                t.numel() * t.element_size(), alias))
         return out
+
+
+def op_outputs(func, out):
+    """(tensor, aliases) for each strided output tensor of one op:
+    ``aliases`` when the op's schema return carries ``alias_info`` (a
+    view, an in-place op or an ``out=`` variant: no new tensor)."""
+    rets = func._schema.returns
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    for i, o in enumerate(outs):
+        alias = (rets[min(i, len(rets) - 1)].alias_info is not None
+                 if rets else False)
+        for t in (o if isinstance(o, (tuple, list)) else (o,)):
+            if isinstance(t, torch.Tensor) and t.layout == torch.strided:
+                yield t, alias
+
+
+def in_sharding_propagation() -> bool:
+    """Whether the current op runs inside DTensor's sharding propagation:
+    the ops it runs on fake tensors of the GLOBAL shapes to learn its
+    output's metadata (``torch/distributed/tensor/_sharding_prop.py``),
+    which are not the rank's work. The walk up the stack stops at the
+    first frame of code that is not torch's, the standard library's or
+    this package's recorders'."""
+    f = sys._getframe(2)
+    while f is not None:
+        path = f.f_code.co_filename
+        if path.endswith("_sharding_prop.py"):
+            return True
+        if not path.startswith(_INFRA):
+            return False
+        f = f.f_back
+    return False
+
+
+#: the code an op's dispatch passes through: torch, the standard library
+#: and the recorders of this package
+_INFRA = (os.path.dirname(torch.__file__), os.path.dirname(os.__file__),
+          os.path.dirname(os.path.abspath(__file__)))
 
 
 def _dtensor_type():
@@ -185,7 +224,8 @@ def _dtensor_type():
     return DTensor
 
 
-_DTENSOR = _dtensor_type()
+#: the DTensor class (None where torch.distributed is not available)
+DTENSOR = _dtensor_type()
 
 
 def site_functions() -> dict:

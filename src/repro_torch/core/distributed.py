@@ -192,10 +192,11 @@ class _ShardSizeCheck:
     def __call__(self, L_loc: int, grp: AxisGroup, device) -> None:
         if L_loc in self.seen:
             return
-        pair = torch.tensor([L_loc, -L_loc], dtype=torch.int64,
+        want = torch.tensor([L_loc, -L_loc], dtype=torch.int64,
                             device=device)
+        pair = want.clone()
         dist.all_reduce(pair, op=dist.ReduceOp.MAX, group=grp.group)
-        if int(pair[0]) != L_loc or -int(pair[1]) != L_loc:
+        if not bool((pair == want).all()):         # one host read
             raise ValueError(
                 f"shards of unequal size: this one {L_loc} rows, the group's "
                 f"largest {int(pair[0])} and smallest {-int(pair[1])}")

@@ -10,7 +10,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, check_launch, on_card
+from repro_torch.kernels import (H100_SMS, LAUNCHES, billing, check_launch,
+                                 holds_no_data, on_card)
 from repro_torch.kernels.bce_logits.ref import weighted_bce_ref
 
 
@@ -28,6 +29,15 @@ def _lib():
                    ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+def cost(rows: int, B: int, n_w: int = 0) -> dict:
+    """The work of one launch over [rows, B] logits: about 12 operations
+    an element (sigmoid, two logs, the loss and its gradient), the logits
+    and targets read and the gradient written once (12 bytes an element),
+    and the n_w weights read once."""
+    n = rows * B
+    return {"flops": 12 * n, "bytes": 12 * n + 4 * n_w}
 
 
 def bce_logits(logits, targets, weights=None, *, scale: float):
@@ -51,6 +61,16 @@ def bce_logits(logits, targets, weights=None, *, scale: float):
         raise ValueError(f"bce_logits: weights must be [n] float32 with "
                          f"{rows} rows a multiple of n, got {weights.dtype} "
                          f"{tuple(weights.shape)}")
+    with billing("bce_logits", lambda: cost(
+            rows, B, 0 if weights is None else weights.shape[0])):
+        return _launch(logits, targets, weights, rows, B, scale)
+
+
+def _launch(logits, targets, weights, rows, B, scale):
+    """Allocate the outputs and the blocks' partial sums and launch;
+    tensors without data stop before the launch (the fake path, which
+    sizes the partials by bce_logits.cu's grid rule, min(rows, 8 blocks a
+    H100 SM))."""
     dev = logits.device
     grad = torch.empty_like(logits)
     loss = torch.empty((), dtype=torch.float32, device=dev)
@@ -59,6 +79,10 @@ def bce_logits(logits, targets, weights=None, *, scale: float):
     logits, targets = logits.contiguous(), targets.contiguous()
     if weights is not None:
         weights = weights.contiguous()
+    if holds_no_data(logits, targets, weights):
+        torch.empty(max(1, min(rows, H100_SMS * 8)), dtype=torch.float64,
+                    device=dev)
+        return loss, grad
     lib = _lib()
     partials = torch.empty(lib.bce_logits_grid(rows), dtype=torch.float64,
                            device=dev)
@@ -79,7 +103,9 @@ def weighted_bce(logits, targets, weights=None, *, scale: float = 1.0):
     """The fit's weighted form: the kernel on the card, the plain version
     on the CPU. See :func:`bce_logits`."""
     if not on_card(logits, targets, weights):
-        return weighted_bce_ref(logits, targets, weights, scale)
+        with billing("bce_logits", lambda: cost(
+                *logits.shape, 0 if weights is None else weights.shape[0])):
+            return weighted_bce_ref(logits, targets, weights, scale)
     return bce_logits(logits, targets, weights, scale=scale)
 
 

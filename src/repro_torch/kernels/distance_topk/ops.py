@@ -14,8 +14,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels import (LAUNCHES, check_launch, on_card,
-                                 tma_operand)
+from repro_torch.kernels import (H100_SMS, LAUNCHES, billing, check_launch,
+                                 holds_no_data, on_card, tma_operand)
 from repro_torch.kernels.distance_topk.ref import distance_topk_ref
 
 #: squared norms are taken this many corpus rows at a time, so an l2 call
@@ -151,6 +151,22 @@ def kernel_attrs(d: int = 96, k: int = 10) -> dict[str, int]:
     return dict(zip(keys, out))
 
 
+def cost(Q: int, L: int, d: int, k: int, *, mask_rows: int = 1,
+         l2: bool = False) -> dict:
+    """The work of one launch: the similarities' 2·Q·L·d operations; the
+    base rows and the queries read once, ``mask_rows`` rows of the [L]
+    uint8 mask (1: one row shared by every query; Q: a row each), the k
+    values and ids written once, and with l2 the norms of both sides."""
+    return {"flops": 2 * Q * L * d,
+            "bytes": (L + Q) * d * 4 + mask_rows * L + Q * k * 8
+            + ((L + Q) * 4 if l2 else 0)}
+
+
+def _mask_rows(mask, Q: int) -> int:
+    m = torch.as_tensor(mask)
+    return 1 if m.ndim == 1 or m.shape[0] == 1 or m.stride(0) == 0 else Q
+
+
 def distance_topk(queries, base, mask, *, k: int, metric: str = "dot"):
     """Launch the CUDA kernel: queries [Q, d], base [L, d] float32, mask
     broadcastable to [Q, L] (bool or numeric, entries > 0 keep), all on the
@@ -178,6 +194,16 @@ def distance_topk(queries, base, mask, *, k: int, metric: str = "dot"):
     if L >= 2 ** 31 - 1 or -(-Q // 128) > 65535:
         raise ValueError(f"distance_topk: Q={Q}, L={L} exceed the grid")
     rows, ld = mask_rows(mask, Q, L)
+    with billing("distance_topk", lambda: cost(
+            Q, L, d, k, mask_rows=1 if ld == 0 else Q, l2=metric == "l2")):
+        return _launch(queries, base, rows, ld, Q, L, d, k, metric)
+
+
+def _launch(queries, base, rows, ld, Q, L, d, k, metric):
+    """Allocate the outputs, the splits' partial lists (and the norms and
+    the queries' transpose where the walk takes them) and launch; tensors
+    without data stop before the launch (the fake path, which plans the
+    splits for an H100's SMs)."""
     dev = queries.device
     vals = torch.empty((Q, k), dtype=torch.float32, device=dev)
     ids = torch.empty((Q, k), dtype=torch.int32, device=dev)
@@ -189,9 +215,13 @@ def distance_topk(queries, base, mask, *, k: int, metric: str = "dot"):
     l2 = metric == "l2"
     qn = squared_norms(queries) if l2 else None
     bn = squared_norms(base) if l2 else None
-    s = splits(Q, L, k, dev, d)
+    fake = holds_no_data(queries, base, rows)
+    s = (split_count(Q, L, k, H100_SMS, blocks_per_sm(d, k)) if fake
+         else splits(Q, L, k, dev, d))
     part_v = torch.empty((s, Q, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((s, Q, k), dtype=torch.int32, device=dev)
+    if fake:
+        return vals, ids
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _lib().distance_topk_launch(
@@ -215,8 +245,12 @@ def rerank_topk(queries, base, mask, *, k: int, metric: str = "dot"):
     table), the plain version on the CPU."""
     mask = torch.as_tensor(mask)
     if not on_card(queries, base, mask):
-        vals, ids = distance_topk_ref(queries, base, mask, k=k,
-                                      metric=metric)
+        with billing("distance_topk", lambda: cost(
+                queries.shape[0], base.shape[0], base.shape[1], k,
+                mask_rows=_mask_rows(mask, queries.shape[0]),
+                l2=metric == "l2")):
+            vals, ids = distance_topk_ref(queries, base, mask, k=k,
+                                          metric=metric)
     else:
         vals, ids = distance_topk(queries, base, mask, k=k, metric=metric)
     return vals, torch.where(torch.isfinite(vals), ids,

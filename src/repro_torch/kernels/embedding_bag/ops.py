@@ -10,8 +10,9 @@ import functools
 
 import torch
 
-from repro_torch.kernels import (LAUNCHES, card_scope, card_stream,
-                                 check_launch, on_card)
+from repro_torch.kernels import (LAUNCHES, billing, card_scope,
+                                 card_stream, check_launch, holds_no_data,
+                                 on_card)
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -71,6 +72,18 @@ def kernel_attrs() -> dict[str, int]:
     return dict(zip(("registers", "spill_bytes"), out))
 
 
+def cost(N: int, P: int, V: int, D: int, *, itemsize: int = 4,
+         rows: int | None = None) -> dict:
+    """The work of one launch: a multiply and an add an element of each
+    looked-up row (2·N·P·D operations); the ids and weights read once,
+    each distinct table row it touches once (``rows``, which the data
+    decides: by default every slot a distinct row, as many as the table
+    has), the [N, D] output written once."""
+    rows = min(N * P, V) if rows is None else rows
+    row = D * itemsize
+    return {"flops": 2 * N * P * D, "bytes": N * P * 8 + rows * row + N * row}
+
+
 def embedding_bag(ids, weights, table):
     """Launch the CUDA kernel: ids [N, P] int32 (a negative id is a pad),
     weights [N, P] float32, table [V, D] float32 or bfloat16, all on the
@@ -100,12 +113,22 @@ def embedding_bag(ids, weights, table):
     V, D = table.shape
     if P >= 2 ** 31 or D >= 2 ** 31:
         raise ValueError(f"embedding_bag: P {P} and D {D} must fit int32")
+    with billing("embedding_bag", lambda: cost(
+            N, P, V, D, itemsize=table.element_size())):
+        return _launch(ids, weights, table, N, P, V, D)
+
+
+def _launch(ids, weights, table, N, P, V, D):
+    """Allocate the output and launch; tensors without data stop before
+    the launch (the fake path)."""
     dev = table.device
     out = torch.empty((N, D), dtype=table.dtype, device=dev)
     if out.numel() == 0:
         return out
     ids, weights, table = (ids.contiguous(), weights.contiguous(),
                            table.contiguous())
+    if holds_no_data(ids, weights, table):
+        return out
     stream = card_stream(dev)
     with card_scope(dev):
         err = _lib().embedding_bag_launch(
@@ -122,5 +145,7 @@ def bag_lookup_reduce(ids, weights, table):
     wrapper; its ``tb`` tile has no meaning here). See
     :func:`embedding_bag`."""
     if not on_card(ids, weights, table):
-        return embedding_bag_ref(ids, weights, table)
+        with billing("embedding_bag", lambda: cost(
+                *ids.shape, *table.shape, itemsize=table.element_size())):
+            return embedding_bag_ref(ids, weights, table)
     return embedding_bag(ids, weights, table)

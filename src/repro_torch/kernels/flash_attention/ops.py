@@ -17,7 +17,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, check_launch, on_card
+from repro_torch.kernels import (LAUNCHES, aligned16, billing, check_launch,
+                                 holds_no_data, on_card)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 #: the plain version's query chunk on the CPU: its scores are [B, H,
@@ -185,10 +186,19 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     requires, and none of them 0), else a contiguous copy in a new
     (aligned) allocation."""
     per16 = 16 // t.element_size()
-    if t.stride(3) == 1 and t.data_ptr() % 16 == 0 \
+    if t.stride(3) == 1 and aligned16(t) \
             and all(s % per16 == 0 and s > 0 for s in t.stride()[:3]):
         return t
     return t.clone(memory_format=torch.contiguous_format)
+
+
+def cost(B: int, H: int, Hkv: int, S: int, D: int, *,
+         itemsize: int = 2) -> dict:
+    """The work of one launch: QKᵀ and PV over the causal pairs (keys <=
+    query), 2·B·H·S·(S + 1)·D operations; q and o moved once each, k and v
+    read once."""
+    return {"flops": 2 * B * H * S * (S + 1) * D,
+            "bytes": (2 * B * H + 2 * B * Hkv) * S * D * itemsize}
 
 
 def flash_attention(q, k, v):
@@ -219,12 +229,20 @@ def flash_attention(q, k, v):
                                     or v.requires_grad):
         raise ValueError("flash_attention has no backward kernel: call it "
                          "under torch.no_grad() or torch.inference_mode()")
+    with billing("flash_attention", lambda: cost(
+            B, H, Hkv, S, D, itemsize=q.element_size())):
+        return _launch(q, k, v, B, H, Hkv, S, D)
+
+
+def _launch(q, k, v, B, H, Hkv, S, D):
+    """Align the operands, allocate the output and launch; tensors without
+    data stop before the launch (the fake path)."""
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     o = torch.empty_like(q)
     strides, plan_arr = _launch_arrays(
         B, H, Hkv, S, D, q.dtype,
         tuple(t.stride()[:3] for t in (q, k, v, o)))
-    if o.numel() == 0:
+    if o.numel() == 0 or holds_no_data(q, k, v):
         return o
     dev = q.device
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -242,5 +260,8 @@ def causal_attention(q, k, v):
     [B, H, S, D] in q's dtype. The kernel on the card (one launch, no score
     tensor), the plain version on the CPU."""
     if not on_card(q, k, v):
-        return flash_attention_ref(q, k, v, q_chunk=PLAIN_Q_CHUNK)
+        with billing("flash_attention", lambda: cost(
+                *q.shape[:2], k.shape[1], *q.shape[2:],
+                itemsize=q.element_size())):
+            return flash_attention_ref(q, k, v, q_chunk=PLAIN_Q_CHUNK)
     return flash_attention(q, k, v)

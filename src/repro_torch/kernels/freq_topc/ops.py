@@ -18,7 +18,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, check_launch, on_card
+from repro_torch.kernels import (LAUNCHES, billing, check_launch,
+                                 holds_no_data, on_card)
 from repro_torch.kernels.freq_topc.ref import (CHUNK, DIGIT_BITS, KEYS,
                                                freq_topc_ref, sort_passes)
 
@@ -128,6 +129,13 @@ def kernel_attrs() -> dict[str, int]:
     return dict(zip(keys, out))
 
 
+def cost(Q: int, C0: int, C: int) -> dict:
+    """The work of one launch: no arithmetic worth a peak (the radix
+    passes' ranks and scatters); the [Q, C0] int32 candidates read once
+    and the [Q, C] ids and counts written once."""
+    return {"flops": 0, "bytes": Q * C0 * 4 + Q * C * 8}
+
+
 def freq_topc(cands: torch.Tensor, *, C: int):
     """Launch the CUDA kernel: cands [Q, C0] int32 on the card (pad: any
     negative id) -> (ids [Q, C] int32, counts [Q, C] float32). One launch;
@@ -143,6 +151,13 @@ def freq_topc(cands: torch.Tensor, *, C: int):
     Q, C0 = cands.shape
     if C0 > MAX_C0:
         raise ValueError(f"candidate width {C0} > 2^30")
+    with billing("freq_topc", lambda: cost(Q, C0, C)):
+        return _launch(cands, Q, C0, C)
+
+
+def _launch(cands, Q, C0, C):
+    """Allocate the outputs (and the wide variant's scratch) and launch;
+    tensors without data stop before the launch (the fake path)."""
     cands = cands.contiguous()
     dev = cands.device
     ids = torch.empty((Q, C), dtype=torch.int32, device=dev)
@@ -152,6 +167,8 @@ def freq_topc(cands: torch.Tensor, *, C: int):
     need = radix_plan(C0, -1)["scratch_ints"]
     scratch = (torch.empty((Q, need), dtype=torch.int32, device=dev)
                if need else None)
+    if holds_no_data(cands):
+        return ids, cnt
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _lib().freq_topc_launch(
@@ -169,7 +186,8 @@ def frequent_topc(cands: torch.Tensor, *, C: int):
     smaller id; -1/0 past the distinct-candidate count. The kernel on the
     card, the plain version on the CPU."""
     if not on_card(cands):
-        return freq_topc_ref(cands, C=C)
+        with billing("freq_topc", lambda: cost(*cands.shape, C)):
+            return freq_topc_ref(cands, C=C)
     return freq_topc(cands, C=C)
 
 

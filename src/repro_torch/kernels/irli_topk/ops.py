@@ -10,8 +10,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels import (LAUNCHES, check_launch, on_card,
-                                 tma_operand)
+from repro_torch.kernels import (H100_SMS, LAUNCHES, billing, check_launch,
+                                 holds_no_data, on_card, tma_operand)
 from repro_torch.kernels.irli_topk.ref import irli_topk_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -75,9 +75,27 @@ def kernel_attrs(dtype=torch.float32, m: int = 5) -> dict[str, int]:
 
 def wide_grid(G: int, Q: int, dev) -> int:
     """Blocks of the m > MAX_M variant: one a (rep, 128-query) tile, at
-    most one an SM; each holds a [128, B] fp32 slab of scratch."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    most one an SM (an H100's when ``dev`` is None); each holds a [128, B]
+    fp32 slab of scratch."""
+    sms = (H100_SMS if dev is None
+           else torch.cuda.get_device_properties(dev).multi_processor_count)
     return max(1, min(G * -(-Q // 128), sms))
+
+
+def cost(G: int, Q: int, H: int, B: int, m: int, *, itemsize: int = 4,
+         lse: bool = False) -> dict:
+    """The work of one launch: the output GEMM's 2·G·Q·H·B operations;
+    h [G, Q, H], w2 [G, H, B] and b2 [G, B] read once, the top-m values
+    and ids (and the log-sum-exp) written once."""
+    return {"flops": 2 * G * Q * H * B,
+            "bytes": (G * Q * H + G * H * B + G * B) * itemsize
+            + G * Q * m * 8 + (G * Q * 4 if lse else 0)}
+
+
+def _cost_of(h, w2, m: int, lse: bool) -> dict:
+    G = h.shape[0] if h.ndim == 3 else 1
+    return cost(G, h.shape[-2], h.shape[-1], w2.shape[-1], m,
+                itemsize=h.element_size(), lse=lse)
 
 
 def irli_topk(h, w2, b2, *, m: int, lse: bool = False):
@@ -110,32 +128,48 @@ def irli_topk(h, w2, b2, *, m: int, lse: bool = False):
         raise ValueError(f"irli_topk: m={m} must lie in [1, B={B}]")
     if G > 65535:
         raise ValueError(f"irli_topk: {G} reps exceed the grid's 65535")
+    with billing("irli_topk", lambda: cost(G, Q, H, B, m,
+                                           itemsize=h.element_size(),
+                                           lse=lse)):
+        vals, idx, out_lse = _launch(h, w2, b2, G, Q, H, B, m, lse)
+    out = (vals, idx) + ((out_lse,) if lse else ())
+    return tuple(t[0] for t in out) if single else out
+
+
+def _launch(h, w2, b2, G, Q, H, B, m, lse):
+    """Allocate the outputs (and the m > MAX_M variant's scratch) and
+    launch; tensors without data stop before the launch (the fake
+    path)."""
     dev = h.device
     vals = torch.empty((G, Q, m), dtype=torch.float32, device=dev)
     idx = torch.empty((G, Q, m), dtype=torch.int32, device=dev)
     out_lse = (torch.empty((G, Q), dtype=torch.float32, device=dev)
                if lse else None)
-    if Q > 0:
-        h, w2 = tma_operand(h), tma_operand(w2)
-        b2 = b2.contiguous()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        args = (h.data_ptr(), w2.data_ptr(), b2.data_ptr(), _DTYPES[h.dtype],
-                G, Q, H, B, m, h.stride(1), w2.stride(1), vals.data_ptr(),
-                idx.data_ptr(),
-                None if out_lse is None else out_lse.data_ptr())
-        with torch.cuda.device(dev):
-            if m <= MAX_M:
-                err = _lib().irli_topk_launch(*args, stream)
-            else:
-                grid = wide_grid(G, Q, dev)
-                scratch = torch.empty((grid, 128, B), dtype=torch.float32,
-                                      device=dev)
-                err = _lib().irli_topk_wide_launch(
-                    *args, scratch.data_ptr(), grid, stream)
-        check_launch("irli_topk", err)
-        LAUNCHES["irli_topk"] += 1
-    out = (vals, idx) + ((out_lse,) if lse else ())
-    return tuple(t[0] for t in out) if single else out
+    if Q == 0:
+        return vals, idx, out_lse
+    h, w2 = tma_operand(h), tma_operand(w2)
+    b2 = b2.contiguous()
+    fake = holds_no_data(h, w2, b2)
+    scratch = None
+    if m > MAX_M:
+        grid = wide_grid(G, Q, None if fake else dev)
+        scratch = torch.empty((grid, 128, B), dtype=torch.float32,
+                              device=dev)
+    if fake:
+        return vals, idx, out_lse
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (h.data_ptr(), w2.data_ptr(), b2.data_ptr(), _DTYPES[h.dtype],
+            G, Q, H, B, m, h.stride(1), w2.stride(1), vals.data_ptr(),
+            idx.data_ptr(), None if out_lse is None else out_lse.data_ptr())
+    with torch.cuda.device(dev):
+        if m <= MAX_M:
+            err = _lib().irli_topk_launch(*args, stream)
+        else:
+            err = _lib().irli_topk_wide_launch(
+                *args, scratch.data_ptr(), scratch.shape[0], stream)
+    check_launch("irli_topk", err)
+    LAUNCHES["irli_topk"] += 1
+    return vals, idx, out_lse
 
 
 def scorer_topk(h, w2, b2, *, m: int, lse: bool = False):
@@ -145,7 +179,8 @@ def scorer_topk(h, w2, b2, *, m: int, lse: bool = False):
     the card never allocates the [.., Q, B] logits; the plain version on the
     CPU does."""
     if not on_card(h, w2, b2):
-        return irli_topk_ref(h, w2, b2, m=m, lse=lse)
+        with billing("irli_topk", lambda: _cost_of(h, w2, m, lse)):
+            return irli_topk_ref(h, w2, b2, m=m, lse=lse)
     return irli_topk(h, w2, b2, m=m, lse=lse)
 
 

@@ -10,7 +10,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, check_launch, on_card
+from repro_torch.kernels import (LAUNCHES, billing, check_launch,
+                                 holds_no_data, on_card)
 from repro_torch.kernels.kchoice import ref
 from repro_torch.kernels.kchoice.ref import kchoice_ref
 
@@ -23,6 +24,19 @@ def smem_bytes(B: int, K: int) -> int:
     claim table and a ring of three staged chunks of 256 labels' K
     candidates, ids and weights (kchoice.cu)."""
     return 5 * B + 3 * 256 * (K + 2) * 4
+
+
+def cost(G: int, L: int, K: int, B: int, *, slots: int = 1,
+         load0: int = 0, weights: bool = False) -> dict:
+    """The work of one launch: a compare a candidate and an add a pick
+    (G·L·(K + 1)·slots operations, far below any peak: the kernel is
+    bound by its sequential walk, chip_smoke.py's latency bound); the
+    [G, L, K] candidates, the [G, L] order, ``load0`` initial loads and
+    the [L] weights read once, the [G, L, slots] assignment written
+    once."""
+    return {"flops": G * L * (K + 1) * slots,
+            "bytes": G * L * K * 4 + G * L * 4 + load0 * 4
+            + (L * 4 if weights else 0) + G * L * slots * 4}
 
 
 @functools.cache
@@ -88,6 +102,18 @@ def kchoice(topk_idx, order, load0=None, weights=None, *, B: int,
                          f"{rounds.dtype} {tuple(rounds.shape)}")
     if G > 2 ** 31 - 1:
         raise ValueError(f"kchoice: {G} reps exceed the grid")
+    with billing("kchoice", lambda: cost(
+            G, L, K, B, slots=slots,
+            load0=0 if load0 is None else load0.numel(),
+            weights=weights is not None)):
+        return _launch(topk_idx, order, load0, weights, rounds, G, L, K, B,
+                       slots, stride)
+
+
+def _launch(topk_idx, order, load0, weights, rounds, G, L, K, B, slots,
+            stride):
+    """Allocate the assignment and launch; tensors without data stop
+    before the launch (the fake path)."""
     dev = topk_idx.device
     out = torch.empty((G, L) + ((slots,) if slots > 1 else ()),
                       dtype=torch.int32, device=dev)
@@ -96,6 +122,8 @@ def kchoice(topk_idx, order, load0=None, weights=None, *, B: int,
     topk_idx, order = topk_idx.contiguous(), order.contiguous()
     if weights is not None:
         weights = weights.contiguous()
+    if holds_no_data(topk_idx, order, load0, weights, rounds):
+        return out
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _launcher()(
@@ -116,7 +144,13 @@ def kchoice_assign(topk_idx, order, load0=None, weights=None, *, B: int,
     with ``slots`` > 1). The kernel on the card, the plain version on the
     CPU."""
     if not on_card(topk_idx, order, load0, weights):
-        return kchoice_ref(topk_idx, order, load0, weights, B=B, slots=slots)
+        G, L, K = topk_idx.shape
+        with billing("kchoice", lambda: cost(
+                G, L, K, B, slots=slots,
+                load0=0 if load0 is None else load0.numel(),
+                weights=weights is not None)):
+            return kchoice_ref(topk_idx, order, load0, weights, B=B,
+                               slots=slots)
     return kchoice(topk_idx.to(torch.int32), order.to(torch.int32),
                    None if load0 is None else load0.to(torch.float32),
                    None if weights is None else weights.to(torch.float32),

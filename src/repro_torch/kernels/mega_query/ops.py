@@ -29,8 +29,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels import (LAUNCHES, check_launch, on_card,
-                                 tma_operand)
+from repro_torch.kernels import (H100_SMS, LAUNCHES, billing, check_launch,
+                                 holds_no_data, on_card, tma_operand)
 from repro_torch.kernels.freq_topc.ops import MAX_WIDTH, sort_width
 from repro_torch.kernels.irli_topk.ops import MAX_M, tile_smem_bytes
 from repro_torch.kernels.mega_query.ref import mega_search_ref
@@ -153,6 +153,33 @@ def _grid(device_index: int, kind: int, smem: int) -> int:
     return grid.value
 
 
+def cost(R: int, Q: int, d: int, H: int, B: int, ML: int, L: int, *,
+         m: int, topC: int, refine_k: int, k: int, block: int = 32,
+         row_bytes: int | None = None, valid: int | None = None,
+         refine: int | None = None, buckets: int | None = None,
+         code_rows: int | None = None,
+         refine_rows: int | None = None) -> dict:
+    """The work of one launch: both scorer GEMMs (2·R·Q·(d·H + H·B)) and
+    2·d operations a valid coarse slot and a refined survivor; the scorer
+    and the queries read once, each probed bucket's member row once, each
+    distinct code row and refine row once (``row_bytes`` a row: int8 codes
+    and their scales by default), the ids, scores and counts written once.
+    What the data decides has a default from the shapes: every one of the
+    Q·C coarse slots valid and distinct, every probe a distinct bucket,
+    Q·k' refined rows."""
+    p = plan(R, ML, m, topC, refine_k, k)
+    valid = Q * p.C if valid is None else valid
+    refine = Q * p.kp if refine is None else refine
+    buckets = min(R * Q * m, R * B) if buckets is None else buckets
+    code_rows = min(valid, L) if code_rows is None else code_rows
+    refine_rows = min(refine, L) if refine_rows is None else refine_rows
+    row_bytes = d + d // block * 4 if row_bytes is None else row_bytes
+    return {"flops": 2 * R * Q * (d * H + H * B) + (valid + refine) * 2 * d,
+            "bytes": (R * d * H + R * H + R * H * B + R * B + Q * d) * 4
+            + buckets * ML * 4 + (code_rows + refine_rows) * row_bytes
+            + Q * (2 * k + 1) * 4}
+
+
 def _check(name, t, dtype, ndim):
     if t.dtype != dtype or t.ndim != ndim:
         raise ValueError(f"mega_query: {name} must be {ndim}-d {dtype}, got "
@@ -222,14 +249,37 @@ def mega_query(params: dict, members, rows, scales, exact, queries, *,
             f"{geom} do not fit the kernel (mega_fits); use mode='compact'")
     p = plan(R, ML, m, topC, refine_k, k)
     smem = smem_bytes(p, R=R, m=m, D=D)
-    adaptive = adaptive_m and probe_mass < 1.0
+    row_bytes = D * rows.element_size() + (n_blocks * 4 if kind == 1 else 0)
+    with billing("mega_query", lambda: cost(
+            R, Q, d, H, B, ML, L, m=m, topC=topC, refine_k=refine_k, k=k,
+            block=block, row_bytes=row_bytes)):
+        return _launch(w1, b1, w2, b2, members, rows, scales, exact, queries,
+                       p, smem, kind, n_blocks, block, m=m, tau=tau, k=k,
+                       metric=metric, adaptive=adaptive_m
+                       and probe_mass < 1.0, probe_mass=probe_mass,
+                       phases=phases, select=select)
+
+
+def _launch(w1, b1, w2, b2, members, rows, scales, exact, queries, p, smem,
+            kind, n_blocks, block, *, m, tau, k, metric, adaptive,
+            probe_mass, phases, select):
+    """Allocate the outputs and the scratch and launch; tensors without
+    data stop before the launch (the fake path, which plans one block an
+    SM of an H100 in place of the card's occupancy query)."""
+    R, d, H = w1.shape
+    B = w2.shape[2]
+    ML = members.shape[2]
+    D = rows.shape[1]
+    Q = queries.shape[0]
     dev = queries.device
     ids = torch.empty((Q, k), dtype=torch.int32, device=dev)
     scores = torch.empty((Q, k), dtype=torch.float32, device=dev)
     n_cand = torch.empty((Q,), dtype=torch.int32, device=dev)
     if Q == 0:
         return ids, scores, n_cand
-    grid = _grid(dev.index, kind, smem)
+    fake = holds_no_data(w1, b1, w2, b2, members, rows, scales, exact,
+                         queries)
+    grid = H100_SMS if fake else _grid(dev.index, kind, smem)
     f32 = dict(dtype=torch.float32, device=dev)
     scratch = {
         # rows padded to 16 bytes: phase 2 reads them by TMA
@@ -245,6 +295,8 @@ def mega_query(params: dict, members, rows, scales, exact, queries, *,
     ins = [queries, w1, b1.contiguous(), w2, b2.contiguous(),
            members.contiguous(), rows.contiguous()]
     ins += [None if t is None else t.contiguous() for t in (scales, exact)]
+    if fake:
+        return ids, scores, n_cand
     ptrs = [None if t is None else t.data_ptr() for t in ins + [
         scratch["hid"], scratch["part_v"], scratch["part_i"],
         scratch["part_lse"], scratch["srt"], scratch["kscr"], ids, scores,
@@ -292,12 +344,21 @@ def mega_search(pipe, params, members, base, queries, delta_members=None,
     store = base if isinstance(base, QuantizedStore) else None
     rows = store.codes if store is not None else base
     if not on_card(queries, members, rows):
-        return mega_search_ref(
-            params, members, base, queries, delta_members, tombstone,
-            m=pipe.m, tau=pipe.tau, topC=pipe.topC, k=pipe.k,
-            refine_k=pipe.refine_k, metric=pipe.metric,
-            adaptive_m=pipe.adaptive_m, probe_mass=pipe.probe_mass,
-            chunk=resolve_refine_k(pipe.refine_k, pipe.k, pipe.topC))
+        R, B, ML = members.shape
+        H = params["w1"].shape[2]
+        row_bytes = rows.shape[1] * rows.element_size() + (
+            0 if store is None or store.scales is None
+            else store.scales.shape[1] * 4)
+        with billing("mega_query", lambda: cost(
+                R, queries.shape[0], queries.shape[1], H, B, ML,
+                rows.shape[0], m=pipe.m, topC=pipe.topC,
+                refine_k=pipe.refine_k, k=pipe.k, row_bytes=row_bytes)):
+            return mega_search_ref(
+                params, members, base, queries, delta_members, tombstone,
+                m=pipe.m, tau=pipe.tau, topC=pipe.topC, k=pipe.k,
+                refine_k=pipe.refine_k, metric=pipe.metric,
+                adaptive_m=pipe.adaptive_m, probe_mass=pipe.probe_mass,
+                chunk=resolve_refine_k(pipe.refine_k, pipe.k, pipe.topC))
     if not _kernel_eligible(pipe, params, members, base, queries,
                             delta_members, tombstone):
         return dataclasses.replace(pipe, mode="compact").search(

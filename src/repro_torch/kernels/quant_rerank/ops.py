@@ -9,8 +9,9 @@ import functools
 
 import torch
 
-from repro_torch.kernels import (LAUNCHES, card_scope, card_stream,
-                                 check_launch, on_card)
+from repro_torch.kernels import (LAUNCHES, billing, card_scope,
+                                 card_stream, check_launch, holds_no_data,
+                                 on_card)
 from repro_torch.kernels.quant_rerank.ref import quant_rerank_ref
 
 _CODE_DTYPES = {torch.int8: 0, torch.bfloat16: 1}
@@ -80,6 +81,31 @@ def kernel_attrs() -> dict[str, int]:
     return dict(zip(("registers", "spill_bytes", "fixed_smem_bytes"), out))
 
 
+def cost(Q: int, C: int, D: int, k: int, L: int, *, n_blocks: int = 1,
+         code_bytes: int = 1, valid: int | None = None,
+         rows: int | None = None) -> dict:
+    """The work of one launch: 2·D operations a valid slot (dequantize
+    and score), the queries and the [Q, C] ids and counts read once, each
+    distinct valid row's codes and scales once, the [Q, k'] ids and scores
+    written once. ``valid`` (slots whose count reaches tau) and ``rows``
+    (distinct ids among them) depend on the data: by default every slot
+    is valid and distinct, as many as the store has rows."""
+    valid = Q * C if valid is None else valid
+    rows = min(valid, L) if rows is None else rows
+    scales = n_blocks * 4 if code_bytes == 1 else 0
+    return {"flops": valid * 2 * D,
+            "bytes": Q * D * 4 + Q * C * 8 + rows * (D * code_bytes + scales)
+            + Q * min(k, C) * 8}
+
+
+def _cost_of(queries, codes, scales, cand_ids, k: int) -> dict:
+    Q, C = cand_ids.shape
+    L, D = codes.shape
+    return cost(Q, C, D, k, L,
+                n_blocks=1 if scales is None else scales.shape[1],
+                code_bytes=codes.element_size())
+
+
 def _check(name, t, dtype, shape):
     if t.dtype != dtype or t.shape != shape:
         raise ValueError(f"quant_rerank: {name} must be {dtype} "
@@ -120,6 +146,18 @@ def quant_rerank(queries, codes, scales, cand_ids, cand_counts, *, tau: int,
         _check("scales", scales, torch.float32, (L, n_blocks))
         if n_blocks * block != D:
             raise ValueError(f"{n_blocks} scale blocks do not divide D={D}")
+    with billing("quant_rerank", lambda: cost(
+            Q, C, D, k, L, n_blocks=n_blocks,
+            code_bytes=codes.element_size())):
+        return _launch(queries, codes, scales, cand_ids, cand_counts, Q, C,
+                       D, n_blocks, block, tau, k, metric)
+
+
+def _launch(queries, codes, scales, cand_ids, cand_counts, Q, C, D,
+            n_blocks, block, tau, k, metric):
+    """Allocate the outputs (and the passes' running top-k' scratch) and
+    launch; tensors without data stop before the launch (the fake
+    path)."""
     P = pass_slots(C, D)
     kp = min(k, C)
     dev = cand_ids.device
@@ -131,20 +169,21 @@ def quant_rerank(queries, codes, scales, cand_ids, cand_counts, *, tau: int,
         return ids, vals
     queries, codes = queries.contiguous(), codes.contiguous()
     cand_ids, cand_counts = cand_ids.contiguous(), cand_counts.contiguous()
-    scales_ptr = None
     if scales is not None:
         scales = scales.contiguous()
-        scales_ptr = scales.data_ptr()
     run = (torch.empty((Q, 2, kp), dtype=torch.int64, device=dev)
            if P < C else None)
+    if holds_no_data(queries, codes, scales, cand_ids, cand_counts):
+        return ids, vals
     stream = card_stream(dev)
     with card_scope(dev):
         err = _launcher()(
             queries.data_ptr(), codes.data_ptr(), _CODE_DTYPES[codes.dtype],
-            scales_ptr, n_blocks, block, cand_ids.data_ptr(),
-            cand_counts.data_ptr(), Q, C, P, D, float(tau), kp,
-            _METRICS[metric], None if run is None else run.data_ptr(),
-            ids.data_ptr(), vals.data_ptr(), stream)
+            None if scales is None else scales.data_ptr(), n_blocks, block,
+            cand_ids.data_ptr(), cand_counts.data_ptr(), Q, C, P, D,
+            float(tau), kp, _METRICS[metric],
+            None if run is None else run.data_ptr(), ids.data_ptr(),
+            vals.data_ptr(), stream)
     check_launch("quant_rerank", err)
     LAUNCHES["quant_rerank"] += 1
     return ids, vals
@@ -160,9 +199,11 @@ def quant_coarse_topk(queries, codes, scales, cand_ids, cand_counts, *,
     the reference's chunked path); the kernel on the card holds no
     dequantized row in device memory and takes no chunk."""
     if not on_card(queries, codes, scales, cand_ids, cand_counts):
-        return quant_rerank_ref(queries, codes, scales, cand_ids,
-                                cand_counts, tau=tau, k=k, metric=metric,
-                                chunk=k if chunk is None else chunk)
+        with billing("quant_rerank", lambda: _cost_of(
+                queries, codes, scales, cand_ids, k)):
+            return quant_rerank_ref(queries, codes, scales, cand_ids,
+                                    cand_counts, tau=tau, k=k, metric=metric,
+                                    chunk=k if chunk is None else chunk)
     return quant_rerank(queries, codes, scales, cand_ids, cand_counts,
                         tau=tau, k=k, metric=metric)
 

@@ -50,7 +50,7 @@ import torch
 from repro_torch.models.module import (data_axes, device_of,
                                        flatten_with_paths, is_dtensor,
                                        map_with_paths, mesh_sizes, place,
-                                       place_tree)
+                                       place_tree, unshard_dim)
 from repro_torch.optim.optimizers import make_optimizer
 
 
@@ -144,14 +144,23 @@ def build_train_step(loss_fn, opt_kind: str, **opt_kw):
     """loss_fn(params, batch) -> (scalar, metrics dict) -> (step, opt):
     step(state, batch) -> (state, metrics) runs the forward and backward by
     autograd, then ``opt.update`` in place; metrics gain ``loss`` and the
-    optimizer's own (``grad_norm``, ``lr``)."""
+    optimizer's own (``grad_norm``, ``lr``). On DTensor params each
+    gradient is first redistributed to its param's placements and the
+    metrics come back as plain tensors."""
     opt = make_opt(opt_kind, **opt_kw)
 
     def step(state, batch):
         params, opt_state = state["params"], state["opt"]
         loss, metrics, grads = grads_of(loss_fn, params, batch)
+        if is_dtensor(flatten_with_paths(params)[0][1]):
+            # on a mesh: each gradient reduced to its param's placements,
+            # the metrics back as plain tensors
+            grads = map_with_paths(lambda path, g: g.redistribute(
+                g.device_mesh, _spec_at(params, path).placements), grads)
         params, opt_state, info = opt.update(params, grads, opt_state)
         metrics = dict(metrics, loss=loss, **info)
+        metrics = {k: v.full_tensor() if is_dtensor(v) else v
+                   for k, v in metrics.items()}
         return {"params": params, "opt": opt_state}, metrics
 
     return step, opt
@@ -184,15 +193,24 @@ def lm_grads(params, cfg, tokens, labels, n_micro: int,
     from repro_torch.models.transformer import lm_loss
     GB = tokens.shape[0]
     M = n_micro if GB % n_micro == 0 else 1
+    placed = is_dtensor(tokens)
+    if placed:
+        mesh, pl_t, pl_l = (tokens.device_mesh, tokens.placements,
+                            labels.placements)
+        if grouping == "plain":
+            # consecutive rows a microbatch cross the data ranks' blocks,
+            # and DTensor cannot unflatten a batch split more ways than
+            # it has microbatches: the [GB, S] ids are gathered whole
+            tokens, labels = unshard_dim(tokens, 0), unshard_dim(labels, 0)
     toks = split_micro(tokens, M, grouping)
     labs = split_micro(labels, M, grouping)
     acc = loss_sum = None
     for i in range(M):
         mt, ml = toks[i], labs[i]
-        if is_dtensor(tokens):
+        if placed:
             # each microbatch split over the data axes as the batch was
-            mt = mt.redistribute(tokens.device_mesh, tokens.placements)
-            ml = ml.redistribute(labels.device_mesh, labels.placements)
+            mt = mt.redistribute(mesh, pl_t)
+            ml = ml.redistribute(mesh, pl_l)
         loss, _, g = grads_of(
             lambda p, t, lb: lm_loss(p, cfg, t, lb), params, mt, ml)
         g = [t for _, t in flatten_with_paths(g)]
@@ -266,7 +284,9 @@ def build_lm_train_step(cfg, opt_kind: str, n_micro: int = 8, mesh=None,
       * ``moe._f32_bmm``: the fp32 matmul of upcast operands (DTensor
         has no rule for ``bmm`` with ``out_dtype``);
       * ``lm_grads``: each microbatch is split over the data axes again
-        after the grouping.
+        after the grouping; the "plain" grouping gathers the token ids
+        whole first (a batch split over more data ranks than it has
+        microbatches does not unflatten).
 
     Without a mesh the step is the single-device one, unchanged."""
     opt = make_opt(opt_kind, **opt_kw)
@@ -491,11 +511,22 @@ def build_irli_train_step(scorer_cfg, n_buckets: int,
                           opt_kind="adamw_nomaster", **opt_kw):
     """The IRLI scorer's train step (the paper's §5.3 system) on a batch
     {"x" [N, d], "label_ids" [N, k], "label_mask" [N, k], "assign" [R, L]}
-    (numpy or tensors, moved to the params' device) -> (step, opt)."""
+    (numpy or tensors, moved to the params' device) -> (step, opt).
+
+    On DTensors (the irli-deep1b train cell: params placed by
+    ``configs/irli_deep1b.rules()``, the R axis over "model"; the batch by
+    the cell's in_specs, rows over the data axes and ``assign`` over
+    ("model", ("data",))) the step runs :func:`irli_mesh_loss` on each
+    rank's blocks, each gradient is reduced to its param's placements and
+    the optimizer updates in place, every state leaf keeping its
+    placements. The metrics come back as plain tensors."""
     from repro_torch.core.network import scorer_loss
     from repro_torch.core.partition import bucket_targets
 
     def loss_fn(params, batch):
+        if is_dtensor(params["w1"]):
+            loss = irli_mesh_loss(params, scorer_cfg, batch, n_buckets)
+            return loss, {"bce": loss.detach()}
         b = _on(params, batch)
         targets = bucket_targets(b["assign"], b["label_ids"],
                                  b["label_mask"], n_buckets)
@@ -503,6 +534,65 @@ def build_irli_train_step(scorer_cfg, n_buckets: int,
         return loss, {"bce": loss.detach()}
 
     return build_train_step(loss_fn, opt_kind, **opt_kw)
+
+
+def irli_mesh_loss(params, scorer_cfg, batch, n_buckets: int):
+    """The scorer's BCE on a mesh, each rank on its own blocks: its reps'
+    scorer (the R axis over "model"), its rows (over the data axes) and
+    its block of ``assign`` [R_loc, L_loc] (labels over "data").
+
+    ``bucket_targets`` reads ``assign`` at each row's label ids, which
+    lie anywhere in L. No rank gathers ``assign``: every rank takes the
+    [N, k] label ids whole (an all-gather over the data axes), looks up
+    the labels its block holds (0 for the others) -> [R_loc, N, k]
+    buckets, a partial sum over "data" (exactly one data rank holds each
+    label), which a reduce-scatter over "data" sums into each rank's rows.
+    The rank then builds its [R_loc, N_loc, B] targets and its loss sum
+    from local tensors, the params' local shards taken with gradients
+    that are partial over the data axes; the loss is the all-reduced sum
+    / (R · N), the meshless ``scorer_loss`` (unit weights)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.core.network import scorer_loss_parts
+    w1 = params["w1"]
+    mesh = w1.device_mesh
+    names = list(mesh.mesh_dim_names)
+    dax = data_axes(mesh)
+    assign = batch["assign"]
+    a_loc = assign.to_local()
+    R, N = w1.shape[0], batch["x"].shape[0]
+    k = batch["label_ids"].shape[1]
+    lo = mesh.get_local_rank("data") * a_loc.shape[1]
+    ids = batch["label_ids"].full_tensor().long()                 # [N, k]
+    inside = (ids >= lo) & (ids < lo + a_loc.shape[1])
+    part = torch.where(inside[None], a_loc[:, torch.where(
+        inside, ids - lo, 0)], 0)                           # [R_loc, N, k]
+    src = [Shard(0) if a == "model" else Partial() if a == "data"
+           else Replicate() for a in names]
+    dst = [Shard(0) if a == "model" else Shard(1) if a in dax
+           else Replicate() for a in names]
+    buckets = DTensor.from_local(
+        part, mesh, src, run_check=False, shape=(R, N, k),
+        stride=(N * k, k, 1)).redistribute(mesh, dst).to_local()
+    mask = batch["label_mask"].to_local().to(torch.float32)
+    R_loc, n_loc = buckets.shape[0], buckets.shape[1]
+    targets = torch.zeros((R_loc, n_loc, n_buckets), dtype=torch.float32,
+                          device=a_loc.device).scatter_reduce_(
+        2, buckets.long(), mask[None].expand(R_loc, n_loc, k),
+        reduce="amax", include_self=True)
+
+    def local(p):
+        return p.to_local(grad_placements=[
+            Partial() if a in dax else pl
+            for a, pl in zip(names, p.placements)])
+
+    s, _ = scorer_loss_parts({n: local(p) for n, p in params.items()},
+                             scorer_cfg,
+                             batch["x"].to_local().to(torch.float32),
+                             targets)
+    return DTensor.from_local(s / (R * N), mesh,
+                              [Partial()] * len(names),
+                              run_check=False).full_tensor()
 
 
 class FitParts(tuple):

@@ -299,15 +299,25 @@ def placements(spec: Spec, mesh) -> list:
     return out
 
 
+def local_block(shape, mesh, pl) -> tuple:
+    """(local shape, global offset) of this rank's block of a tensor of
+    ``shape`` under placements ``pl``: host arithmetic on the mesh's rank
+    table, kept out of any fake mode (the dry run's, which would turn the
+    table's values into fake ones)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    with unset_fake_temporarily():
+        return compute_local_shape_and_global_offset(tuple(shape), mesh, pl)
+
+
 def place(t: torch.Tensor, spec: Spec, mesh):
     """This rank's DTensor of the whole tensor ``t`` (the same on every
     rank) under ``spec``: its block is cut locally (no collective), and a
     dimension whole on this rank keeps ``t``'s storage."""
     from torch.distributed.tensor import DTensor
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
     pl = placements(spec, mesh)
-    shape, offset = compute_local_shape_and_global_offset(t.shape, mesh, pl)
+    shape, offset = local_block(t.shape, mesh, pl)
     local = t
     for dim, (n, at) in enumerate(zip(shape, offset)):
         if n != t.shape[dim]:

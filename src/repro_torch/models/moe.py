@@ -56,8 +56,8 @@ from torch._subclasses.fake_tensor import is_fake
 from repro_torch.core.topk import topk_stable
 from repro_torch.kernels.kchoice.ops import kchoice_assign
 from repro_torch.models import layers as L
-from repro_torch.models.module import (is_dtensor, on_rows, on_whole,
-                                       pin_batch)
+from repro_torch.models.module import (data_axes, is_dtensor, on_rows,
+                                       on_whole, pin_batch)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,8 +195,9 @@ def _f32_bmm(a, b):
     (``_BmmF32Out``, which carries its own backward); on the CPU, on
     DTensors (DTensor has no rule for ``bmm`` with ``out_dtype``) or with
     fp32 operands an fp32 matmul of the upcast operands."""
-    if a.is_cuda and a.dtype == b.dtype and a.dtype != torch.float32 \
-            and not is_dtensor(a):
+    from repro_torch.kernels import on_card
+    if not is_dtensor(a) and a.dtype == b.dtype \
+            and a.dtype != torch.float32 and on_card(a):
         return _BmmF32Out.apply(a, b)
     return torch.bmm(a.to(torch.float32), b.to(torch.float32))
 
@@ -295,6 +296,66 @@ def _combine_rows(out_e, w, idx, pos, keep):
     return y
 
 
+def _experts_over_rows_axis(ex) -> bool:
+    """Whether the stacked experts are split over "model" and their
+    feature dimension over "data" (2-D expert x tensor parallelism,
+    ``configs/lm_common.lm_rules`` at 16 experts or more): the axis that
+    also splits the rows."""
+    from torch.distributed.tensor import Shard
+    g = ex["gate"]
+    if not is_dtensor(g):
+        return False
+    pl = dict(zip(g.device_mesh.mesh_dim_names, g.placements))
+    return pl.get("model") == Shard(0) and pl.get("data") == Shard(2)
+
+
+def _experts_weight_local(ex, act, disp, dtype):
+    """The expert GLU on a mesh with the contractions weight-local (the
+    rules' intent): disp [B, E, C, d] (rows over the data axes) gathered
+    over "data" only, each rank applies its own experts (over "model")
+    and its slice of the feature dimension (over "data") to its data
+    group's rows, and the fp32 partial sums of the down projection are
+    reduce-scattered over "data" back to the rows -> [B, E, C, d] in
+    ``dtype``, the experts over "model". The weights never move; the
+    rows cross "data" twice. (DTensor's own rule for these products
+    gathers the weights over "data" and views a rank's permuted block,
+    which two or more rows cannot be.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = disp.device_mesh
+    names = list(mesh.mesh_dim_names)
+    dax = data_axes(mesh)
+    rows = disp.redistribute(mesh, [
+        Replicate() if n in ("data", "model") else p
+        for n, p in zip(names, disp.placements)])
+    part = [Partial() if n in ("data", "model") else p
+            for n, p in zip(names, rows.placements)]
+    x = rows.to_local(grad_placements=part)
+
+    def local(w):
+        return w.to_local(grad_placements=[
+            Partial() if n in dax and isinstance(p, Replicate) else p
+            for n, p in zip(names, w.placements)])
+
+    g, u, dn = local(ex["gate"]), local(ex["up"]), local(ex["down"])
+    e_loc = g.shape[0]
+    e0 = mesh.get_local_rank("model") * e_loc
+    x = x[:, e0:e0 + e_loc]                        # this rank's experts
+    h = torch.einsum("becd,edf->becf", x, g)
+    h = (L.ACTS[act](h) * torch.einsum("becd,edf->becf", x, u)).to(dtype)
+    B, E, C, F = h.shape
+    o = _f32_bmm(h.permute(1, 0, 2, 3).reshape(E, B * C, F), dn)
+    o = o.reshape(E, B, C, -1).permute(1, 0, 2, 3).contiguous()
+    out = DTensor.from_local(o, mesh, [
+        Partial() if n == "data" else Shard(1) if n == "model" else p
+        for n, p in zip(names, rows.placements)], run_check=False,
+        shape=(disp.shape[0], disp.shape[1], C, o.shape[-1]),
+        stride=(disp.shape[1] * C * o.shape[-1], C * o.shape[-1],
+                o.shape[-1], 1))
+    return out.redistribute(mesh, [
+        Shard(1) if n == "model" else p
+        for n, p in zip(names, disp.placements)]).to(dtype)
+
+
 def _moe_rows(p, cfg: MoEConfig, x):
     """Per-batch-row capacity dispatch. x [B, T, d] -> (y [B, T, d], aux):
     routing (each row its own loads), queue positions, the [B, E, C_row, d]
@@ -305,10 +366,13 @@ def _moe_rows(p, cfg: MoEConfig, x):
         functools.partial(_dispatch_rows, cfg),
         L.dense_apply(p["router"], x), x)
     ex = p["experts"]
-    h = torch.einsum("becd,edf->becf", disp, ex["gate"])
-    u = torch.einsum("becd,edf->becf", disp, ex["up"])
-    h = (L.ACTS[cfg.act](h) * u).to(x.dtype)
-    out_e = torch.einsum("becf,efd->becd", h, ex["down"]).to(x.dtype)
+    if _experts_over_rows_axis(ex):
+        out_e = _experts_weight_local(ex, cfg.act, disp, x.dtype)
+    else:
+        h = torch.einsum("becd,edf->becf", disp, ex["gate"])
+        u = torch.einsum("becd,edf->becf", disp, ex["up"])
+        h = (L.ACTS[cfg.act](h) * u).to(x.dtype)
+        out_e = torch.einsum("becf,efd->becd", h, ex["down"]).to(x.dtype)
     y = on_rows(_combine_rows, out_e, w, idx, pos, keep)
     if cfg.n_shared_experts > 0:
         y = y + pin_batch(L.glu_mlp_apply(p["shared"], x, cfg.act))

@@ -289,13 +289,12 @@ def _lse_gold_sharded(logits, labels):
     in its own vocabulary slice, a Partial sum. (DTensor's masked gather
     from sharded logits fails to reduce.)"""
     from torch.distributed.tensor import DTensor, Replicate, Shard
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
+
+    from repro_torch.models.module import local_block
     mesh = logits.device_mesh
     mx = logits.detach().amax(-1, keepdim=True)
     lse = torch.log(torch.exp(logits - mx).sum(-1)) + mx[..., 0]
-    shape, offset = compute_local_shape_and_global_offset(
-        logits.shape, mesh, logits.placements)
+    shape, offset = local_block(logits.shape, mesh, logits.placements)
     rows = [p if isinstance(p, Shard) and p.dim < 2 else Replicate()
             for p in logits.placements]
     lab = labels.redistribute(mesh, rows).to_local().long()
