@@ -270,7 +270,17 @@ path at its own:
     bytes. The functional
     all-gather and all-to-all go through c10d's
     (``gloo_cuda_collectives``: torch 2.11's functional all-gather ends
-    the process on CUDA tensors over gloo).
+    the process on CUDA tensors over gloo);
+  * the dry run (phase 19, ``launch/dryrun.py``; the section's comment
+    says what each part holds): (a) irli-deep1b serve_query and (c)
+    dlrm-mlperf train_batch and retrieval_cand, DIEN serve_p99 and SchNet
+    ogb_products on the fake 256-rank production mesh, with fake cuda
+    tensors, (c)'s records equal to the CPU's; (a'), (b) and (d) the dry
+    run's prediction of a call on a one-rank mesh held to the same call
+    on the card (launches, argument bytes, FLOPs, peak memory): (a') the
+    sharded search, (b) the model-train cell's gemma-7b step, (d) DIEN
+    serve_p99, dlrm-mlperf retrieval_cand and train_batch and SchNet
+    minibatch_lg on DTensors, each also held to its meshless call.
 
 Each path's counters are set to 0 just before it runs and read just after;
 the kernels line gives each kernel's launches by path.
@@ -313,7 +323,8 @@ recall, at L labels and N training queries, and prints them as JSON;
 distributed cell; ``--audit`` the build, that index and the audit cell;
 ``--train`` the build and the train cell; ``--lm`` the build, the LM
 cell and the MoE cell; ``--model-train`` the build and the model-train
-cell; ``--mesh`` the build and the registry and mesh cell.
+cell; ``--mesh`` the build and the registry and mesh cell; ``--dryrun``
+the build, the search cell's index and phase 19.
 
 Widths (configs/irli_deep1b.py): D=96, B=20000, R=32, H=1024. Search, the
 serve_query cell: int8 block 32, m=5, tau=2, k=10, topC=1024, refine_k auto
@@ -391,7 +402,9 @@ members at max_load 200, as the search cell's), train_scorers' R from
 depth and batch as the model-train cell's; (c) at narrow widths, one
 microbatch a step and a sequence of 256 (of 512), to keep the phase under
 60 s (85.5 s at 512 with the vocabulary gathered for the loss, on an
-H100 80GB HBM3 at 700 W).
+H100 80GB HBM3 at 700 W). Phase 19 (d): dlrm-mlperf train_batch's five
+40M-row tables cut to DLRM_TABLE_CAP rows as the model-train cell cuts
+them (its whole table, 104.5 GB, holds no state on one card).
 """
 from __future__ import annotations
 
@@ -5651,9 +5664,57 @@ def registry_mesh_cell(torch, dev, smi: str) -> dict:
 # (analysis/cost.CostRecorder): (a') build_irli_serve over the search
 # cell's index, int8 store and queries, (b) the model-train cell's gemma-7b
 # step. Launches and argument bytes equal, FLOPs within DRY_FLOPS_TOL, the
-# predicted peak within DRY_PEAK_TOL of torch.cuda.max_memory_allocated()
+# predicted peak within DRY_PEAK_TOL of torch.cuda.max_memory_allocated().
+# (c) four CTR and SchNet cells on the same fake 256-rank mesh, with fake
+# cuda tensors: each record printed and equal to DRY_CPU_RECORDS, the same
+# cells' records on the CPU (argument bytes, FLOPs, launches,
+# collectives). (d) on a one-rank NCCL mesh, the arguments placed as
+# DTensors (the path the cells take), the dry run's prediction of four
+# calls held as (a') holds its one (DRY_CALLS: DIEN serve_p99 and
+# dlrm-mlperf retrieval_cand at full width, dlrm-mlperf train_batch at B =
+# 65,536 with its tables cut to DLRM_TABLE_CAP rows, as the model-train
+# cell cuts them, SchNet minibatch_lg at its cell's shapes), and each
+# call's output held to the meshless call on the same inputs: prob and
+# scores to TOL, ids equal, the train step's loss to TOL and its params
+# to TOL (but where the meshless step's first moment is under
+# SIGN_FLOOR of its leaf's largest, whose update's sign rounding may
+# flip: there within 2·lr)
 DRY_FLOPS_TOL, DRY_PEAK_TOL = 1e-3, 0.10
 DRY_MS_MAX = 45_000                         # the phase's budget
+SIGN_FLOOR = 1e-3
+DRY_DLRM_BATCH = 65_536                     # (d)'s train_batch, the cell's
+#: the records of (c)'s cells on the fake 256-rank mesh (data 16 x model
+#: 16) by ``python -m repro_torch.launch.dryrun --mesh single`` on the
+#: CPU (torch 2.13, meta tensors standing for the card's): the card
+#: machine's must equal them in these keys
+DRY_KEYS = ("argument_bytes", "flops", "launches", "collective_count",
+            "collectives")
+DRY_CPU_RECORDS = {
+    "dlrm-mlperf/train_batch": {
+        "argument_bytes": 1236425936, "flops": 60365471744, "launches": {},
+        "collective_count": 38, "collectives": {
+            "all-gather": 888706560, "all-reduce": 64001552,
+            "reduce-scatter": 54525952, "all-to-all": 0,
+            "collective-permute": 0}},
+    "dien/serve_p99": {
+        "argument_bytes": 8271816, "flops": 844523520,
+        "launches": {"embedding_bag": 2}, "collective_count": 6,
+        "collectives": {"all-gather": 206848, "all-reduce": 232704,
+                        "reduce-scatter": 232704, "all-to-all": 0,
+                        "collective-permute": 0}},
+    "dlrm-mlperf/retrieval_cand": {
+        "argument_bytes": 2097664, "flops": 1048576,
+        "launches": {"distance_topk": 1}, "collective_count": 2,
+        "collectives": {"all-gather": 217600, "all-reduce": 0,
+                        "reduce-scatter": 0, "all-to-all": 0,
+                        "collective-permute": 0}},
+    "schnet/ogb_products": {
+        "argument_bytes": 7333336, "flops": 76061931520, "launches": {},
+        "collective_count": 126, "collectives": {
+            "all-gather": 3997904128, "all-reduce": 940936,
+            "reduce-scatter": 249839616, "all-to-all": 0,
+            "collective-permute": 0}},
+}
 
 
 def dry_peak_call(torch, fn, args) -> tuple:
@@ -5720,10 +5781,32 @@ def dryrun_train(torch, label: str, step, state, batch) -> dict:
     return out
 
 
+def dryrun_cpu_cells(mesh) -> dict:
+    """(c) DRY_CPU_RECORDS's cells on the fake 256-rank ``mesh`` (inside its
+    fake world): each record logged and held to the CPU's."""
+    from repro_torch.launch import dryrun as DR
+    t0 = time.perf_counter()
+    out = {}
+    for key, want in DRY_CPU_RECORDS.items():
+        rec = DR.run_cell(*key.split("/"), mesh)
+        log(f"dry run (19c) {key} on the fake 256-rank mesh: "
+            f"{json.dumps(rec)}")
+        got = {k: rec[k] for k in DRY_KEYS}
+        if got != want:
+            raise AssertionError(f"dry run (19c) {key}: {got} on the card's "
+                                 f"machine, {want} on the CPU")
+        out[key] = rec
+    out["ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"dry run (19c): {out['ms'] / 1e3:.1f} s, each record equal to the "
+        f"CPU's in {', '.join(DRY_KEYS)}")
+    return out
+
+
 def dryrun_cell(torch, dev, idx, store8, queries) -> dict:
-    """19. (a) the production cell's dry run and (a') the world-size-1
-    serve call's (see the section's comment). Needs no default process
-    group on entry and leaves none."""
+    """19. (a) the production cell's dry run, (c) DRY_CPU_RECORDS's cells on
+    the same mesh, and (a') the world-size-1 serve call's (see the
+    section's comment). Needs no default process group on entry and
+    leaves none."""
     import tempfile
 
     import torch.distributed as dist
@@ -5740,11 +5823,12 @@ def dryrun_cell(torch, dev, idx, store8, queries) -> dict:
     out = {}
     DR.fake_world(256)
     try:
-        rec = DR.run_cell("irli-deep1b", "serve_query",
-                          make_production_mesh(device_type="cuda"))
+        mesh = make_production_mesh(device_type="cuda")
+        rec = DR.run_cell("irli-deep1b", "serve_query", mesh)
         log(f"dry run (19a) irli-deep1b/serve_query on the fake 256-rank "
             f"mesh: {json.dumps(rec)}")
         out["serve_query"] = rec
+        out["cells"] = dryrun_cpu_cells(mesh)
 
         DR.fake_world(1)
 
@@ -5775,6 +5859,281 @@ def dryrun_cell(torch, dev, idx, store8, queries) -> dict:
         pred, real, peak)
     out["ms"] = (time.perf_counter() - t0) * 1e3
     log(f"dry run (19a): {out['ms'] / 1e3:.1f} s")
+    return out
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _whole(t):
+    """A DTensor's whole tensor, a plain tensor as it is (a copy neither:
+    compare before the next call writes)."""
+    from repro_torch.models.module import is_dtensor
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _close(label: str, got, want) -> float:
+    """|got - want| <= TOL + TOL·|want| everywhere, or raise -> the
+    largest |got - want|."""
+    err = float((got.float() - want.float()).abs().max()) if got.numel() \
+        else 0.0
+    ok = bool(((got.float() - want.float()).abs()
+               <= TOL + TOL * want.float().abs()).all())
+    if not ok:
+        raise AssertionError(f"dry run (19d) {label}: the mesh call differs "
+                             f"from the meshless one by {err}")
+    return err
+
+
+def dry_call_cases(torch, dev) -> list:
+    """(d)'s four calls (DRY_CALLS in the section's comment), each a dict:
+    label, the step, its whole arguments on the card, ``place(args,
+    mesh)`` (its DTensors on a mesh by the cell's specs), the kind
+    (serve or train) and, for a serve call, ``hold(mesh_out, plain_out)``
+    -> the largest difference."""
+    import dataclasses
+
+    from repro_torch.configs import dien as DIEN
+    from repro_torch.configs import dlrm_mlperf as DLRM
+    from repro_torch.configs import schnet as SCH
+    from repro_torch.configs.recsys_common import RETRIEVAL_K
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.synthetic import behavior_stream, criteo_stream
+    from repro_torch.launch import steps as S
+    from repro_torch.models import recsys as RS
+    from repro_torch.models.gnn import schnet_init
+    from repro_torch.models.module import place_tree, tensor_tree
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+
+    def on(host):
+        return {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+
+    def placer(arch, rules, in_specs, train):
+        def place(args, mesh):
+            head, batch = args
+            bs = in_specs(mesh)
+            if not train:
+                return (place_tree(head, rules.specs(head), mesh),
+                        place_tree(batch, bs, mesh))
+            ps = rules.specs(head["params"])
+            os_ = S.opt_state_specs(arch.opt, head["params"], ps, mesh)
+            return (S.place_train_state(head, ps, os_, mesh),
+                    place_tree(batch, bs, mesh))
+        return place
+
+    cases = []
+    # DIEN serve_p99 at configs/dien.CONFIG's full width
+    arch = get_arch("dien")
+    cell = arch.cells["serve_p99"]
+    params = tensor_tree(RS.dien_init(DIEN.CONFIG, seed=SEED, device=dev))
+    batch = on(next(behavior_stream(512, DIEN.CONFIG.seq_len,
+                                    DIEN.CONFIG.item_vocab,
+                                    DIEN.CONFIG.cate_vocab, seed=SEED)))
+    cases.append({
+        "label": f"dien serve_p99 (item table {DIEN.CONFIG.item_vocab} x "
+                 f"{DIEN.CONFIG.embed_dim}, B = 512)",
+        "step": cell.step(), "whole": (params, batch), "kind": "serve",
+        "launches": {"embedding_bag": 2},
+        "place": placer(arch, arch.rules(), cell.in_specs, False),
+        "hold": lambda a, b: _close("dien prob", _whole(a["prob"]),
+                                    b["prob"])})
+    # dlrm-mlperf retrieval_cand at full width
+    arch = get_arch("dlrm-mlperf")
+    cell = arch.cells["retrieval_cand"]
+    tshape = tuple(cell.params(None)["item_table"]["table"].shape)
+    qshape = tuple(cell.inputs(None)["query"].shape)
+    params = {"item_table": {"table": torch.randn(tshape, generator=gen,
+                                                  device=dev)}}
+    batch = {"query": torch.randn(qshape, generator=gen, device=dev)}
+
+    def hold_retrieval(a, b):
+        if not torch.equal(a["ids"], b["ids"]):
+            raise AssertionError("dry run (19d) retrieval: the mesh call's "
+                                 "ids differ from the meshless call's")
+        return _close("retrieval scores", a["scores"], b["scores"])
+
+    cases.append({
+        "label": f"dlrm-mlperf retrieval_cand (item table {tshape[0]} x "
+                 f"{tshape[1]}, k = {RETRIEVAL_K})",
+        "step": cell.step(), "whole": (params, batch), "kind": "serve",
+        "launches": {"distance_topk": 1},
+        "place": placer(arch, arch.rules(), cell.in_specs, False),
+        "hold": hold_retrieval})
+    # dlrm-mlperf train_batch at B = 65,536, the tables cut as the
+    # model-train cell cuts them
+    vocab = tuple(min(v, DLRM_TABLE_CAP) for v in RS.DLRMConfig().vocab_sizes)
+    pad = (-sum(vocab)) % 512
+    cfg = dataclasses.replace(RS.DLRMConfig(),
+                              vocab_sizes=vocab[:-1] + (vocab[-1] + pad,))
+    params, offsets = RS.dlrm_init(cfg, seed=SEED, device=dev)
+    batch = on(next(criteo_stream(DRY_DLRM_BATCH, cfg.n_dense, vocab,
+                                  seed=SEED)))
+    step, opt = S.build_ctr_train_step(lambda p, b: RS.dlrm_apply(
+        p, cfg, offsets.to(b["sparse"].device), b["dense"], b["sparse"]),
+        arch.opt, lr=TRAIN_LR)
+    cell = arch.cells["train_batch"]
+    log(f"dry run (19d) dlrm-mlperf train_batch: cut to one card, each "
+        f"40M-row table to {DLRM_TABLE_CAP} rows ({sum(cfg.vocab_sizes)} "
+        f"rows of {DLRM.TOTAL_ROWS}), the batch {DRY_DLRM_BATCH} as the "
+        f"cell's")
+    cases.append({
+        "label": f"dlrm-mlperf train_batch (B = {DRY_DLRM_BATCH}, tables "
+                 f"cut to {sum(cfg.vocab_sizes)} rows)",
+        "step": step, "whole": ({"params": params,
+                                 "opt": opt.init(params)}, batch),
+        "kind": "train", "launches": {},
+        "place": placer(arch, arch.rules(), cell.in_specs, True)})
+    # SchNet minibatch_lg at its cell's shapes
+    arch = get_arch("schnet")
+    cell = arch.cells["minibatch_lg"]
+    sh = SCH.CELL_SHAPES["minibatch_lg"]
+    N, E, c = sh["pad_nodes"], sh["pad_edges"], sh["cfg"]
+    params = schnet_init(c, seed=SEED, device=dev)
+    batch = {"feats": torch.randn((N, c.d_in), generator=gen, device=dev),
+             "src": torch.randint(0, N, (E,), generator=gen, device=dev,
+                                  dtype=torch.int32),
+             "dst": torch.randint(0, N, (E,), generator=gen, device=dev,
+                                  dtype=torch.int32),
+             "dist": torch.rand((E,), generator=gen, device=dev) * 12,
+             "labels": torch.randint(0, c.n_out, (N,), generator=gen,
+                                     device=dev, dtype=torch.int32),
+             "node_mask": (torch.rand((N,), generator=gen, device=dev)
+                           < 0.9).float()}
+    step, opt = S.build_gnn_node_train(c, arch.opt, lr=TRAIN_LR)
+    cases.append({
+        "label": f"schnet minibatch_lg ({N} nodes, {E} edges)",
+        "step": step, "whole": ({"params": params,
+                                 "opt": opt.init(params)}, batch),
+        "kind": "train", "launches": {},
+        "place": placer(arch, arch.rules(), cell.in_specs, True)})
+    return cases
+
+
+def hold_train_call(torch, label: str, step, whole, placed) -> dict:
+    """(d) a train call: one warm mesh step (in place, the whole state
+    with it: one rank's DTensors hold its storage), the meshless step from
+    a copy of the warmed state, then the measured mesh step -> (record,
+    measured peak, the largest loss and params differences), the loss to
+    TOL and each param to TOL but where the meshless first moment is
+    under SIGN_FLOOR of its leaf's largest (within 2·lr there)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.module import flatten_with_paths
+    step(*placed)
+    torch.cuda.synchronize()
+    copy = (_tree_map(lambda t: t.clone(), whole[0]), whole[1])
+    ref_state, ref_metrics = step(*copy)
+    ref = {p: t for p, t in flatten_with_paths(ref_state["params"])}
+    # where an update's sign may flip: the first moment under SIGN_FLOOR
+    free = {p: t.abs() <= SIGN_FLOOR * float(t.abs().max())
+            for p, t in flatten_with_paths(ref_state["opt"]["m"])}
+    del copy, ref_state
+    torch.cuda.empty_cache()
+    reset_launches()
+    real, (state, metrics), peak = dry_peak_call(torch, step, placed)
+    launches = {n: c for n, c in LAUNCHES.items() if c}
+    loss_err = _close(f"{label} loss", _whole(metrics["loss"]),
+                      ref_metrics["loss"])
+    worst, loose = 0.0, 0
+    for path, t in flatten_with_paths(state["params"]):
+        got, want, f = _whole(t).float(), ref[path].float(), free[path]
+        diff = (got - want).abs()
+        past = diff > TOL + TOL * want.abs()
+        if bool((past & ~f).any() or (diff > 2 * TRAIN_LR + TOL).any()):
+            raise AssertionError(f"dry run (19d) {label}: param {path} "
+                                 f"differs from the meshless step's by "
+                                 f"{float(diff.max())}")
+        worst = max(worst, float(diff[~f].max()) if bool((~f).any())
+                    else 0.0)
+        loose += int((past & f).sum())
+    log(f"dry run (19d) {label}: mesh step = meshless step: loss "
+        f"{float(metrics['loss'])} (|diff| {loss_err:.3g}), params within "
+        f"{worst:.3g} ({loose} elements with a first moment under "
+        f"SIGN_FLOOR of their leaf's largest past TOL, within 2·lr)")
+    return {"record": real, "peak": peak, "loss_err": loss_err,
+            "params_err": worst, "sign_exempt": loose, "launches": launches}
+
+
+def dryrun_mesh_calls(torch, dev) -> dict:
+    """19. (d) (see the section's comment). Needs no default process group
+    on entry and leaves none."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.module import flatten_with_paths, is_dtensor
+    if dist.is_initialized():
+        raise AssertionError("dry run (19d): a default process group is "
+                             "already up")
+    t0 = time.perf_counter()
+    log(f"dry run (19d): {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated on entry")
+    cases = dry_call_cases(torch, dev)
+    torch.cuda.synchronize()
+    t_built = time.perf_counter()
+    preds = {}
+    DR.fake_world(1)
+    try:
+        mesh = make_host_mesh(1, device_type="cuda")
+        for c in cases:
+            preds[c["label"]] = DR.dry_record(
+                c["step"], lambda c=c: c["place"](DR.fake_like(c["whole"]),
+                                                  mesh))
+    finally:
+        dist.destroy_process_group()
+    t_pred = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ctr_dry_")
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo", store=dist.FileStore(
+            str(Path(tmp) / "solo_store"), 1), rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = make_host_mesh(1, device_type=dev.type)
+        for c in cases:
+            label, step = c["label"], c["step"]
+            placed = c["place"](c["whole"], mesh)
+            if c["kind"] == "train":
+                res = hold_train_call(torch, label, step, c["whole"], placed)
+                real, peak = res.pop("record"), res.pop("peak")
+            else:
+                step(*placed)                             # warm-up
+                torch.cuda.synchronize()
+                reset_launches()
+                real, got, peak = dry_peak_call(torch, step, placed)
+                launches = {n: k for n, k in LAUNCHES.items() if k}
+                err = c["hold"](got, step(*c["whole"]))
+                if not all(is_dtensor(t) for _, t in
+                           flatten_with_paths(dict(enumerate(placed)))):
+                    raise AssertionError(f"dry run (19d) {label}: an "
+                                         f"argument is not a DTensor")
+                log(f"dry run (19d) {label}: mesh call = meshless call "
+                    f"(largest difference {err:.3g})")
+                res = {"err": err, "launches": launches}
+            if res["launches"] != c["launches"] or \
+                    preds[label]["launches"] != c["launches"]:
+                raise AssertionError(
+                    f"dry run (19d) {label}: {res['launches']} launched, "
+                    f"{preds[label]['launches']} predicted, "
+                    f"{c['launches']} wanted")
+            res.update(hold_prediction(
+                f"(19d) {label} on a one-rank NCCL mesh",
+                preds[label], real, peak))
+            out[label] = res
+            del placed
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    del cases
+    torch.cuda.empty_cache()
+    out["ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"dry run (19d): {out['ms'] / 1e3:.1f} s (inputs built "
+        f"{t_built - t0:.1f} s, predictions {t_pred - t_built:.1f} s)")
     return out
 
 
@@ -5940,12 +6299,17 @@ def main() -> int:
         out = dryrun_cell(torch, dev, idx, store8, queries)
         del idx, store8
         torch.cuda.empty_cache()
+        calls = dryrun_mesh_calls(torch, dev)
         gemma = dryrun_gemma(torch, dev)
         log(f"dry run (19): {time.perf_counter() - t0:.1f} s (the gemma "
             f"state's build and warm step included)")
         print(json.dumps({"dryrun": {
             "serve_query": out["serve_query"],
             "serve_world1_peak_rel": out["serve_world1"]["peak_rel"],
+            "cells": {k: {x: v[x] for x in DRY_KEYS}
+                      for k, v in out["cells"].items() if k != "ms"},
+            "calls_peak_rel": {k: v["peak_rel"] for k, v in calls.items()
+                               if k != "ms"},
             "gemma_peak_rel": gemma["peak_rel"]}}), flush=True)
         return 0
 
@@ -6621,6 +6985,10 @@ def main() -> int:
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    clock("19. the dry run (d), on a one-rank mesh")
+    torch.cuda.empty_cache()
+    dry_calls = dryrun_mesh_calls(torch, dev)
+
     clock("18. the registry and the LM on a mesh")
     # -------------------------- 18. the registry and the LM on a mesh --
     torch.cuda.empty_cache()
@@ -6628,6 +6996,9 @@ def main() -> int:
     for path, counts in rm["launches"].items():
         for n, c in counts.items():
             by_path.setdefault(n, {})[path] = c
+    for label, res in dry_calls.items():
+        for n, c in (res["launches"].items() if label != "ms" else ()):
+            by_path.setdefault(n, {})[f"dry run (d) {label}"] = c
     main_launches = {n: sum(paths.values()) for n, paths in by_path.items()}
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
@@ -6668,10 +7039,12 @@ def main() -> int:
         for n in KERNELS]
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel did not run on its path: {kernels}")
-    dry_ms = dry["ms"] + mt["lm"]["gemma"]["dryrun"]["ms"]
-    log(f"dry run (19): (a) {dry['ms'] / 1e3:.1f} s + (b) "
-        f"{mt['lm']['gemma']['dryrun']['ms'] / 1e3:.1f} s = "
-        f"{dry_ms / 1e3:.1f} s of the run (budget {DRY_MS_MAX / 1e3:.0f} s)")
+    dry_ms = dry["ms"] + mt["lm"]["gemma"]["dryrun"]["ms"] + dry_calls["ms"]
+    log(f"dry run (19): (a), (c), (a') {dry['ms'] / 1e3:.1f} s (of which (c) "
+        f"{dry['cells']['ms'] / 1e3:.1f} s) + (b) "
+        f"{mt['lm']['gemma']['dryrun']['ms'] / 1e3:.1f} s + (d) "
+        f"{dry_calls['ms'] / 1e3:.1f} s = {dry_ms / 1e3:.1f} s of the run "
+        f"(budget {DRY_MS_MAX / 1e3:.0f} s)")
     if dry_ms > DRY_MS_MAX:
         raise AssertionError(f"phase 19 took {dry_ms / 1e3:.1f} s, over its "
                              f"{DRY_MS_MAX / 1e3:.0f} s")

@@ -19,17 +19,21 @@ accelerator for a fake ``cuda`` tensor's indexing and backward), the fake
 tensors are the meta device's and stand for the card's
 (``kernels.stand_in_card``): the same program; the host's own tensors
 (the optimizer's step counter, DTensor's planning) stay on the CPU. Params, optimizer state and inputs are rank 0's
-local shards (DTensors from fake local tensors; the serve cell's shard
-axis dropped, as its step takes it), and ``analysis/cost.CostRecorder``
+local shards (DTensors from fake local tensors; serve_query's shard
+axis dropped, as its step built on the mesh takes it), and
+``analysis/cost.CostRecorder``
 records the call: the counterpart of XLA's per-device memory and cost
 analysis, with host reads that a tensor without data cannot answer given
 :data:`ANSWERS`.
 
 Results are cached incrementally in ``artifacts/torch_dryrun_<mesh>.json``
 (``--force`` re-runs the selected cells); statuses ok, skip and error, and
-the exit code is 1 on any error. The cells of this slice are
-:data:`CELLS`; every other unskipped cell is recorded as an error until
-its step runs on a mesh (ROADMAP §1 item 9).
+the exit code is 1 on any error. The cells whose step runs on a mesh
+are :data:`CELLS`; every other unskipped cell (the LM serve cells) is
+recorded as an error until its step does (ROADMAP §1, slice 15b). Each
+record also carries ``replication`` (:func:`record_cell`): its FLOPs x
+world size over those of the same step on the whole arguments on one
+device.
 """
 from __future__ import annotations
 
@@ -45,13 +49,16 @@ import torch
 
 ART = os.path.join(os.path.dirname(__file__), "..", "..", "..", "artifacts")
 
-#: the cells whose step runs on a mesh: the LM train step and the paper's
-#: own production cells
+#: the cells whose step runs on a mesh: the LM train step, the paper's own
+#: production cells, the four CTR models' cells and SchNet's
 CELLS = {
     **{lm: ("train_4k",) for lm in (
         "gemma-7b", "yi-6b", "qwen3-4b", "mixtral-8x7b",
         "llama4-maverick-400b-a17b")},
     "irli-deep1b": ("train_scorers", "serve_query"),
+    **{ctr: ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
+       for ctr in ("dlrm-mlperf", "dien", "bst", "xdeepfm")},
+    "schnet": ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule"),
 }
 
 #: host reads a fake tensor cannot answer, by site, and the answer: a
@@ -104,8 +111,11 @@ def fake_dtensor(meta, spec, mesh):
 
 def fake_shard(meta, spec, mesh):
     """Rank 0's plain local tensor of a global ``meta`` under ``spec``: a
-    leading axis split over every mesh axis (the serve cell's shard axis)
-    is dropped; a replicated leaf is whole."""
+    leading axis split over every mesh axis (the serve_query cell's shard
+    axis, which its step built on the mesh takes as a plain tensor) is
+    dropped; a replicated leaf is whole. Only for such a step: any other
+    step takes DTensors (:func:`fake_dtensor`), and a table split on its
+    rows over every axis would lose its rows here."""
     shape = _local_shape(meta.shape, spec, mesh)
     if spec and spec[0] is not None and len(
             (spec[0],) if isinstance(spec[0], str) else spec[0]) == len(
@@ -147,8 +157,9 @@ def lower_cell(arch, shape: str, mesh):
     dict in which that call leaves ``"want"``, the bytes of those local
     shards by the specs' arithmetic (params by ``rules()`` or the cell's
     ``param_specs``, the optimizer state by ``opt_state_specs``, the
-    batch by ``in_specs``) -> (step, make_args, box), or None for a
-    skipped cell."""
+    batch by ``in_specs``), and ``"whole"``, a function that makes the
+    cell's whole arguments as plain fake tensors (:func:`_global_args`)
+    -> (step, make_args, box), or None for a skipped cell."""
     cell = arch.cells[shape]
     if cell.skip:
         return None
@@ -167,6 +178,7 @@ def lower_cell(arch, shape: str, mesh):
                                        inputs_meta, in_specs)
         return args
 
+    box["whole"] = lambda: _global_args(arch, cell, params_meta, inputs_meta)
     return step, make_args, box
 
 
@@ -182,35 +194,54 @@ def _spec_bytes(tree, specs, mesh) -> int:
 def _fake_args(arch, cell, mesh, params_meta, pspecs, inputs_meta,
                in_specs) -> tuple:
     """-> (rank 0's fake arguments, their bytes by the specs)."""
-    from repro_torch.launch.steps import make_opt, opt_state_specs
+    from repro_torch.launch.steps import opt_state_specs
     want = (_spec_bytes(params_meta, pspecs, mesh)
             + _spec_bytes(inputs_meta, in_specs, mesh))
     if cell.kind != "train":
-        return (_tree(lambda m, s: fake_shard(m, s, mesh), params_meta,
-                      pspecs),
-                _tree(lambda m, s: fake_shard(m, s, mesh), inputs_meta,
-                      in_specs)), want
+        # a serve step built on the mesh (serve_query's sharded search)
+        # takes its shards as plain tensors; any other takes DTensors
+        fake = ((lambda m, s: fake_shard(m, s, mesh)) if cell.step_with_mesh
+                else (lambda m, s: fake_dtensor(m, s, mesh)))
+        return (_tree(fake, params_meta, pspecs),
+                _tree(fake, inputs_meta, in_specs)), want
     params = _tree(lambda m, s: fake_dtensor(m, s, mesh), params_meta,
                    pspecs)
-    whole = _tree(lambda m, s: torch.empty(tuple(m.shape), dtype=m.dtype,
-                                           device=DEVICE),
-                  params_meta, pspecs)
-    opt = make_opt(arch.opt, **arch.opt_kw)
-    opt_whole = opt.init(whole)
-    del whole
+    opt_whole = _global_args(arch, cell, params_meta, {})[0]["opt"]
     ospecs = opt_state_specs(arch.opt, params_meta, pspecs, mesh)
     opt_state = {k: _tree(lambda m, s: fake_dtensor(m, s, mesh), v,
                           ospecs[k])
                  for k, v in opt_whole.items() if k != "step"}
     want += sum(_spec_bytes(opt_whole[k], ospecs[k], mesh)
                 for k in opt_state)
-    from torch._subclasses.fake_tensor import unset_fake_temporarily
-    with unset_fake_temporarily():        # the host counter: real, step 0
-        opt_state["step"] = torch.zeros((), dtype=torch.int32)
+    opt_state["step"] = opt_whole["step"]           # the host counter
     want += 4
     batch = _tree(lambda m, s: fake_dtensor(m, s, mesh), inputs_meta,
                   in_specs)
     return ({"params": params, "opt": opt_state}, batch), want
+
+
+def _global_args(arch, cell, params_meta, inputs_meta) -> tuple:
+    """The cell's arguments whole, as plain fake tensors on :data:`DEVICE`
+    (call under ``FakeTensorMode``): the step's input on one device with
+    no mesh, for :func:`record_cell`'s ``replication``."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    from repro_torch.launch.steps import make_opt
+
+    def whole(tree):
+        if isinstance(tree, dict):
+            return {k: whole(v) for k, v in tree.items()}
+        return torch.empty(tuple(tree.shape), dtype=tree.dtype,
+                           device=DEVICE)
+
+    params, batch = whole(params_meta), whole(inputs_meta)
+    if cell.kind != "train":
+        return params, batch
+    opt_state = {k: v for k, v in make_opt(arch.opt, **arch.opt_kw).init(
+        params).items() if k != "step"}
+    with unset_fake_temporarily():        # the host counter: real, step 0
+        opt_state["step"] = torch.zeros((), dtype=torch.int32)
+    return {"params": params, "opt": opt_state}, batch
 
 
 def dry_record(step, make_args, *, answers=None) -> dict:
@@ -243,7 +274,15 @@ def record_cell(arch, shape: str, mesh) -> dict:
     ``model_flops``
     (model_flops_per_token x global tokens) and ``flops_ratio`` (flops x
     world size / model_flops: at least 1 when every model FLOP is done on
-    some rank)."""
+    some rank).
+
+    ``replication``: flops x world size / the FLOPs of the same step on
+    the cell's whole arguments on one fake device with no mesh
+    (``global_flops``, traced too): how many ranks do each FLOP, 1 when
+    the work is split and the world size when every rank does all of it.
+    A cell whose step is built on the mesh (the LM train cells, which
+    carry ``flops_ratio``, and serve_query's sharded search) has no
+    meshless step: its ``replication`` is None."""
     t0 = time.perf_counter()
     low = lower_cell(arch, shape, mesh)
     if low is None:
@@ -257,6 +296,12 @@ def record_cell(arch, shape: str, mesh) -> dict:
             f"{box['want']} by the specs")
     world = math.prod(mesh.mesh.shape)
     rec["world_size"] = world
+    rec["replication"] = rec["global_flops"] = None
+    if not arch.cells[shape].step_with_mesh:
+        whole = dry_record(step, box["whole"])
+        rec["global_flops"] = whole["flops"]
+        rec["replication"] = rec["flops"] * world / max(whole["flops"], 1)
+        rec["trace_s"] = round(rec["trace_s"] + whole["trace_s"], 2)
     rec["mesh"] = dict(zip(mesh.mesh_dim_names,
                            (int(s) for s in mesh.mesh.shape)))
     if arch.family == "lm" and arch.cells[shape].kind == "train":
@@ -313,7 +358,7 @@ def run_cell(arch_name: str, shape: str, mesh) -> dict:
     if not cell.skip and shape not in CELLS.get(arch_name, ()):
         raise NotImplementedError(
             f"{arch_name}/{shape}: its {cell.kind} step on a mesh waits for "
-            f"slice 15 (ROADMAP §1 item 9)")
+            f"slice 15b (the LM serve cells, ROADMAP §1)")
     rec = record_cell(arch, shape, mesh)
     if rec["status"] == "ok" and arch_name == "irli-deep1b" \
             and shape == "serve_query":

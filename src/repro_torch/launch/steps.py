@@ -45,12 +45,17 @@ assignments.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.models.module import (data_axes, device_of,
                                        flatten_with_paths, is_dtensor,
-                                       map_with_paths, mesh_sizes, place,
-                                       place_tree, unshard_dim)
+                                       is_row_sharded, local_block,
+                                       map_with_paths, mesh_sizes,
+                                       on_batch_rows, place, place_tree,
+                                       rows_dtensor, sum_over_rows,
+                                       unshard_dim)
 from repro_torch.optim.optimizers import make_optimizer
 
 
@@ -167,9 +172,12 @@ def build_train_step(loss_fn, opt_kind: str, **opt_kw):
 
 
 def _on(params, batch: dict) -> dict:
-    """The batch's arrays (numpy or tensors) on the params' device."""
+    """The batch's arrays (numpy or tensors) on the params' device; a
+    DTensor (a batch on a mesh) stays where it is, as ``_placed`` leaves
+    it."""
     dev = device_of(params)
-    return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    return {k: v if is_dtensor(v) else torch.as_tensor(v).to(dev)
+            for k, v in batch.items()}
 
 
 # ------------------------------------------------------------------ LM ------
@@ -378,12 +386,24 @@ def build_ctr_train_step(apply_fn, opt_kind: str = "adamw_nomaster",
     """apply_fn(params, batch) -> logit [B]; the label under
     batch["label"] -> (step, opt), the loss the mean
     ``stable_bce_with_logits``, metric ``bce``. The batch's arrays are
-    moved to the params' device first."""
+    moved to the params' device first.
+
+    On DTensors (the registry's train_batch cells: params by the arch's
+    ``rules()``, the batch's rows over the data axes) the model runs on
+    each rank's rows (``models.module.on_batch_rows``; row-sharded tables
+    read on their blocks, ``models/embedding``) and the loss is the
+    all-reduced sum of the ranks' BCE sums over the global batch size."""
     from repro_torch.models.layers import stable_bce_with_logits
 
     def loss_fn(params, batch):
         b = _on(params, batch)
-        loss = stable_bce_with_logits(apply_fn(params, b), b["label"]).mean()
+        logit, rows = on_batch_rows(apply_fn, params, b)
+        if rows is None:
+            loss = stable_bce_with_logits(logit, b["label"]).mean()
+        else:
+            mesh, pl, n = rows
+            loss = sum_over_rows(stable_bce_with_logits(
+                logit, b["label"].to_local()).sum() / n, mesh, pl)
         return loss, {"bce": loss.detach()}
 
     return build_train_step(loss_fn, opt_kind, **opt_kw)
@@ -392,12 +412,16 @@ def build_ctr_train_step(apply_fn, opt_kind: str = "adamw_nomaster",
 def build_ctr_serve(apply_fn):
     """step(params, batch) -> {"prob": sigmoid(apply_fn(params, batch))}
     [B]; the batch's arrays (numpy or tensors) are moved to the params'
-    device first."""
+    device first. On DTensors each rank scores its own rows
+    (``on_batch_rows``) and prob is a DTensor in the batch's layout."""
 
     def step(params, batch):
         with torch.inference_mode():
-            return {"prob": torch.sigmoid(apply_fn(params,
-                                                   _on(params, batch)))}
+            logit, rows = on_batch_rows(apply_fn, params,
+                                        _on(params, batch))
+            prob = torch.sigmoid(logit)
+            return {"prob": prob if rows is None
+                    else rows_dtensor(prob, rows)}
 
     return step
 
@@ -445,40 +469,106 @@ def build_retrieval_serve(k: int = 100):
     "scores" [Bq, k] f32}, the top-k of batch["query"] [Bq, d] · params[
     "item_table"]["table"] [N, d]ᵀ, ties toward the smaller id as
     ``jax.lax.top_k`` breaks them. One ``distance_topk`` launch ("dot") on
-    the card, which holds no [Bq, N] table; its plain version on the CPU."""
-    from repro_torch.kernels import on_card
-    from repro_torch.kernels.distance_topk.ops import distance_topk
-    from repro_torch.kernels.distance_topk.ref import distance_topk_ref
+    the card, which holds no [Bq, N] table; its plain version on the CPU.
+
+    A DTensor table split on its rows (the retrieval_cand cells) is scored
+    on each rank's block, one launch a rank (:func:`_retrieval_blocks`);
+    every rank returns the same plain tensors."""
 
     def step(params, batch):
         with torch.inference_mode():
-            table = params["item_table"]["table"].to(torch.float32)
-            query = torch.as_tensor(batch["query"]).to(table.device,
-                                                        torch.float32)
-            every = torch.ones((1, table.shape[0]), dtype=torch.bool,
-                               device=table.device)
-            topk = distance_topk if on_card(query, table) \
-                else distance_topk_ref
-            vals, ids = topk(query, table, every, k=k, metric="dot")
+            table = params["item_table"]["table"]
+            query = batch["query"]
+            if is_dtensor(query):
+                query = query.full_tensor()
+            if is_row_sharded(table):
+                return _retrieval_blocks(table, query, k)
+            table = table.to(torch.float32)
+            query = torch.as_tensor(query).to(table.device, torch.float32)
+            vals, ids = _block_topk(query, table, k)
             return {"ids": ids, "scores": vals}
 
     return step
+
+
+def _block_topk(query, table, k: int):
+    """distance_topk ("dot", every row kept) of a query batch against a
+    table: the kernel on the card, its plain version on the CPU."""
+    import repro_torch.core.query  # noqa: F401  (before the kernel's ops,
+    from repro_torch.kernels import on_card  # which core/query imports)
+    from repro_torch.kernels.distance_topk.ops import distance_topk
+    from repro_torch.kernels.distance_topk.ref import distance_topk_ref
+    every = torch.ones((1, table.shape[0]), dtype=torch.bool,
+                       device=table.device)
+    topk = distance_topk if on_card(query, table) else distance_topk_ref
+    return topk(query, table, every, k=k, metric="dot")
+
+
+def _retrieval_blocks(table, query, k: int) -> dict:
+    """The retrieval top-k over a row-sharded DTensor table: each rank's
+    ``distance_topk`` over its block (k' = min(k, its rows); a block of
+    fewer rows pads with -inf and id -1), its ids made global, the [Q, k]
+    winners of the table's blocks all-gathered in block order in one
+    packed [Q, 2k] int32 buffer and merged by ``topk_stable``: equal
+    scores go to the smaller position, which is the smaller global id
+    (blocks ascend and each block's winners are in id order among equal
+    scores), as ``core/distributed._merge_across_shards`` merges the
+    sharded search."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.core.topk import topk_stable
+    mesh = table.device_mesh
+    local = table.to_local().to(torch.float32)
+    (n_loc, _), (lo, _) = local_block(table.shape, mesh, table.placements)
+    query = torch.as_tensor(query).to(local.device, torch.float32)
+    Q = query.shape[0]
+    kk = min(k, n_loc)
+    vals, ids = _block_topk(query, local, kk)
+    ids = (ids.to(torch.int64) + int(lo)).to(torch.int32)
+    if kk < k:
+        vals = torch.cat([vals, vals.new_full((Q, k - kk), -torch.inf)], 1)
+        ids = torch.cat([ids, ids.new_full((Q, k - kk), -1)], 1)
+    packed = torch.cat([vals.contiguous().view(torch.int32), ids], 1)[None]
+    blocks = math.prod(int(mesh.mesh.shape[i])
+                       for i, p in enumerate(table.placements)
+                       if getattr(p, "dim", None) == 0)
+    every = DTensor.from_local(
+        packed, mesh, table.placements, run_check=False,
+        shape=(blocks, Q, 2 * k), stride=(Q * 2 * k, 2 * k, 1)).redistribute(
+            mesh, [Replicate()] * mesh.ndim).to_local()   # [P, Q, 2k]
+    every = every.permute(1, 0, 2)                       # [Q, P, 2k]
+    scores = every[..., :k].contiguous().view(torch.float32).reshape(Q, -1)
+    best, pos = topk_stable(scores, k)
+    merged = torch.gather(every[..., k:].reshape(Q, -1), 1, pos)
+    return {"ids": merged, "scores": best}
 
 
 # ----------------------------------------------------------------- GNN ------
 def build_gnn_node_train(cfg, opt_kind="adamw_nomaster", **opt_kw):
     """SchNet node classification -> (step, opt): the NLL of the fp32
     ``log_softmax`` over ``cfg.n_out`` classes on all nodes, or weighted by
-    batch["node_mask"] (sum / max(sum(mask), 1)); metric ``nll``."""
+    batch["node_mask"] (sum / max(sum(mask), 1)); metric ``nll``. On
+    DTensors (nodes and edges split over the mesh, or whole on every
+    rank) ``schnet_apply`` runs on each rank's blocks and the masked
+    mean's numerator and denominator are each summed over the ranks
+    before the division."""
     from repro_torch.models.gnn import schnet_apply
 
     def loss_fn(params, batch):
         b = _on(params, batch)
         out = schnet_apply(params, cfg, b["feats"], b["src"], b["dst"],
                            b["dist"])
+        rows = out.placements if is_dtensor(out) else None
+        if rows is not None:
+            mesh = out.device_mesh
+            out, b = out.to_local(), {k: v.to_local() for k, v in b.items()}
         logp = torch.log_softmax(out.to(torch.float32), dim=-1)
         nll = -torch.gather(logp, 1, b["labels"].long()[:, None])[:, 0]
-        if "node_mask" in b:
+        if rows is not None:
+            m = b.get("node_mask", torch.ones_like(nll))
+            loss = sum_over_rows(torch.sum(nll * m), mesh, rows) / \
+                torch.clamp(sum_over_rows(m.sum(), mesh, rows), min=1.0)
+        elif "node_mask" in b:
             m = b["node_mask"]
             loss = torch.sum(nll * m) / torch.clamp(m.sum(), min=1.0)
         else:
@@ -492,7 +582,8 @@ def build_gnn_energy_train(cfg, n_graphs: int, opt_kind="adamw_nomaster",
                            **opt_kw):
     """SchNet molecule energy regression -> (step, opt): the MSE of the
     per-graph sums (batch["graph_ids"]) against batch["energy"]; metric
-    ``mse``."""
+    ``mse``. On DTensors the per-graph sums come back whole on every rank
+    (``schnet_apply``'s all-reduced readout), and so does the loss."""
     from repro_torch.models.gnn import schnet_apply
 
     def loss_fn(params, batch):
@@ -500,7 +591,10 @@ def build_gnn_energy_train(cfg, n_graphs: int, opt_kind="adamw_nomaster",
         e = schnet_apply(params, cfg, b["types"], b["src"], b["dst"],
                          b["dist"], graph_ids=b["graph_ids"],
                          n_graphs=n_graphs)
-        loss = torch.mean((e[:, 0] - b["energy"]) ** 2)
+        energy = b["energy"]
+        if is_dtensor(e):
+            e, energy = e.to_local(), energy.full_tensor()
+        loss = torch.mean((e[:, 0] - energy) ** 2)
         return loss, {"mse": loss.detach()}
 
     return build_train_step(loss_fn, opt_kind, **opt_kw)

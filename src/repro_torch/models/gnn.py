@@ -10,6 +10,9 @@ For non-geometric graphs the data pipeline synthesizes deterministic 3-D
 positions per node so the RBF filter path runs at full fidelity
 (``data/synthetic.random_graph``); molecule batches carry their own.
 The params are a plain nested dict of tensors, the reference's tree.
+On a mesh (DTensor inputs, the registry's cells) each rank runs its own
+node and edge blocks, ``h`` gathered whole and the messages' sums
+reduce-scattered onto the node blocks (``_schnet_mesh``).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 
 from repro_torch.kernels import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.module import is_dtensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,12 +92,31 @@ def schnet_apply(p, cfg: SchNetConfig, node_in, edge_src, edge_dst,
                  edge_dist, graph_ids=None, n_graphs: int = 1):
     """node_in [N, d_in] float or [N] int; edges (src -> dst) [E] each;
     edge_dist [E]; graph_ids [N] for batched graphs -> [n_graphs, n_out]
-    (readout "sum") or [N, n_out] (readout "none")."""
+    (readout "sum") or [N, n_out] (readout "none"). DTensor inputs (a
+    mesh) run on each rank's blocks (:func:`_schnet_mesh`)."""
+    if is_dtensor(node_in):
+        return _schnet_mesh(p, cfg, node_in, edge_src, edge_dst, edge_dist,
+                            graph_ids, n_graphs)
+    N = node_in.shape[0]
+    out = _schnet(p, cfg, node_in, edge_src, edge_dst, edge_dist,
+                  lambda h: h, lambda msg, dst: _segment_sum(msg, dst, N))
+    if cfg.readout == "sum":
+        if graph_ids is None:
+            return out.sum(0, keepdim=True)
+        return _segment_sum(out, graph_ids, n_graphs)
+    return out
+
+
+def _schnet(p, cfg: SchNetConfig, node_in, edge_src, edge_dst, edge_dist,
+            whole, scatter):
+    """The interactions and the head on this rank's nodes -> [N_loc,
+    n_out]: ``whole(h)`` gives every node's h as the edges' ``src`` (global
+    ids) read it, ``scatter(msg, dst)`` the messages' sums on this rank's
+    nodes."""
     if cfg.d_in > 0:
         x = shifted_softplus(L.dense_apply(p["embed"], node_in))
     else:
         x = torch.nn.functional.embedding(node_in, p["embed"]["table"])
-    N = x.shape[0]
 
     rbf = rbf_expand(edge_dist, cfg.n_rbf, cfg.cutoff).to(x.dtype)
     # smooth cutoff envelope
@@ -105,16 +128,59 @@ def schnet_apply(p, cfg: SchNetConfig, node_in, edge_src, edge_dst,
         w = L.mlp_apply(ip["filter"], rbf, act="tanh", final_act=False)
         w = shifted_softplus(w) * env[:, None].to(x.dtype)        # [E, d]
         h = L.dense_apply(ip["in_proj"], x)                        # [N, d]
-        msg = h[src] * w                                 # gather ⊙ filter
-        agg = _segment_sum(msg, edge_dst, N)                       # scatter
+        msg = whole(h)[src] * w                          # gather ⊙ filter
+        agg = scatter(msg, edge_dst)                               # scatter
         v = shifted_softplus(L.dense_apply(ip["out1"], agg))
         x = x + L.dense_apply(ip["out2"], v)                       # residual
 
     h = shifted_softplus(L.dense_apply(p["head"]["fc0"], x))
-    out = L.dense_apply(p["head"]["fc1"], h)                       # [N, n_out]
+    return L.dense_apply(p["head"]["fc1"], h)                     # [N, n_out]
 
-    if cfg.readout == "sum":
-        if graph_ids is None:
-            return out.sum(0, keepdim=True)
-        return _segment_sum(out, graph_ids, n_graphs)
-    return out
+
+def _schnet_mesh(p, cfg: SchNetConfig, node_in, edge_src, edge_dst,
+                 edge_dist, graph_ids, n_graphs: int):
+    """``schnet_apply`` of DTensor inputs, nodes and edges split on their
+    first dimension in one layout (``configs/schnet``: over every mesh
+    axis, or whole on every rank for a small graph), params replicated.
+    Per-node work runs on the rank's node block and messages on its edge
+    block: ``h`` is all-gathered (its gradient, partial over the split
+    axes, reduce-scattered back), each rank's [N, d] message sums are
+    reduce-scattered onto the node blocks, and the graph readout's [G,
+    n_out] partial sums all-reduced -> a DTensor: [N, n_out] in the
+    nodes' layout, or [G, n_out] whole on every rank."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.models.module import (is_row_sharded, local_params,
+                                           rows_dtensor, rows_partial)
+    mesh, pl = node_in.device_mesh, tuple(node_in.placements)
+    N = node_in.shape[0]
+    rows = (mesh, pl, N)
+    partial = rows_partial(pl)
+    every = [Replicate()] * mesh.ndim
+
+    if is_row_sharded(node_in):
+        def whole(h):
+            return rows_dtensor(h, rows).redistribute(mesh, every).to_local(
+                grad_placements=partial)
+
+        def scatter(msg, dst):
+            return rows_dtensor(_segment_sum(msg, dst, N),
+                                (mesh, partial, N)).redistribute(
+                                    mesh, pl).to_local()
+    else:
+        def whole(h):
+            return h
+
+        def scatter(msg, dst):
+            return _segment_sum(msg, dst, N)
+
+    out = _schnet(local_params(p, pl), cfg, node_in.to_local(), edge_src.to_local(),
+                  edge_dst.to_local(), edge_dist.to_local(), whole, scatter)
+    if cfg.readout != "sum":
+        return rows_dtensor(out, rows)
+    if graph_ids is None:
+        part = out.sum(0, keepdim=True)
+    else:
+        part = _segment_sum(out, graph_ids.to_local(), n_graphs)
+    return rows_dtensor(part, (mesh, partial, part.shape[0])).redistribute(
+        mesh, every)

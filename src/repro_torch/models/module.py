@@ -23,7 +23,12 @@ Two placements on a ``torch.distributed`` DeviceMesh exist side by side:
     ``dim``, ``Replicate()`` on the others), ``place`` and ``place_tree``
     make this rank's DTensor of a whole tensor or tree, and ``on_whole``
     runs plain code on the whole tensors of replicated DTensors (the
-    sites DTensor cannot carry).
+    sites DTensor cannot carry). The CTR and GNN steps take DTensors too,
+    but run their models on each rank's own rows (``on_batch_rows``):
+    the batch's local blocks, the replicated params' local tensors
+    (``local_param``: a gradient partial over the rows' axes), and the
+    tables split on their rows read through ``models/embedding``, which
+    gathers the ids by the batch's layout (``batch_rows``).
 
 ``constrain`` and ``constrain_first`` are not ported: the port's mesh code
 places every tensor itself, and without a mesh they are no-ops in the
@@ -31,6 +36,7 @@ reference too.
 """
 from __future__ import annotations
 
+import contextvars
 import re
 from typing import Any, Callable, Sequence
 
@@ -39,9 +45,12 @@ from torch import nn
 
 from repro_torch.checkpoint.checkpointer import flatten_with_paths
 
-__all__ = ["ShardRules", "Spec", "as_module", "cast_floating", "data_axes",
-           "device_of", "grad_asked", "is_dtensor", "layer_list",
+__all__ = ["ShardRules", "Spec", "as_module", "batch_rows", "cast_floating",
+           "data_axes", "device_of", "grad_asked", "is_dtensor",
+           "is_row_sharded", "layer_list", "local_param", "local_params",
+           "on_batch_rows",
            "on_whole", "pin_batch", "place", "place_tree", "placements",
+           "rows_dtensor", "rows_partial", "sum_over_rows",
            "replicated_like", "tensor_tree", "tree_to",
            "flatten_with_paths", "map_with_paths", "mesh_sizes",
            "param_bytes", "param_count", "spec_axes", "tree_paths",
@@ -390,3 +399,99 @@ def on_rows(fn: Callable, *args):
                                   stride=stride)
 
     return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+#: the layout of the batch whose rows the code inside :func:`on_batch_rows`
+#: runs on: (mesh, the rows' placements, the global row count)
+_ROWS: contextvars.ContextVar = contextvars.ContextVar("rows", default=None)
+
+
+def batch_rows() -> tuple:
+    """(mesh, placements, global rows) of the batch whose local rows the
+    code runs on, inside :func:`on_batch_rows` (a row-sharded table's
+    lookup, ``models/embedding``, gathers its ids by it); raises
+    outside."""
+    rows = _ROWS.get()
+    if rows is None:
+        raise RuntimeError("a row-sharded table is read outside "
+                           "on_batch_rows: the batch's layout is unknown")
+    return rows
+
+
+def is_row_sharded(t) -> bool:
+    """Whether ``t`` is a DTensor split on its first dimension over some
+    mesh axis (an embedding table split on its rows)."""
+    return is_dtensor(t) and any(getattr(p, "dim", None) == 0
+                                 for p in t.placements)
+
+
+def rows_partial(rows_pl) -> list:
+    """Placements partial over the mesh axes a batch's rows are split on
+    (``rows_pl``: ``Shard(0)`` there) and replicated over the others: the
+    layout of a sum each rank takes over its own rows."""
+    from torch.distributed.tensor import Partial, Replicate
+    return [Partial() if getattr(r, "dim", None) == 0 else Replicate()
+            for r in rows_pl]
+
+
+def local_param(p, rows_pl):
+    """A replicated DTensor param as its local tensor, for code that runs
+    on this rank's rows of a batch laid out by ``rows_pl``: its gradient is
+    partial over the mesh axes the rows are split on (each rank adds its
+    rows' share) and replicated over the others (their ranks hold the same
+    rows)."""
+    return p.to_local(grad_placements=rows_partial(rows_pl))
+
+
+def local_params(tree: Any, rows_pl) -> Any:
+    """A params tree for code on this rank's rows (``rows_pl``): each
+    replicated DTensor as :func:`local_param` gives it; a row-sharded one
+    (a table, read on its blocks by ``models/embedding``) and a plain
+    tensor as they are."""
+    if isinstance(tree, dict):
+        return {k: local_params(v, rows_pl) for k, v in tree.items()}
+    if not is_dtensor(tree) or is_row_sharded(tree):
+        return tree
+    return local_param(tree, rows_pl)
+
+
+def on_batch_rows(fn: Callable, params: Any, batch: dict):
+    """``fn(params, batch)`` on this rank's rows of a batch of DTensors,
+    each split on its first dimension as the cell's in_specs split it (the
+    first DTensor leaf gives the layout): the batch's leaves as their local
+    blocks, the params as :func:`local_params` gives them (the row-sharded
+    ones, tables, left as DTensors for their lookups, which gather ids by
+    :func:`batch_rows`) -> (fn's output, on the local rows; the layout
+    (mesh, placements, global rows)). A plain batch runs ``fn`` as it
+    is, with the layout None."""
+    ref = next((v for v in batch.values() if is_dtensor(v)), None)
+    if ref is None:
+        return fn(params, batch), None
+    rows = (ref.device_mesh, tuple(ref.placements), ref.shape[0])
+    lb = {k: v.to_local() if is_dtensor(v) else v for k, v in batch.items()}
+    token = _ROWS.set(rows)
+    try:
+        return fn(local_params(params, rows[1]), lb), rows
+    finally:
+        _ROWS.reset(token)
+
+
+def rows_dtensor(t: torch.Tensor, rows: tuple):
+    """Local rows ``t`` (a batch's rows first) -> the DTensor of the whole
+    batch in the layout ``rows`` (:func:`batch_rows`'s triple)."""
+    from torch.distributed.tensor import DTensor
+    mesh, pl, n = rows
+    shape = (n, *t.shape[1:])
+    return DTensor.from_local(t, mesh, pl, run_check=False, shape=shape,
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
+def sum_over_rows(t: torch.Tensor, mesh, rows_pl):
+    """The sum over the ranks that hold different rows of a batch laid out
+    by ``rows_pl`` of each one's ``t`` (a partial sum over its rows): an
+    all-reduce over the axes the rows are split on, differentiable; every
+    rank gets the whole sum as a plain tensor."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, mesh, rows_partial(rows_pl),
+                              run_check=False).full_tensor()

@@ -18,6 +18,15 @@ the mask) is ``bag_lookup_reduce`` over the item and the category table
 gradient is asked; under a gradient it is the reference's own masked sum
 of the looked-up rows, because the kernel has no backward and its output
 would cut the tables' gradient.
+
+On a mesh (the registry's cells, ``launch/steps``) a model runs inside
+``models.module.on_batch_rows`` on each rank's own rows, its replicated
+params as local tensors, and the tables its rules split on their rows
+(DLRM's and xDeepFM's mega-tables, xDeepFM's linear table, DIEN's and
+BST's item tables) read through ``models/embedding``'s row-sharded path:
+DIEN's item history sum is then one embedding_bag launch a rank over its
+own bags' looked-up rows (``embedding.rows_reduce``), its category
+table's one launch as before.
 """
 from __future__ import annotations
 
@@ -30,7 +39,8 @@ from repro_torch.kernels.embedding_bag.ops import bag_lookup_reduce
 from repro_torch.models import embedding as E
 from repro_torch.models import layers as L
 from repro_torch.models.attention import AttnConfig, _qkv, _sdpa, attn_init
-from repro_torch.models.module import as_module, grad_asked
+from repro_torch.models.module import (as_module, grad_asked,
+                                       is_row_sharded)
 
 
 def _gen(seed: int, device) -> torch.Generator:
@@ -130,8 +140,12 @@ def dien_apply(p, cfg: DIENConfig, hist_items, hist_cates, target_item,
     two ``bag_lookup_reduce`` calls."""
     B, T = hist_items.shape
     grad = grad_asked(p, hist_mask)
-    he = torch.cat([E.bag_lookup(p["item_emb"], hist_items),
-                    E.bag_lookup(p["cate_emb"], hist_cates)], -1)  # [B,T,2d]
+    item_rows = E.bag_lookup(p["item_emb"], hist_items)            # [B,T,d]
+    he = torch.cat([item_rows, E.bag_lookup(p["cate_emb"], hist_cates)],
+                   -1)                                             # [B,T,2d]
+    # a row-sharded item table's history sum reads these rows again
+    item_rows = item_rows if is_row_sharded(p["item_emb"]["table"]) \
+        else None
     te = torch.cat([E.bag_lookup(p["item_emb"], target_item),
                     E.bag_lookup(p["cate_emb"], target_cate)], -1)  # [B,2d]
 
@@ -159,8 +173,10 @@ def dien_apply(p, cfg: DIENConfig, hist_items, hist_cates, target_item,
         ids = (hist_items.to(torch.int32), hist_cates.to(torch.int32))
         w = hist_mask.to(torch.float32)
         hist_sum = torch.cat(
-            [bag_lookup_reduce(ids[0], w, p["item_emb"]["table"]),
-             bag_lookup_reduce(ids[1], w, p["cate_emb"]["table"])], -1)
+            [E.rows_reduce(p["item_emb"]["table"], ids[0], w,
+                           bag_lookup_reduce, rows=item_rows),
+             E.rows_reduce(p["cate_emb"]["table"], ids[1], w,
+                           bag_lookup_reduce)], -1)
     z = torch.cat([final, te, hist_sum], -1)
     return L.mlp_apply(p["top"], z, act="relu")[:, 0]
 

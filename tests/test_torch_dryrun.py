@@ -80,7 +80,7 @@ def test_irli_deep1b_records_against_the_reference(tmp_path, mesh_kind):
     # ok, cached, skip: 0; an unported cell: an error and exit code 1
     assert out["rcs"] == [0, 0, 0, 1]
     err = json.loads((tmp_path / "dry.json").read_text())[
-        "dlrm-mlperf/train_batch"]
+        "gemma-7b/decode_32k"]
     assert err["status"] == "error" and "slice 15" in err["error"]
 
 

@@ -5,7 +5,9 @@ numpy and the port only (no jax), so a spawned rank starts quickly.
 (``launch/steps.build_irli_train_step``) on DTensors placed as the
 train_scorers cell places them, on gloo ranks through
 ``torch_dist_ranks.spawn``; ``lm_dryrun`` and ``serve_dryrun`` run the dry
-run on torch's fake process group, one process a world size.
+run on torch's fake process group, one process a world size;
+``ctr_dryrun`` records the 20 CTR and SchNet cells of one production mesh
+for tests/test_torch_dryrun_ctr_*.py.
 """
 from __future__ import annotations
 
@@ -144,7 +146,22 @@ def serve_dryrun(tmp: str, mesh_kind: str) -> None:
            DR.main(["--mesh", mesh_kind, "--arch", "gemma-7b", "--shape",
                     "long_500k", "--out", out])]
     ok = json.loads(Path(out).read_text())
-    rcs.append(DR.main(["--mesh", mesh_kind, "--arch", "dlrm-mlperf",
-                        "--shape", "train_batch", "--out", out]))
+    rcs.append(DR.main(["--mesh", mesh_kind, "--arch", "gemma-7b",
+                        "--shape", "decode_32k", "--out", out]))
     (Path(tmp) / "rc.json").write_text(json.dumps(
         {"rcs": rcs, "before_error": ok}))
+
+
+#: the CTR and SchNet archs, each with its four cells
+CTR_ARCHS = ("dlrm-mlperf", "dien", "bst", "xdeepfm", "schnet")
+
+
+def ctr_dryrun(tmp: str, mesh_kind: str) -> None:
+    """The CLI's dry run of the 20 CTR and SchNet cells on one production
+    mesh, an arch a call, into ``ctr_<mesh>.json``; the exit codes to
+    ``ctr_rc.json``."""
+    from repro_torch.launch import dryrun as DR
+    out = str(Path(tmp) / f"ctr_{mesh_kind}.json")
+    rcs = [DR.main(["--mesh", mesh_kind, "--arch", a, "--out", out])
+           for a in CTR_ARCHS]
+    (Path(tmp) / "ctr_rc.json").write_text(json.dumps(rcs))
