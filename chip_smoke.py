@@ -5678,14 +5678,48 @@ def registry_mesh_cell(torch, dev, smi: str) -> dict:
 # scores to TOL, ids equal, the train step's loss to TOL and its params
 # to TOL (but where the meshless step's first moment is under
 # SIGN_FLOOR of its leaf's largest, whose update's sign rounding may
-# flip: there within 2·lr)
+# flip: there within 2·lr). (e) four LM serve cells (DRY_LM_CELLS) on the
+# same fake 256-rank mesh, with fake cuda tensors: each cell's mesh step
+# recorded (the meshless trace of its replication is left to the CPU),
+# printed and equal to DRY_CPU_RECORDS in DRY_KEYS, as (c) holds its
+# cells. (f) on a one-rank NCCL mesh, the arguments placed as DTensors by
+# the cells' specs, the dry run's prediction of four LM serve calls held
+# as (d) holds its four (DRY_LM_CALLS: gemma-7b's prefill at 4 of 28
+# layers, whose mesh attention launches flash_attention once a layer;
+# gemma-7b's decode (its caches' kv heads over "model"); yi-6b's decode
+# (the caches' sequence over "model": the log-sum-exp merge); mixtral's
+# decode at 2 of 32 layers (the SWA ring wrapping, the MoE)), and each
+# mesh call's output held to the meshless call on the same inputs: next
+# tokens equal, logits (and the prefill's hidden state) within
+# DECODE_TOL relative L2 (the prefill's within PREFILL_TOL), each cache
+# after the step within DECODE_TOL of the meshless step's. (a)-(d) have
+# DRY_MS_MAX, (e) and (f) DRY_LM_MS_MAX.
 DRY_FLOPS_TOL, DRY_PEAK_TOL = 1e-3, 0.10
-DRY_MS_MAX = 45_000                         # the phase's budget
+DRY_MS_MAX = 45_000                         # (a)-(d)'s budget
+DRY_LM_MS_MAX = 60_000                      # (e) and (f)'s budget
+#: (c)'s CTR and SchNet cells and (e)'s LM serve cells
+DRY_CTR_CELLS = ("dlrm-mlperf/train_batch", "dien/serve_p99",
+                 "dlrm-mlperf/retrieval_cand", "schnet/ogb_products")
+DRY_LM_CELLS = ("gemma-7b/decode_32k", "yi-6b/decode_32k",
+                "gemma-7b/prefill_32k", "mixtral-8x7b/long_500k")
+#: (f)'s calls: label, arch, layers kept (a cut of depth), kind, batch
+#: rows, the prompt's length or the decode's context, the decode rows'
+#: first position (row i at pos0 + 3·i; mixtral's 4,096-slot ring wraps)
+DRY_LM_CALLS = (
+    ("gemma-7b prefill (4 of 28 layers, [1, 32768])", "gemma-7b", 4,
+     "prefill", 1, 32768, 0),
+    ("gemma-7b decode (4 of 28 layers, B = 8, context 4096)", "gemma-7b",
+     4, "decode", 8, 4096, 4000),
+    ("yi-6b decode (4 of 32 layers, B = 8, context 4096)", "yi-6b", 4,
+     "decode", 8, 4096, 4000),
+    ("mixtral-8x7b decode (2 of 32 layers, B = 8, context 4096)",
+     "mixtral-8x7b", 2, "decode", 8, 4096, 4090),
+)
 SIGN_FLOOR = 1e-3
 DRY_DLRM_BATCH = 65_536                     # (d)'s train_batch, the cell's
-#: the records of (c)'s cells on the fake 256-rank mesh (data 16 x model
-#: 16) by ``python -m repro_torch.launch.dryrun --mesh single`` on the
-#: CPU (torch 2.13, meta tensors standing for the card's): the card
+#: the records of (c)'s and (e)'s cells on the fake 256-rank mesh (data
+#: 16 x model 16) by ``python -m repro_torch.launch.dryrun --mesh single``
+#: on the CPU (torch 2.13, meta tensors standing for the card's): the card
 #: machine's must equal them in these keys
 DRY_KEYS = ("argument_bytes", "flops", "launches", "collective_count",
             "collectives")
@@ -5714,6 +5748,27 @@ DRY_CPU_RECORDS = {
             "all-gather": 3997904128, "all-reduce": 940936,
             "reduce-scatter": 249839616, "all-to-all": 0,
             "collective-permute": 0}},
+    "gemma-7b/decode_32k": {
+        "argument_bytes": 8583731264, "flops": 16053698560, "launches": {},
+        "collective_count": 58, "collectives": {
+            "all-gather": 0, "all-reduce": 2801728, "reduce-scatter": 0,
+            "all-to-all": 0, "collective-permute": 0}},
+    "yi-6b/decode_32k": {
+        "argument_bytes": 1831870528, "flops": 14388559872, "launches": {},
+        "collective_count": 258, "collectives": {
+            "all-gather": 2621440, "all-reduce": 8519744,
+            "reduce-scatter": 0, "all-to-all": 0, "collective-permute": 0}},
+    "gemma-7b/prefill_32k": {
+        "argument_bytes": 1067800576, "flops": 94284258213888,
+        "launches": {"flash_attention": 28}, "collective_count": 58,
+        "collectives": {"all-gather": 0, "all-reduce": 22951231504,
+                        "reduce-scatter": 0, "all-to-all": 0,
+                        "collective-permute": 0}},
+    "mixtral-8x7b/long_500k": {
+        "argument_bytes": 5842411528, "flops": 45291798528, "launches": {},
+        "collective_count": 386, "collectives": {
+            "all-gather": 4587520, "all-reduce": 18112520,
+            "reduce-scatter": 0, "all-to-all": 0, "collective-permute": 0}},
 }
 
 
@@ -5782,12 +5837,13 @@ def dryrun_train(torch, label: str, step, state, batch) -> dict:
 
 
 def dryrun_cpu_cells(mesh) -> dict:
-    """(c) DRY_CPU_RECORDS's cells on the fake 256-rank ``mesh`` (inside its
-    fake world): each record logged and held to the CPU's."""
+    """(c) DRY_CTR_CELLS on the fake 256-rank ``mesh`` (inside its fake
+    world): each record logged and held to the CPU's."""
     from repro_torch.launch import dryrun as DR
     t0 = time.perf_counter()
     out = {}
-    for key, want in DRY_CPU_RECORDS.items():
+    for key in DRY_CTR_CELLS:
+        want = DRY_CPU_RECORDS[key]
         rec = DR.run_cell(*key.split("/"), mesh)
         log(f"dry run (19c) {key} on the fake 256-rank mesh: "
             f"{json.dumps(rec)}")
@@ -5802,10 +5858,41 @@ def dryrun_cpu_cells(mesh) -> dict:
     return out
 
 
+def dryrun_lm_cells(mesh) -> dict:
+    """(e) DRY_LM_CELLS on the fake 256-rank ``mesh`` (inside its fake
+    world): each cell's mesh step recorded on rank 0's fake DTensors
+    (``lower_cell`` + ``dry_record``), its argument bytes held to the
+    specs', the record logged and held to the CPU's in DRY_KEYS."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import dryrun as DR
+    t0 = time.perf_counter()
+    out = {}
+    for key in DRY_LM_CELLS:
+        arch, shape = key.split("/")
+        step, make_args, box = DR.lower_cell(get_arch(arch), shape, mesh)
+        rec = DR.dry_record(step, make_args)
+        log(f"dry run (19e) {key} on the fake 256-rank mesh: "
+            f"{json.dumps(rec)}")
+        if rec["argument_bytes"] != box["want"]:
+            raise AssertionError(f"dry run (19e) {key}: argument bytes "
+                                 f"{rec['argument_bytes']}, {box['want']} "
+                                 f"by the specs")
+        got = {k: rec[k] for k in DRY_KEYS}
+        if got != DRY_CPU_RECORDS[key]:
+            raise AssertionError(f"dry run (19e) {key}: {got} on the card's "
+                                 f"machine, {DRY_CPU_RECORDS[key]} on the "
+                                 f"CPU")
+        out[key] = rec
+    out["ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"dry run (19e): {out['ms'] / 1e3:.1f} s, each record equal to the "
+        f"CPU's in {', '.join(DRY_KEYS)}")
+    return out
+
+
 def dryrun_cell(torch, dev, idx, store8, queries) -> dict:
-    """19. (a) the production cell's dry run, (c) DRY_CPU_RECORDS's cells on
-    the same mesh, and (a') the world-size-1 serve call's (see the
-    section's comment). Needs no default process group on entry and
+    """19. (a) the production cell's dry run, (c) and (e) DRY_CPU_RECORDS's
+    cells on the same mesh, and (a') the world-size-1 serve call's (see
+    the section's comment). Needs no default process group on entry and
     leaves none."""
     import tempfile
 
@@ -5829,6 +5916,7 @@ def dryrun_cell(torch, dev, idx, store8, queries) -> dict:
             f"mesh: {json.dumps(rec)}")
         out["serve_query"] = rec
         out["cells"] = dryrun_cpu_cells(mesh)
+        out["lm_cells"] = dryrun_lm_cells(mesh)
 
         DR.fake_world(1)
 
@@ -5857,8 +5945,8 @@ def dryrun_cell(torch, dev, idx, store8, queries) -> dict:
         f"build_irli_serve at world size 1 (Q={queries.shape[0]}, m={M}, "
         f"tau={TAU}, k={K}, int8 store of {store8.codes.shape[0]} rows)",
         pred, real, peak)
-    out["ms"] = (time.perf_counter() - t0) * 1e3
-    log(f"dry run (19a): {out['ms'] / 1e3:.1f} s")
+    out["ms"] = (time.perf_counter() - t0) * 1e3 - out["lm_cells"]["ms"]
+    log(f"dry run (19a): {out['ms'] / 1e3:.1f} s ((e) not included)")
     return out
 
 
@@ -6137,6 +6225,188 @@ def dryrun_mesh_calls(torch, dev) -> dict:
     return out
 
 
+def _tree_leaves(tree) -> list:
+    """The tensors of a nest of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tree_leaves(v)]
+    return [tree]
+
+
+def dry_lm_cases(torch, dev) -> list:
+    """(f)'s calls (DRY_LM_CALLS), each a dict: label, the step, its whole
+    arguments on the card (random weights from ``lm_init``, cut in
+    depth; tokens, or a decode's token, positions and caches filled with
+    N(0, 1) bf16 values), ``place(args, mesh)`` (its DTensors by the
+    arch's rules and the cell's specs), the launches wanted, the kind."""
+    import dataclasses
+    import importlib
+
+    from repro_torch.configs.lm_common import _cache_sharding, lm_rules
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import steps as S
+    from repro_torch.models.module import data_axes, place_tree, tensor_tree
+    from repro_torch.models.transformer import init_cache, lm_init
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    models, cases = {}, []
+    for label, name, layers, kind, B, n, pos0 in DRY_LM_CALLS:
+        if (name, layers) not in models:
+            cfg = dataclasses.replace(
+                importlib.import_module(ARCHS[name]).CONFIG, n_layers=layers)
+            models[name, layers] = (cfg, tensor_tree(lm_init(
+                cfg, seed=SEED, device=dev)))
+        cfg, params = models[name, layers]
+        log(f"dry run (19f) {label}: {name} cut to {layers} of its layers "
+            f"(depth only; every width the config's)")
+        if kind == "prefill":
+            batch = {"tokens": torch.randint(0, cfg.vocab, (B, n),
+                                             generator=gen, device=dev,
+                                             dtype=torch.int32)}
+            step = S.build_lm_prefill(cfg)
+            launches = {"flash_attention": layers}
+
+            def specs(mesh, cfg=cfg):
+                return {"tokens": (data_axes(mesh), None)}
+        else:
+            caches = init_cache(cfg, B, n, device=dev)
+            for c in caches:
+                for t in c.values():
+                    t.normal_(generator=gen)
+            batch = {"token": torch.randint(0, cfg.vocab, (B,),
+                                            generator=gen, device=dev,
+                                            dtype=torch.int32),
+                     "pos": pos0 + 3 * torch.arange(B, device=dev,
+                                                    dtype=torch.int32),
+                     "caches": caches}
+            step = S.build_lm_decode(cfg, n)
+            launches = {}
+
+            def specs(mesh, cfg=cfg):
+                dp = data_axes(mesh)
+                return {"token": (dp,), "pos": (dp,),
+                        "caches": _cache_sharding(cfg, mesh)}
+
+        def place(args, mesh, cfg=cfg, specs=specs):
+            head, b = args
+            return (place_tree(head, lm_rules(cfg).specs(head), mesh),
+                    place_tree(b, specs(mesh), mesh))
+
+        cases.append({"label": label, "step": step, "kind": kind,
+                      "whole": (params, batch), "place": place,
+                      "launches": launches})
+    return cases
+
+
+def hold_lm_call(label: str, kind: str, got: dict, want: dict) -> dict:
+    """(f) a mesh call's outputs against the meshless call's: next tokens
+    equal, logits (and a prefill's hidden state) within DECODE_TOL
+    relative L2 (a prefill's within PREFILL_TOL), a decode's caches after
+    the step each within DECODE_TOL -> the largest distances."""
+    tol = PREFILL_TOL if kind == "prefill" else DECODE_TOL
+    tok = _whole(got["next_token"])
+    if not bool((tok == want["next_token"]).all()):
+        raise AssertionError(f"dry run (19f) {label}: next tokens "
+                             f"{tok.tolist()} on the mesh, "
+                             f"{want['next_token'].tolist()} meshless")
+    errs = {"logits": rel_l2(_whole(got["logits"]), want["logits"]),
+            "hidden": rel_l2(_whole(got["hidden"]), want["hidden"])}
+    if kind == "decode":
+        errs["caches"] = max(
+            rel_l2(_whole(a[n]), b[n])
+            for a, b in zip(got["caches"], want["caches"])
+            for n in ("k", "v"))
+    bad = {k: e for k, e in errs.items() if not e <= tol}
+    if bad:
+        raise AssertionError(f"dry run (19f) {label}: the mesh call differs "
+                             f"from the meshless one by {bad} (relative L2,"
+                             f" limit {tol})")
+    log(f"dry run (19f) {label}: mesh call = meshless call (next tokens "
+        f"equal; relative L2 {', '.join(f'{k} {e:.3e}' for k, e in errs.items())}"
+        f", limit {tol})")
+    return errs
+
+
+def dryrun_lm_calls(torch, dev) -> dict:
+    """19. (f) (see the section's comment). Needs no default process group
+    on entry and leaves none."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.module import is_dtensor
+    if dist.is_initialized():
+        raise AssertionError("dry run (19f): a default process group is "
+                             "already up")
+    t0 = time.perf_counter()
+    cases = dry_lm_cases(torch, dev)
+    torch.cuda.synchronize()
+    t_built = time.perf_counter()
+    preds = {}
+    DR.fake_world(1)
+    try:
+        mesh = make_host_mesh(1, device_type="cuda")
+        for c in cases:
+            preds[c["label"]] = DR.dry_record(
+                c["step"], lambda c=c: c["place"](DR.fake_like(c["whole"]),
+                                                  mesh))
+    finally:
+        dist.destroy_process_group()
+    t_pred = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="lm_dry_")
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo", store=dist.FileStore(
+            str(Path(tmp) / "solo_store"), 1), rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = make_host_mesh(1, device_type=dev.type)
+        for c in cases:
+            label, step = c["label"], c["step"]
+            params, batch = c["whole"]
+            # the meshless call's own caches: on one rank a placed cache
+            # shares the whole tensor's storage, which the mesh calls write
+            ref_batch = dict(batch)
+            if "caches" in batch:
+                ref_batch["caches"] = [{n: t.clone() for n, t in lc.items()}
+                                       for lc in batch["caches"]]
+            placed = c["place"](c["whole"], mesh)
+            if not all(is_dtensor(t) for t in _tree_leaves(placed)):
+                raise AssertionError(f"dry run (19f) {label}: an argument "
+                                     f"is not a DTensor")
+            step(*placed)                       # warm-up (a decode writes
+            torch.cuda.synchronize()            # the same slots again)
+            reset_launches()
+            real, got, peak = dry_peak_call(torch, step, placed)
+            launches = {n: k for n, k in LAUNCHES.items() if k}
+            want = step(params, ref_batch)
+            errs = hold_lm_call(label, c["kind"], got, want)
+            if launches != c["launches"] or \
+                    preds[label]["launches"] != c["launches"]:
+                raise AssertionError(
+                    f"dry run (19f) {label}: {launches} launched, "
+                    f"{preds[label]['launches']} predicted, "
+                    f"{c['launches']} wanted")
+            res = {"errs": errs, "launches": launches}
+            res.update(hold_prediction(
+                f"(19f) {label} on a one-rank NCCL mesh", preds[label], real,
+                peak))
+            out[label] = res
+            del placed, got, want, ref_batch
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    del cases
+    torch.cuda.empty_cache()
+    out["ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"dry run (19f): {out['ms'] / 1e3:.1f} s (inputs built "
+        f"{t_built - t0:.1f} s, predictions {t_pred - t_built:.1f} s)")
+    return out
+
+
 def dryrun_gemma(torch, dev) -> dict:
     """(b) when phase 19 runs alone (--dryrun): the model-train cell's
     gemma-7b step (GEMMA_TRAIN_LAYERS layers, batch 2 x TRAIN_SEQ,
@@ -6300,16 +6570,20 @@ def main() -> int:
         del idx, store8
         torch.cuda.empty_cache()
         calls = dryrun_mesh_calls(torch, dev)
+        lm_calls = dryrun_lm_calls(torch, dev)
         gemma = dryrun_gemma(torch, dev)
         log(f"dry run (19): {time.perf_counter() - t0:.1f} s (the gemma "
-            f"state's build and warm step included)")
+            f"state's build and warm step included); (e) and (f) "
+            f"{(out['lm_cells']['ms'] + lm_calls['ms']) / 1e3:.1f} s")
         print(json.dumps({"dryrun": {
             "serve_query": out["serve_query"],
             "serve_world1_peak_rel": out["serve_world1"]["peak_rel"],
             "cells": {k: {x: v[x] for x in DRY_KEYS}
-                      for k, v in out["cells"].items() if k != "ms"},
-            "calls_peak_rel": {k: v["peak_rel"] for k, v in calls.items()
-                               if k != "ms"},
+                      for cells in (out["cells"], out["lm_cells"])
+                      for k, v in cells.items() if k != "ms"},
+            "calls_peak_rel": {k: v["peak_rel"]
+                               for c in (calls, lm_calls)
+                               for k, v in c.items() if k != "ms"},
             "gemma_peak_rel": gemma["peak_rel"]}}), flush=True)
         return 0
 
@@ -6988,6 +7262,9 @@ def main() -> int:
     clock("19. the dry run (d), on a one-rank mesh")
     torch.cuda.empty_cache()
     dry_calls = dryrun_mesh_calls(torch, dev)
+    clock("19. the dry run (f), the LM serve calls on a one-rank mesh")
+    torch.cuda.empty_cache()
+    dry_lm_calls = dryrun_lm_calls(torch, dev)
 
     clock("18. the registry and the LM on a mesh")
     # -------------------------- 18. the registry and the LM on a mesh --
@@ -6996,9 +7273,10 @@ def main() -> int:
     for path, counts in rm["launches"].items():
         for n, c in counts.items():
             by_path.setdefault(n, {})[path] = c
-    for label, res in dry_calls.items():
-        for n, c in (res["launches"].items() if label != "ms" else ()):
-            by_path.setdefault(n, {})[f"dry run (d) {label}"] = c
+    for part, calls in (("d", dry_calls), ("f", dry_lm_calls)):
+        for label, res in calls.items():
+            for n, c in (res["launches"].items() if label != "ms" else ()):
+                by_path.setdefault(n, {})[f"dry run ({part}) {label}"] = c
     main_launches = {n: sum(paths.values()) for n, paths in by_path.items()}
     log(f"nvidia-smi clocks.sm,power.draw,power.limit,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
@@ -7048,6 +7326,14 @@ def main() -> int:
     if dry_ms > DRY_MS_MAX:
         raise AssertionError(f"phase 19 took {dry_ms / 1e3:.1f} s, over its "
                              f"{DRY_MS_MAX / 1e3:.0f} s")
+    dry_lm_ms = dry["lm_cells"]["ms"] + dry_lm_calls["ms"]
+    log(f"dry run (19): (e) {dry['lm_cells']['ms'] / 1e3:.1f} s + (f) "
+        f"{dry_lm_calls['ms'] / 1e3:.1f} s = {dry_lm_ms / 1e3:.1f} s of the "
+        f"run (budget {DRY_LM_MS_MAX / 1e3:.0f} s)")
+    if dry_lm_ms > DRY_LM_MS_MAX:
+        raise AssertionError(f"phase 19's (e) and (f) took "
+                             f"{dry_lm_ms / 1e3:.1f} s, over their "
+                             f"{DRY_LM_MS_MAX / 1e3:.0f} s")
     log(f"chip_smoke: the whole run, build included, took "
         f"{time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -28,12 +28,12 @@ analysis, with host reads that a tensor without data cannot answer given
 
 Results are cached incrementally in ``artifacts/torch_dryrun_<mesh>.json``
 (``--force`` re-runs the selected cells); statuses ok, skip and error, and
-the exit code is 1 on any error. The cells whose step runs on a mesh
-are :data:`CELLS`; every other unskipped cell (the LM serve cells) is
-recorded as an error until its step does (ROADMAP §1, slice 15b). Each
-record also carries ``replication`` (:func:`record_cell`): its FLOPs x
-world size over those of the same step on the whole arguments on one
-device.
+the exit code is 1 on any error. Every unskipped registry cell's step
+runs on a mesh: the LM train, prefill and decode cells, the paper's own
+production cells, the CTR models' and SchNet's (a cell the registry
+lacks is recorded as an error). Each record also carries
+``replication`` (:func:`record_cell`): its FLOPs x world size over those
+of the same step on the whole arguments on one device.
 """
 from __future__ import annotations
 
@@ -48,18 +48,6 @@ import traceback
 import torch
 
 ART = os.path.join(os.path.dirname(__file__), "..", "..", "..", "artifacts")
-
-#: the cells whose step runs on a mesh: the LM train step, the paper's own
-#: production cells, the four CTR models' cells and SchNet's
-CELLS = {
-    **{lm: ("train_4k",) for lm in (
-        "gemma-7b", "yi-6b", "qwen3-4b", "mixtral-8x7b",
-        "llama4-maverick-400b-a17b")},
-    "irli-deep1b": ("train_scorers", "serve_query"),
-    **{ctr: ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
-       for ctr in ("dlrm-mlperf", "dien", "bst", "xdeepfm")},
-    "schnet": ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule"),
-}
 
 #: host reads a fake tensor cannot answer, by site, and the answer: a
 #: stable top-k's tie test (the untied path, the common one on the card);
@@ -147,6 +135,8 @@ def fake_like(tree):
 def _tree(fn, tree, specs):
     if isinstance(tree, dict):
         return {k: _tree(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, list):                  # the LM's per-layer caches
+        return [_tree(fn, v, s) for v, s in zip(tree, specs)]
     return fn(tree, specs)
 
 
@@ -187,6 +177,8 @@ def _spec_bytes(tree, specs, mesh) -> int:
     tree (the serve cell's dropped shard axis is a size-1 dim)."""
     if isinstance(tree, dict):
         return sum(_spec_bytes(v, specs[k], mesh) for k, v in tree.items())
+    if isinstance(tree, list):
+        return sum(_spec_bytes(v, s, mesh) for v, s in zip(tree, specs))
     return math.prod(_local_shape(tree.shape, specs, mesh)) \
         * tree.dtype.itemsize
 
@@ -231,6 +223,8 @@ def _global_args(arch, cell, params_meta, inputs_meta) -> tuple:
     def whole(tree):
         if isinstance(tree, dict):
             return {k: whole(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [whole(v) for v in tree]
         return torch.empty(tuple(tree.shape), dtype=tree.dtype,
                            device=DEVICE)
 
@@ -350,15 +344,10 @@ def check_store_accounting(rec: dict, n_shards: int) -> dict:
 def run_cell(arch_name: str, shape: str, mesh) -> dict:
     """One registry cell on ``mesh`` (inside the fake world) -> its record
     (:func:`record_cell`); serve_query's also passes
-    :func:`check_store_accounting` with the mesh's size. A cell outside
-    :data:`CELLS` raises NotImplementedError."""
+    :func:`check_store_accounting` with the mesh's size. A shape the
+    arch lacks raises KeyError."""
     from repro_torch.configs.registry import get_arch
     arch = get_arch(arch_name)
-    cell = arch.cells[shape]
-    if not cell.skip and shape not in CELLS.get(arch_name, ()):
-        raise NotImplementedError(
-            f"{arch_name}/{shape}: its {cell.kind} step on a mesh waits for "
-            f"slice 15b (the LM serve cells, ROADMAP §1)")
     rec = record_cell(arch, shape, mesh)
     if rec["status"] == "ok" and arch_name == "irli-deep1b" \
             and shape == "serve_query":

@@ -260,7 +260,10 @@ def build_lm_train_step(cfg, opt_kind: str, n_micro: int = 8, mesh=None,
     carry the single-device code, the site changes on a mesh only:
 
       * ``transformer._embed``: the embedding lookup reads the row-sharded
-        table whole (DTensor's masked lookup fails to reduce);
+        table on its blocks (``models/embedding.dtensor_lookup``: each
+        rank looks up its ids in its own rows, the partial rows summed
+        over "model"; no rank gathers the table, and DTensor's own masked
+        lookup fails to reduce);
       * ``transformer.chunked_xent``: a chunk's logsumexp and gold logit
         from the vocabulary-sharded logits (``_lse_gold_sharded``: the
         max and the sum of exponentials reduced across ranks, each rank
@@ -295,6 +298,13 @@ def build_lm_train_step(cfg, opt_kind: str, n_micro: int = 8, mesh=None,
         after the grouping; the "plain" grouping gathers the token ids
         whole first (a batch split over more data ranks than it has
         microbatches does not unflatten).
+
+    The serve steps on a mesh (``build_lm_prefill``, ``build_lm_decode``)
+    share these sites; the prefill's attention also runs the
+    flash-attention kernel on each rank's block (``_attend_mesh``), and
+    the decode writes and reads each rank's block of the DTensor caches
+    (``attention._decode_mesh``) and takes the greedy token of the
+    vocabulary-split logits (``next_token``).
 
     Without a mesh the step is the single-device one, unchanged."""
     opt = make_opt(opt_kind, **opt_kw)
@@ -334,19 +344,46 @@ def _placed(params, batch: dict, mesh) -> dict:
 def next_token(logits):
     """Greedy next token of fp32 logits [B, V] -> int32 [B]; a tie goes to
     the smaller id (``torch.argmax`` returns the first maximum, as
-    ``jnp.argmax`` does)."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+    ``jnp.argmax`` does). DTensor logits (a mesh; the vocabulary split
+    over "model") -> a DTensor [B] in their rows' layout: each rank's
+    first maximum of its block, then the largest (value, -global id) pair
+    across the ranks that split the vocabulary, packed in one int64 (the
+    value's order-preserving bits high, 2^31 - 1 - id low) and
+    all-reduced by max."""
+    if not is_dtensor(logits):
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.models.module import reduce_over
+    mesh = logits.device_mesh
+    pl = list(logits.placements)
+    local = logits.to_local()
+    _, (_, v0) = local_block(logits.shape, mesh, pl)
+    bits = local.amax(-1).to(torch.float32).view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    ids = local.argmax(-1).to(torch.int64) + v0
+    packed = key * (1 << 32) + (0x7FFFFFFF - ids)
+    packed = reduce_over(packed, mesh, [i for i, p in enumerate(pl)
+                                        if getattr(p, "dim", None) == 1],
+                         "max")
+    best = (0x7FFFFFFF - torch.remainder(packed, 1 << 32)).to(torch.int32)
+    rows = [p if getattr(p, "dim", None) == 0 else Replicate() for p in pl]
+    return DTensor.from_local(best, mesh, rows, run_check=False,
+                              shape=logits.shape[:1], stride=(1,))
 
 
 def build_lm_prefill(cfg):
     """step(model, batch) -> {"logits" [B, V] fp32, "hidden" [B, d],
     "next_token" [B] int32} for batch["tokens"] [B, S] (cache emission
-    elided, as in the reference)."""
+    elided, as in the reference). ``model``: the LM module or its tensor
+    tree; on a mesh a tree of DTensors (placed by the arch's rules) and
+    DTensor tokens (by the cell's in_specs), each output a DTensor, the
+    logits' vocabulary split as the head's."""
     from repro_torch.models.transformer import _logits, lm_backbone
 
     def step(model, batch):
         with torch.inference_mode():
-            tokens = torch.as_tensor(batch["tokens"], device=model.device)
+            tokens = _on(model, batch)["tokens"]
             h, _ = lm_backbone(model, cfg, tokens)
             last = h[:, -1, :]
             logits = _logits(model, cfg, last)
@@ -363,17 +400,19 @@ def build_lm_decode(cfg, context_len: int):
     context_len)``), which the step writes in place and returns. The
     logits and the final hidden state (the vocabulary head's input) come
     with the reference's two outputs. The caches carry their length, as
-    in the reference, whose step does not read ``context_len`` either."""
+    in the reference, whose step does not read ``context_len`` either. On
+    a mesh the params, token, pos and caches are DTensors (the cell's
+    specs: the caches' kv heads or sequence over "model"); each rank
+    writes its block of the caches in place and the outputs are
+    DTensors."""
     from repro_torch.models.transformer import _logits, decode_hidden
     del context_len
 
     def step(model, batch):
         with torch.inference_mode():
-            dev = model.device
-            token = torch.as_tensor(batch["token"], device=dev)
-            pos = torch.as_tensor(batch["pos"], device=dev)
+            b = _on(model, {k: batch[k] for k in ("token", "pos")})
             caches = batch["caches"]
-            h = decode_hidden(model, cfg, token, caches, pos)
+            h = decode_hidden(model, cfg, b["token"], caches, b["pos"])
             logits = _logits(model, cfg, h)
             return {"next_token": next_token(logits), "caches": caches,
                     "logits": logits, "hidden": h}

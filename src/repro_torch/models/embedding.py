@@ -27,7 +27,9 @@ on its block: partial only over the axes where the table is whole and the
 rows are split (``to_local(grad_placements=)``, as ``attention.
 _attend_mesh`` does). :func:`rows_reduce` runs a padded bag sum (the
 embedding_bag kernel) on each rank's own bags from their looked-up rows,
-one launch a rank.
+one launch a rank. :func:`dtensor_lookup` is the same lookup at DTensor
+ids (the LM's token embedding on a mesh, ``models/transformer._embed``),
+its rows returned in the ids' layout.
 """
 from __future__ import annotations
 
@@ -54,14 +56,14 @@ def bag_lookup(p, ids):
     return F.embedding(ids, p["table"])
 
 
-def _block_plan(table):
-    """A row-sharded table against the batch's layout -> (the rank's block
-    as a local tensor (its gradient placements: see the module
-    docstring), its first global row, the batch's layout, the placements
-    of the ids gathered over the table's axes, those of the partial
-    rows)."""
+def _block_plan(table, rows=None):
+    """A row-sharded table against the batch's layout (``rows``, else
+    :func:`batch_rows`) -> (the rank's block as a local tensor (its
+    gradient placements: see the module docstring), its first global row,
+    the batch's layout, the placements of the ids gathered over the
+    table's axes, those of the partial rows)."""
     from torch.distributed.tensor import Partial, Replicate
-    mesh, pl, n = batch_rows()
+    mesh, pl, n = rows or batch_rows()
     axes = {i for i, p in enumerate(table.placements)
             if getattr(p, "dim", None) == 0}
     gathered = [Replicate() if i in axes else p for i, p in enumerate(pl)]
@@ -87,12 +89,13 @@ def _reduce(part, rows, partial):
         mesh, pl).to_local()
 
 
-def sharded_lookup(table, ids):
+def sharded_lookup(table, ids, rows=None):
     """``F.embedding(ids, table)`` of a row-sharded DTensor table [V, D] on
-    this rank's ids [n_loc, ...] (inside ``on_batch_rows``) -> its local
-    rows [n_loc, ..., D]: each rank looks up the gathered ids that fall in
-    its block; the partial rows are summed onto the batch's layout."""
-    local, lo, rows, gathered, partial = _block_plan(table)
+    this rank's ids [n_loc, ...] (inside ``on_batch_rows``, or of a batch
+    laid out as ``rows``) -> its local rows [n_loc, ..., D]: each rank
+    looks up the gathered ids that fall in its block; the partial rows are
+    summed onto the batch's layout."""
+    local, lo, rows, gathered, partial = _block_plan(table, rows)
     every = _gather(ids, rows, gathered)
     inside = (every >= lo) & (every < lo + local.shape[0])
     if local.shape[0]:
@@ -101,6 +104,15 @@ def sharded_lookup(table, ids):
     else:                     # an empty block (ceil(V / n) rows a block)
         part = local.new_zeros((*every.shape, local.shape[1]))
     return _reduce(part, rows, partial)
+
+
+def dtensor_lookup(table, ids):
+    """``F.embedding(ids, table)`` of a row-sharded DTensor table [V, D] at
+    DTensor ids [n, ...] (split on their first dimension or whole) ->
+    DTensor rows [n, ..., D] in the ids' layout: :func:`sharded_lookup` of
+    the ids' local block. No rank gathers the table."""
+    rows = (ids.device_mesh, tuple(ids.placements), ids.shape[0])
+    return rows_dtensor(sharded_lookup(table, ids.to_local(), rows), rows)
 
 
 def rows_reduce(table, ids, weights, reduce, rows=None):

@@ -50,7 +50,7 @@ __all__ = ["ShardRules", "Spec", "as_module", "batch_rows", "cast_floating",
            "is_row_sharded", "layer_list", "local_param", "local_params",
            "on_batch_rows",
            "on_whole", "pin_batch", "place", "place_tree", "placements",
-           "rows_dtensor", "rows_partial", "sum_over_rows",
+           "reduce_over", "rows_dtensor", "rows_partial", "sum_over_rows",
            "replicated_like", "tensor_tree", "tree_to",
            "flatten_with_paths", "map_with_paths", "mesh_sizes",
            "param_bytes", "param_count", "spec_axes", "tree_paths",
@@ -338,11 +338,13 @@ def place(t: torch.Tensor, spec: Spec, mesh):
 
 
 def place_tree(tree: Any, specs: Any, mesh) -> Any:
-    """``place`` over a nested dict of whole tensors and its spec tree (the
-    same nesting); a spec of None leaves its leaf as it is (a host
-    counter)."""
+    """``place`` over a nested dict (or list: the LM's per-layer caches) of
+    whole tensors and its spec tree (the same nesting); a spec of None
+    leaves its leaf as it is (a host counter)."""
     if isinstance(tree, dict):
         return {k: place_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [place_tree(v, s, mesh) for v, s in zip(tree, specs)]
     return tree if specs is None else place(tree, specs, mesh)
 
 
@@ -495,3 +497,19 @@ def sum_over_rows(t: torch.Tensor, mesh, rows_pl):
     from torch.distributed.tensor import DTensor
     return DTensor.from_local(t, mesh, rows_partial(rows_pl),
                               run_check=False).full_tensor()
+
+
+def reduce_over(t: torch.Tensor, mesh, dims, op: str = "sum"):
+    """A plain tensor ``t`` reduced (``op``: "sum" or "max") over the
+    ranks of the mesh dimensions ``dims`` (indices): an all-reduce over
+    each, one after another, every rank of them given the result as a
+    plain tensor. The other mesh dimensions are left alone (their ranks
+    may hold different ``t``)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    rep = [Replicate()] * mesh.ndim
+    for d in dims:
+        pl = [Partial(op) if i == d else Replicate()
+              for i in range(mesh.ndim)]
+        t = DTensor.from_local(t, mesh, pl, run_check=False).redistribute(
+            mesh, rep).to_local()
+    return t

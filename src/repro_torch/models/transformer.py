@@ -33,9 +33,14 @@ chunked cross-entropy, each chunk's fp32 logits recomputed in the
 backward; ``lm_loss`` adds 0.01 · the MoE aux loss.
 
 On a mesh the same code runs on DTensors (``launch/steps.
-build_lm_train_step(mesh=)``). Three sites here differ: the embedding
-lookup reads the table whole (``_embed``: DTensor's masked lookup of a
-row-sharded table does not reduce), ``chunked_xent`` takes a chunk's
+build_lm_train_step(mesh=)``, ``build_lm_prefill``, ``build_lm_decode``).
+Four sites here differ: the embedding lookup reads the row-sharded table
+on its blocks (``_embed``: ``models/embedding.dtensor_lookup``, each
+rank's ids looked up in its own rows and the partial rows summed; no rank
+gathers the table, and DTensor's own masked lookup does not reduce),
+``decode_hidden`` pins each branch's output to the tokens' layout and
+writes the DTensor caches on each rank's block (``attention.
+_decode_mesh``), ``chunked_xent`` takes a chunk's
 logsumexp and gold logit from the vocabulary-sharded logits without
 gathering them (``_lse_gold_sharded``: the same masked gather fails),
 and ``_group_apply`` pins each branch's output and the residual to the
@@ -58,8 +63,10 @@ from repro_torch.models import layers as L
 from repro_torch.models.attention import (AttnConfig, attend_decode,
                                           attend_train, attn_init,
                                           decode_cache_len)
+from repro_torch.models.embedding import dtensor_lookup
 from repro_torch.models.module import (as_module, grad_asked, is_dtensor,
-                                       layer_list, pin_batch, unshard_dim)
+                                       is_row_sharded, layer_list, pin_batch,
+                                       unshard_dim)
 from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
 
 
@@ -201,9 +208,13 @@ def lm_init(cfg: LMConfig, *, seed: int = 0,
 # --------------------------------------------------------------- forward ----
 def _embed(params, cfg: LMConfig, tokens):
     table = params["embed"]["table"]
-    # on a mesh the lookup reads the row-sharded table whole: DTensor's
-    # masked lookup (MaskPartial) fails to reduce
-    x = L.embedding_apply({"table": unshard_dim(table, 0)}, tokens)
+    if is_row_sharded(table):
+        # on a mesh each rank looks up its ids in its block of the table,
+        # the partial rows summed (DTensor's masked lookup, MaskPartial,
+        # fails to reduce; gathering the table costs 1.6 GB for gemma)
+        x = dtensor_lookup(table, tokens)
+    else:
+        x = L.embedding_apply(params["embed"], tokens)
     if cfg.embed_scale:
         # rounded to the activation dtype first, as the reference does:
         # sqrt(3072) = 55.4256 is 55.5 in bf16
@@ -382,18 +393,26 @@ def init_cache(cfg: LMConfig, batch: int, context_len: int,
 def decode_hidden(params, cfg: LMConfig, token, caches, pos):
     """One decode step up to the final norm: token [B], caches (written in
     place), pos [B] -> final hidden [B, d]. The layers run in a Python loop
-    (an SWA ring buffer and a full cache differ in shape)."""
+    (an SWA ring buffer and a full cache differ in shape). On DTensors each
+    branch's output and the residual keep the tokens' layout (split over
+    the data axes, or whole at B = 1), as ``_group_apply`` pins them."""
     with torch.inference_mode():
-        x = _embed(params, cfg, token)[:, None, :]
+        x = _embed(params, cfg, token).unsqueeze(1)
+        rows = x.placements if is_dtensor(x) else None
+
+        def pin(t):
+            return t if rows is None else t.redistribute(t.device_mesh, rows)
+
         for layer, lp in enumerate(layer_list(params["layers"])):
             acfg = cfg.attn_cfg(layer % cfg.period)
             c = caches[layer]
             h = L.rmsnorm_apply(lp["ln_attn"], x)
             out, _, _ = attend_decode(lp["attn"], acfg, h, c["k"], c["v"],
                                       pos)
-            x = x + out
-            x = x + _ffn(lp, cfg, L.rmsnorm_apply(lp["ln_mlp"], x))[0]
-        return L.rmsnorm_apply(params["ln_final"], x)[:, 0, :]
+            x = pin(x + pin(out))
+            y = _ffn(lp, cfg, L.rmsnorm_apply(lp["ln_mlp"], x))[0]
+            x = pin(x + pin(y))
+        return L.rmsnorm_apply(params["ln_final"], x).squeeze(1)
 
 
 def lm_decode_step(params, cfg: LMConfig, token, caches, pos):

@@ -77,11 +77,12 @@ def test_irli_deep1b_records_against_the_reference(tmp_path, mesh_kind):
     assert serve["world_size"] == train["world_size"] == world
     skip = out["before_error"]["gemma-7b/long_500k"]
     assert skip["status"] == "skip" and "quadratic" in skip["reason"]
-    # ok, cached, skip: 0; an unported cell: an error and exit code 1
+    # ok, cached, skip: 0; a shape the registry lacks: an error and exit
+    # code 1
     assert out["rcs"] == [0, 0, 0, 1]
     err = json.loads((tmp_path / "dry.json").read_text())[
-        "gemma-7b/decode_32k"]
-    assert err["status"] == "error" and "slice 15" in err["error"]
+        "gemma-7b/no_such_shape"]
+    assert err["status"] == "error" and "no_such_shape" in err["error"]
 
 
 def test_deep1b_serve_store_accounting():

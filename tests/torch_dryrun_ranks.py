@@ -135,8 +135,8 @@ def lm_dryrun(tmp: str) -> None:
 
 def serve_dryrun(tmp: str, mesh_kind: str) -> None:
     """The CLI's dry run of irli-deep1b on one production mesh, then of a
-    skipped and of an unported cell, into ``dry.json``; the exit codes to
-    ``rc.json``."""
+    skipped cell and of a shape the registry lacks, into ``dry.json``; the
+    exit codes to ``rc.json``."""
     from repro_torch.launch import dryrun as DR
     out = str(Path(tmp) / "dry.json")
     rcs = [DR.main(["--mesh", mesh_kind, "--arch", "irli-deep1b",
@@ -147,7 +147,7 @@ def serve_dryrun(tmp: str, mesh_kind: str) -> None:
                     "long_500k", "--out", out])]
     ok = json.loads(Path(out).read_text())
     rcs.append(DR.main(["--mesh", mesh_kind, "--arch", "gemma-7b",
-                        "--shape", "decode_32k", "--out", out]))
+                        "--shape", "no_such_shape", "--out", out]))
     (Path(tmp) / "rc.json").write_text(json.dumps(
         {"rcs": rcs, "before_error": ok}))
 
@@ -165,3 +165,85 @@ def ctr_dryrun(tmp: str, mesh_kind: str) -> None:
     rcs = [DR.main(["--mesh", mesh_kind, "--arch", a, "--out", out])
            for a in CTR_ARCHS]
     (Path(tmp) / "ctr_rc.json").write_text(json.dumps(rcs))
+
+
+def _shard_bytes(tree, specs, mesh) -> int:
+    """Bytes of rank 0's local shards of a tree (dicts and lists) of
+    global shapes under its spec tree."""
+    from repro_torch.launch import dryrun as DR
+    if isinstance(tree, dict):
+        return sum(_shard_bytes(v, specs[k], mesh) for k, v in tree.items())
+    if isinstance(tree, list):
+        return sum(_shard_bytes(v, s, mesh) for v, s in zip(tree, specs))
+    return math.prod(DR._local_shape(tree.shape, specs, mesh)) \
+        * tree.dtype.itemsize
+
+
+def _kernel_layers(cfg) -> int:
+    """The layers whose prefill attention takes the flash-attention
+    kernel (``models/attention.uses_kernel`` at the params' dtype)."""
+    import torch
+
+    from repro_torch.models.attention import uses_kernel
+    dt = getattr(torch, cfg.param_dtype)
+    return sum(uses_kernel(cfg.attn_cfg(i % cfg.period), dt)
+               for i in range(cfg.n_layers))
+
+
+def lm_serve_dryrun(tmp: str, mesh_kind: str, group: str) -> None:
+    """The dry run of the LM serve cells of ``group`` on one production
+    mesh (``torch_dryrun_lm_serve``: "decode", the decode_32k and
+    long_500k cells; "prefill", the prefill_32k cells) -> ``lm_<group>_
+    <mesh>.json``: the records, rank 0's shard bytes of each cell's params
+    (by ``rules()``) and inputs (by its in_specs, the caches' per layer)
+    summed independently, the kernel layers of each prefill and the CLI's
+    exit codes. The full-size cells go through the CLI, an arch and shape
+    a call; the MoE prefill cells are recorded cut (``CUT_SEQ``,
+    ``CUT_LAYERS``) by ``record_cell`` on an arch built from the cut
+    config."""
+    import dataclasses
+    import importlib
+
+    import torch_dryrun_lm_serve as C
+
+    from repro_torch.configs import lm_common
+    from repro_torch.configs.registry import ARCHS, get_arch
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_production_mesh
+    cells = C.DECODE_CELLS if group == "decode" else C.PREFILL_CELLS
+
+    def cut(cell):
+        return group == "prefill" and cell.split("/")[0] in C.CUT_LAYERS
+
+    dry = str(Path(tmp) / f"dry_{group}_{mesh_kind}.json")
+    rcs = [DR.main(["--mesh", mesh_kind, "--arch", c.split("/")[0],
+                    "--shape", c.split("/")[1], "--out", dry])
+           for c in cells if not cut(c)]
+    recs = json.loads(Path(dry).read_text())
+    DR.fake_world(DR.WORLD[mesh_kind])
+    mesh = make_production_mesh(multi_pod=mesh_kind == "multi",
+                                device_type="cuda")
+    want, launches = {}, {}
+    for cell in cells:
+        name, shape = cell.split("/")
+        cfg = importlib.import_module(ARCHS[name]).CONFIG
+        arch = get_arch(name)
+        if cut(cell):
+            cfg = dataclasses.replace(cfg, n_layers=C.CUT_LAYERS[name])
+            whole = lm_common.SHAPES[shape]
+            lm_common.SHAPES[shape] = dict(whole, seq=C.CUT_SEQ)
+            try:
+                arch = lm_common.make_lm_arch(cfg, opt=arch.opt)
+            finally:
+                lm_common.SHAPES[shape] = whole
+            recs[cell] = DR.record_cell(arch, shape, mesh)
+        meta = arch.abstract_params()
+        c = arch.cells[shape]
+        want[cell] = (_shard_bytes(meta, arch.rules().specs(meta), mesh)
+                      + _shard_bytes(c.inputs(mesh), c.in_specs(mesh),
+                                     mesh))
+        launches[cell] = _kernel_layers(cfg) if shape == "prefill_32k" \
+            else 0
+    (Path(tmp) / f"lm_{group}_{mesh_kind}.json").write_text(json.dumps(
+        {"records": {c: recs[c] for c in cells}, "want": want,
+         "launches": launches, "rcs": rcs}))
